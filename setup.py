@@ -29,8 +29,11 @@ setup(
     description=("TPU-native multi-object tracking with track-query "
                  "transformers (JAX/XLA/Pallas)"),
     packages=find_packages(include=["trackformer_tpu",
-                                    "trackformer_tpu.*"]),
-    package_data={"trackformer_tpu": ["cfgs/*.yaml"]},
+                                    "trackformer_tpu.*",
+                                    "trackformer_tpu_torch",
+                                    "trackformer_tpu_torch.*"]),
+    package_data={"trackformer_tpu": ["cfgs/*.yaml"],
+                  "trackformer_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "pyyaml",

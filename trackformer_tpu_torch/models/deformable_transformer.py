@@ -1,0 +1,214 @@
+"""Deformable transformer: the MSDA module, encoder layers and stack,
+decoder layer, reference points and valid ratios.
+
+Counterpart of `trackformer_tpu/models/deformable_transformer.py`. As
+there, the decoder loop with box refinement lives in the DeformableDETR
+head. `DeformableTransformer` here only groups the parameters under the
+original checkpoint keys (`transformer.level_embed`,
+`transformer.encoder.layers.{i}`, `transformer.decoder.layers.{i}`,
+`transformer.reference_points`). Every norm takes its eps explicitly: the
+JAX package uses flax's 1e-6.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..ops.msda import ms_deform_attn
+from .attention import MultiHeadAttention
+
+LN_EPS = 1e-6
+
+
+@functools.lru_cache(maxsize=16)
+def _shapes_tensor(spatial_shapes: Tuple[Tuple[int, int], ...],
+                   device: torch.device) -> torch.Tensor:
+    """(L, 2) float32 level shapes on `device`, made once per shape set: a
+    fresh host-to-device copy each call would wait for the stream."""
+    return torch.tensor(spatial_shapes, dtype=torch.float32, device=device)
+
+
+class MSDeformAttnModule(nn.Module):
+    """Projections and sampling around the MSDA core op."""
+
+    def __init__(self, d_model: int, n_levels: int, n_heads: int = 8,
+                 n_points: int = 4):
+        super().__init__()
+        self.d_model, self.n_levels = d_model, n_levels
+        self.n_heads, self.n_points = n_heads, n_points
+        self.sampling_offsets = nn.Linear(d_model,
+                                          n_heads * n_levels * n_points * 2)
+        self.attention_weights = nn.Linear(d_model,
+                                           n_heads * n_levels * n_points)
+        self.value_proj = nn.Linear(d_model, d_model)
+        self.output_proj = nn.Linear(d_model, d_model)
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                src: torch.Tensor, spatial_shapes: Tuple[Tuple[int, int], ...],
+                src_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """query (B, Lq, C); reference_points (B, Lq, L, 2|4) in [0, 1];
+        src (B, S, C); src_padding_mask (B, S) True = pad."""
+        b, lq, _ = query.shape
+        s = src.shape[1]
+        m, l, p = self.n_heads, self.n_levels, self.n_points
+        d = self.d_model // m
+
+        value = self.value_proj(src)
+        if src_padding_mask is not None:
+            value = value.masked_fill(src_padding_mask[..., None], 0.0)
+        value = value.view(b, s, m, d)
+
+        offsets = self.sampling_offsets(query).view(b, lq, m, l, p, 2)
+        attn = self.attention_weights(query).view(b, lq, m, l * p)
+        attn = attn.softmax(-1).view(b, lq, m, l, p)
+
+        # offsets are normalized by (H, W), not (W, H): the original
+        # checkpoints embody that convention
+        shapes_hw = _shapes_tensor(spatial_shapes, query.device)
+        if reference_points.shape[-1] == 2:
+            loc = (reference_points[:, :, None, :, None, :]
+                   + offsets / shapes_hw[None, None, None, :, None, :])
+        else:
+            loc = (reference_points[:, :, None, :, None, :2]
+                   + offsets / p * reference_points[:, :, None, :, None, 2:]
+                   * 0.5)
+        out = ms_deform_attn(value, spatial_shapes, loc.float(), attn.float())
+        return self.output_proj(out.to(query.dtype))
+
+
+class DeformableEncoderLayer(nn.Module):
+
+    def __init__(self, d_model: int, n_levels: int, n_heads: int,
+                 n_points: int, dim_feedforward: int):
+        super().__init__()
+        self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads,
+                                            n_points)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, src, pos, reference_points, spatial_shapes,
+                padding_mask=None):
+        src2 = self.self_attn(src + pos if pos is not None else src,
+                              reference_points, src, spatial_shapes,
+                              padding_mask)
+        src = self.norm1(src + src2)
+        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+
+
+def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
+                             valid_ratios: torch.Tensor) -> torch.Tensor:
+    """Token-centre grid normalized by the valid extent -> (B, S, L, 2)."""
+    refs = []
+    dev = valid_ratios.device
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        ref_y = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5)
+        ref_x = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)
+        ref_y = ref_y[:, None].expand(h, w).reshape(-1)
+        ref_x = ref_x[None, :].expand(h, w).reshape(-1)
+        ry = ref_y[None] / (valid_ratios[:, None, lvl, 1] * h)
+        rx = ref_x[None] / (valid_ratios[:, None, lvl, 0] * w)
+        refs.append(torch.stack([rx, ry], -1))
+    reference_points = torch.cat(refs, dim=1)
+    return reference_points[:, :, None] * valid_ratios[:, None]
+
+
+class DeformableEncoder(nn.Module):
+
+    def __init__(self, d_model: int, n_levels: int, num_layers: int,
+                 n_heads: int, n_points: int, dim_feedforward: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DeformableEncoderLayer(d_model, n_levels, n_heads, n_points,
+                                   dim_feedforward)
+            for _ in range(num_layers))
+
+    def forward(self, src, spatial_shapes, valid_ratios, pos=None,
+                padding_mask=None):
+        reference_points = encoder_reference_points(spatial_shapes,
+                                                    valid_ratios)
+        out = src
+        for layer in self.layers:
+            out = layer(out, pos, reference_points, spatial_shapes,
+                        padding_mask)
+        return out
+
+
+class DeformableDecoderLayer(nn.Module):
+
+    def __init__(self, d_model: int, n_levels: int, n_heads: int,
+                 n_points: int, dim_feedforward: int):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(d_model, n_heads)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads,
+                                             n_points)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
+                src_padding_mask=None, tgt_key_padding_mask=None):
+        """reference_points are already valid-ratio scaled (B, Q, L, 2|4)."""
+        q = k = tgt + query_pos
+        tgt = self.norm2(tgt + self.self_attn(q, k, tgt,
+                                              tgt_key_padding_mask))
+        t2 = self.cross_attn(tgt + query_pos, reference_points, src,
+                             spatial_shapes, src_padding_mask)
+        tgt = self.norm1(tgt + t2)
+        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+
+
+class DeformableDecoder(nn.Module):
+    """Holds the decoder layers; the refinement loop is in DeformableDETR."""
+
+    def __init__(self, d_model: int, n_levels: int, num_layers: int,
+                 n_heads: int, n_points: int, dim_feedforward: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DeformableDecoderLayer(d_model, n_levels, n_heads, n_points,
+                                   dim_feedforward)
+            for _ in range(num_layers))
+
+
+class DeformableTransformer(nn.Module):
+    """Parameter group under the original `transformer.*` keys."""
+
+    def __init__(self, d_model: int, total_levels: int, enc_levels: int,
+                 enc_layers: int, dec_layers: int, n_heads: int,
+                 enc_n_points: int, dec_n_points: int, dim_feedforward: int):
+        super().__init__()
+        self.level_embed = nn.Parameter(torch.empty(total_levels, d_model))
+        self.encoder = DeformableEncoder(d_model, enc_levels, enc_layers,
+                                         n_heads, enc_n_points,
+                                         dim_feedforward)
+        self.decoder = DeformableDecoder(d_model, total_levels, dec_layers,
+                                         n_heads, dec_n_points,
+                                         dim_feedforward)
+        self.reference_points = nn.Linear(d_model, 2)
+
+
+def get_valid_ratio(mask: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) pad mask -> (B, 2) valid fraction of (w, h)."""
+    _, h, w = mask.shape
+    valid_h = (~mask[:, :, 0]).sum(1).float()
+    valid_w = (~mask[:, 0, :]).sum(1).float()
+    return torch.stack([valid_w / w, valid_h / h], -1)
+
+
+def decoder_reference_input(reference_points: torch.Tensor,
+                            valid_ratios: torch.Tensor) -> torch.Tensor:
+    """Scale (B, Q, 2|4) reference points by the per-level valid ratios
+    -> (B, Q, L, 2|4)."""
+    if reference_points.shape[-1] == 4:
+        vr = torch.cat([valid_ratios, valid_ratios], -1)
+    else:
+        vr = valid_ratios
+    return reference_points[:, :, None] * vr[:, None]

@@ -1,0 +1,392 @@
+"""Online multi-object tracker: a fixed-slot state machine on the device.
+
+Counterpart of `trackformer_tpu/tracking/tracker.py`. The tracker state is
+a `TrackerState` of S fixed slots with masks: a slot is `active`,
+`inactive`, or free. Each per-track list operation of the reference
+tracker is a masked tensor op. The step runs the model and the whole track
+logic on the device; the host shell keeps the prev-feature deque and
+appends the per-frame results.
+
+Semantics follow the JAX package, including its documented deviations:
+new tracks fill free slots in slot order, and surplus detections beyond
+the free slots are dropped. Segmentation masks and attention maps are not
+ported in this slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import deque
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from ..ops import box_ops
+from ..ops.assignment import hungarian_rect
+from ..ops.nms import greedy_assign_by_column, nms_mask
+from ..structures import FrameBatch, empty_targets
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackerConfig:
+    detection_obj_score_thresh: float = 0.4
+    track_obj_score_thresh: float = 0.4
+    detection_nms_thresh: float = 0.9
+    track_nms_thresh: float = 0.9
+    public_detections: Any = False
+    inactive_patience: float = -1.0
+    reid_sim_threshold: float = 0.0
+    reid_sim_only: bool = False
+    reid_score_thresh: float = 0.4
+    reid_greedy_matching: bool = False
+    prev_frame_dist: int = 1
+    steps_termination: int = 1
+    max_tracks: int = 150
+    num_object_queries: int = 300
+    overflow_boxes: bool = False
+
+    @classmethod
+    def from_dict(cls, d: dict, **kw) -> "TrackerConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields}, **kw)
+
+
+@dataclasses.dataclass
+class TrackerState:
+    boxes: torch.Tensor           # (S, 4) absolute xyxy
+    scores: torch.Tensor          # (S,)
+    hs: torch.Tensor              # (S, C) float32
+    ids: torch.Tensor             # (S,) int64, -1 when free
+    obj_ind: torch.Tensor         # (S,) query index at creation
+    active: torch.Tensor          # (S,) bool
+    inactive: torch.Tensor        # (S,) bool
+    count_inactive: torch.Tensor  # (S,)
+    count_term: torch.Tensor      # (S,)
+    next_id: torch.Tensor         # ()
+    num_reids: torch.Tensor       # ()
+
+    def replace(self, **changes) -> "TrackerState":
+        return dataclasses.replace(self, **changes)
+
+
+def init_state(max_tracks: int, hidden_dim: int,
+               device: torch.device | str = "cpu") -> TrackerState:
+    s = max_tracks
+
+    def ints(fill):
+        return torch.full((s,), fill, dtype=torch.long, device=device)
+
+    return TrackerState(
+        boxes=torch.zeros(s, 4, device=device),
+        scores=torch.zeros(s, device=device),
+        hs=torch.zeros(s, hidden_dim, device=device),
+        ids=ints(-1), obj_ind=ints(-1),
+        active=torch.zeros(s, dtype=torch.bool, device=device),
+        inactive=torch.zeros(s, dtype=torch.bool, device=device),
+        count_inactive=ints(0), count_term=ints(0),
+        next_id=torch.zeros((), dtype=torch.long, device=device),
+        num_reids=torch.zeros((), dtype=torch.long, device=device))
+
+
+def _positive_area(boxes: torch.Tensor) -> torch.Tensor:
+    return (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+
+
+def _prune_inactive(state: TrackerState, cfg: TrackerConfig) -> TrackerState:
+    """Drop inactive slots past patience or with degenerate boxes."""
+    keep = (_positive_area(state.boxes)
+            & (state.count_inactive <= cfg.inactive_patience))
+    drop = state.inactive & ~keep
+    return state.replace(inactive=state.inactive & ~drop,
+                         ids=torch.where(drop, -1, state.ids))
+
+
+def _scatter_new_tracks(state: TrackerState, det_keep, det_boxes,
+                        det_scores, det_hs, cfg: TrackerConfig):
+    """Occupy free slots (in slot order) with the kept detections. Writes
+    for detections that find no slot go to a dummy extra slot, dropped."""
+    s = cfg.max_tracks
+    dev = det_keep.device
+    slots = torch.arange(s, device=dev)
+    free = ~(state.active | state.inactive)
+    n_free = free.sum()
+    slot_order = torch.argsort(torch.where(free, slots, s + 1), stable=True)
+    rank = det_keep.long().cumsum(0) - 1  # 0-based rank among kept
+    ok = det_keep & (rank < n_free)
+    slot = torch.where(ok, slot_order[rank.clamp(0, s - 1)], s)
+
+    def put(x, v):
+        padded = torch.cat([x, torch.zeros_like(x[:1])])
+        padded[slot] = v if torch.is_tensor(v) else torch.as_tensor(
+            v, dtype=x.dtype, device=dev)
+        return padded[:s]
+
+    q = det_keep.shape[0]
+    n_new = ok.sum()
+    new_state = state.replace(
+        boxes=put(state.boxes, det_boxes),
+        scores=put(state.scores, det_scores),
+        hs=put(state.hs, det_hs.to(state.hs.dtype)),
+        ids=put(state.ids, state.next_id + rank),
+        obj_ind=put(state.obj_ind, torch.arange(q, device=dev)),
+        active=put(state.active, True),
+        count_term=put(state.count_term, 0),
+        count_inactive=put(state.count_inactive, 0),
+        next_id=state.next_id + n_new)
+    new_track_mask = put(torch.zeros(s, dtype=torch.bool, device=dev), True)
+    return new_state, new_track_mask
+
+
+def _public_detections_mask(cfg: TrackerConfig, det_boxes, det_keep,
+                            public_boxes, public_valid):
+    """Keep only detections matched to a public detection."""
+    mode = cfg.public_detections
+    if not mode:
+        return det_keep
+    if mode == "center_distance":
+        det_c = box_ops.box_xyxy_to_cxcywh(det_boxes)[:, :2]
+        pub_c = box_ops.box_xyxy_to_cxcywh(public_boxes)[:, :2]
+        d = det_c[:, None] - pub_c[None]
+        dist = (d * d).sum(-1)
+        area = box_ops.box_area(det_boxes)
+        assigned = greedy_assign_by_column(
+            dist, det_keep, public_valid,
+            accept_fn=lambda v, i: v < area[i], maximize=False)
+    elif mode == "min_iou_0_5":
+        iou, _ = box_ops.box_iou(det_boxes, public_boxes, eps=1e-9)
+        assigned = greedy_assign_by_column(
+            iou, det_keep, public_valid,
+            accept_fn=lambda v, i: v >= 0.5, maximize=True)
+    else:
+        raise NotImplementedError(f"public_detections={mode!r}")
+    return det_keep & assigned
+
+
+def _reid(state: TrackerState, det_boxes, det_scores, det_hs, det_keep,
+          cfg: TrackerConfig):
+    """Revive inactive tracks from the remaining detections. Returns
+    (state, det_keep). Skipped when no slot is inactive or no detection
+    remains."""
+    if not bool(state.inactive.any() & det_keep.any()):
+        return state, det_keep
+    s = cfg.max_tracks
+    dev = det_keep.device
+    inact = state.inactive
+
+    if cfg.reid_greedy_matching:
+        t_c = box_ops.box_xyxy_to_cxcywh(state.boxes)
+        d_c = box_ops.box_xyxy_to_cxcywh(det_boxes)
+        dd = t_c[:, None, :2] - d_c[None, :, :2]
+        dist = (dd * dd).sum(-1)
+        track_size = t_c[:, 2] * t_c[:, 3]
+        item_size = d_c[:, 2] * d_c[:, 3]
+        invalid = (dist > track_size[:, None]) | (dist > item_size[None, :])
+        dist = dist + invalid * 1e18
+        dist = torch.where(inact[:, None] & det_keep[None, :], dist,
+                           torch.inf)
+        revive_det = torch.full((s,), -1, dtype=torch.long, device=dev)
+        taken = torch.zeros_like(det_keep)
+        for i in range(s):  # greedy per inactive row
+            row = torch.where(taken, torch.inf, dist[i])
+            j = row.argmin()
+            ok = inact[i] & (row[j] < 1e16)
+            revive_det[i] = torch.where(ok, j, -1)
+            taken[j] = taken[j] | ok
+    else:
+        # hs-embed L2 distance + optimal assignment. The JAX package solves
+        # the full (S, Q) problem with BIG costs outside inactive x kept;
+        # its optimum on those entries is the rectangular optimum of that
+        # submatrix, which is what is solved here.
+        diff = state.hs[:, None] - det_hs[None].to(state.hs.dtype)
+        dist = torch.sqrt((diff * diff).sum(-1) + 1e-12)
+        rows = inact.nonzero()[:, 0]
+        cols = det_keep.nonzero()[:, 0]
+        col4row = hungarian_rect(dist[rows][:, cols])
+        matched = col4row >= 0
+        revive_det = torch.full((s,), -1, dtype=torch.long, device=dev)
+        revive_det[rows[matched]] = cols[col4row[matched]]
+        pair_d = dist.gather(1, revive_det.clamp(min=0)[:, None])[:, 0]
+        revive_det = torch.where(
+            (revive_det >= 0) & (pair_d <= cfg.reid_sim_threshold),
+            revive_det, -1)
+
+    reviving = revive_det >= 0
+    det_idx = revive_det.clamp(0, det_boxes.shape[0] - 1)
+    state = state.replace(
+        boxes=torch.where(reviving[:, None], det_boxes[det_idx], state.boxes),
+        scores=torch.where(reviving, det_scores[det_idx], state.scores),
+        hs=torch.where(reviving[:, None], det_hs[det_idx].to(state.hs.dtype),
+                       state.hs),
+        count_inactive=torch.where(reviving, 0, state.count_inactive),
+        active=state.active | reviving,
+        inactive=state.inactive & ~reviving,
+        num_reids=state.num_reids + reviving.sum())
+    # detections consumed by reid are removed
+    consumed = torch.zeros(det_keep.shape, dtype=torch.long, device=dev)
+    consumed.index_put_((det_idx,), reviving.long(), accumulate=True)
+    return state, det_keep & (consumed == 0)
+
+
+def _prepare_track_queries(state: TrackerState, orig_size: torch.Tensor,
+                           cfg: TrackerConfig):
+    """Prune, then build the track-query inputs. orig_size: (2,) (h, w)."""
+    state = _prune_inactive(state, cfg)
+    live = state.active | state.inactive
+    h, w = orig_size[0].float(), orig_size[1].float()
+    scale = torch.stack([w, h, w, h])
+    tq_boxes = box_ops.box_xyxy_to_cxcywh(state.boxes / scale)
+    return state, state.hs, tq_boxes, live
+
+
+def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
+                 hs_all, public_boxes, public_valid, hw,
+                 cfg: TrackerConfig):
+    """All post-model track logic for one sequence."""
+    s = cfg.max_tracks
+    h, w = hw[0], hw[1]
+    if not cfg.overflow_boxes:
+        boxes_all = box_ops.clip_boxes_to_image(boxes_all, (h, w))
+
+    # --- existing tracks ---
+    t_scores, t_boxes = scores_all[:s], boxes_all[:s]
+    t_labels, t_hs = labels_all[:s], hs_all[:s]
+    keep = (t_scores > cfg.track_obj_score_thresh) & (t_labels == 0) \
+        & state.active
+    ct = torch.where(keep, 0, state.count_term + (state.active & ~keep))
+    to_inactive = state.active & ~keep & (ct >= cfg.steps_termination)
+    rk = (t_scores > cfg.reid_score_thresh) & (t_labels == 0) \
+        & state.inactive
+    upd = keep | rk
+    state = state.replace(
+        boxes=torch.where(upd[:, None], t_boxes, state.boxes),
+        scores=torch.where(upd, t_scores, state.scores),
+        hs=torch.where(upd[:, None], t_hs.to(state.hs.dtype), state.hs),
+        count_term=ct,
+        active=(state.active & ~to_inactive) | rk,
+        inactive=(state.inactive | to_inactive) & ~rk,
+        num_reids=state.num_reids + rk.sum())
+
+    # --- track NMS: suppressed slots are freed ---
+    if cfg.track_nms_thresh:
+        keep_nms = nms_mask(state.boxes, state.scores, state.active,
+                            cfg.track_nms_thresh)
+        removed = state.active & ~keep_nms
+        state = state.replace(active=state.active & keep_nms,
+                              ids=torch.where(removed, -1, state.ids))
+
+    # --- new detections ---
+    d_scores, d_boxes = scores_all[s:], boxes_all[s:]
+    d_labels, d_hs = labels_all[s:], hs_all[s:]
+    d_keep = (d_scores > cfg.detection_obj_score_thresh) & (d_labels == 0)
+    d_keep = _public_detections_mask(cfg, d_boxes, d_keep, public_boxes,
+                                     public_valid)
+    state, d_keep = _reid(state, d_boxes, d_scores, d_hs, d_keep, cfg)
+    state, new_track_mask = _scatter_new_tracks(state, d_keep, d_boxes,
+                                                d_scores, d_hs, cfg)
+
+    # --- detection NMS: old tracks pinned with an infinite score ---
+    if cfg.detection_nms_thresh:
+        nms_scores = torch.where(new_track_mask, state.scores, torch.inf)
+        keep_nms = nms_mask(state.boxes, nms_scores, state.active,
+                            cfg.detection_nms_thresh)
+        removed = state.active & ~keep_nms
+        state = state.replace(active=state.active & keep_nms,
+                              ids=torch.where(removed, -1, state.ids))
+
+    # --- per-frame results ---
+    res_boxes = state.boxes if cfg.overflow_boxes else \
+        box_ops.clip_boxes_to_image(state.boxes, (h, w))
+    frame_results = {"ids": torch.where(state.active, state.ids, -1),
+                     "boxes": res_boxes, "scores": state.scores,
+                     "obj_ind": state.obj_ind}
+    state = state.replace(
+        count_inactive=state.count_inactive + state.inactive.long())
+    if cfg.reid_sim_only:
+        state = state.replace(inactive=state.inactive | state.active,
+                              active=torch.zeros_like(state.active))
+    return state, frame_results
+
+
+def make_tracker_step(model: Callable, postprocess: Callable,
+                      cfg: TrackerConfig):
+    """The per-frame step: step(state, batch (1, H, W, 3), orig_size (1, 2),
+    public_boxes (P, 4), public_valid (P,), prev_features) ->
+    (state, frame_results, features). `model(batch, targets,
+    prev_features)` returns the model 5-tuple."""
+
+    def step(state, batch: FrameBatch, orig_size, public_boxes, public_valid,
+             prev_features):
+        state, tq_hs, tq_boxes, tq_valid = _prepare_track_queries(
+            state, orig_size[0], cfg)
+        targets = empty_targets(1, 1, tq_hs.device).with_track_queries(
+            tq_hs[None], tq_boxes[None], tq_valid[None])
+        out, _, features, _, _ = model(batch, targets, prev_features)
+        res = postprocess(out, orig_size)
+        state, frame_results = _track_logic(
+            state, res["boxes"][0], res["scores"][0], res["labels"][0],
+            out["hs_embed"][0], public_boxes, public_valid,
+            orig_size[0].float(), cfg)
+        return state, frame_results, features
+
+    return step
+
+
+class Tracker:
+    """Host shell: drives the step over a sequence and accumulates
+    MOTChallenge-style results (reset / step / get_results)."""
+
+    def __init__(self, model: torch.nn.Module, postprocess: Callable,
+                 tracker_cfg: dict, hidden_dim: int, num_object_queries: int,
+                 overflow_boxes: bool = False):
+        self.cfg = TrackerConfig.from_dict(
+            {**tracker_cfg, "num_object_queries": num_object_queries,
+             "overflow_boxes": overflow_boxes})
+        self.hidden_dim = hidden_dim
+        self.device = next(model.parameters()).device
+        self._step = make_tracker_step(model, postprocess, self.cfg)
+        self.reset()
+
+    def reset(self) -> None:
+        """Start a new sequence."""
+        self.state = init_state(self.cfg.max_tracks, self.hidden_dim,
+                                self.device)
+        self._prev_features = deque([None], maxlen=self.cfg.prev_frame_dist)
+        self.results: Dict[int, Dict[int, dict]] = {}
+        self.frame_index = 0
+        self.num_reids = 0
+
+    def step(self, blob: dict) -> None:
+        """blob: {"batch": FrameBatch (1, H, W, 3), "orig_size": (1, 2)
+        (h, w), optional "dets": (P, 4) public detections}."""
+        dev = self.device
+        batch = blob["batch"]
+        orig_size = torch.as_tensor(blob["orig_size"], device=dev)
+        p_max = 128
+        dets = np.asarray(blob.get("dets", np.zeros((0, 4), np.float32)),
+                          dtype=np.float32).reshape(-1, 4)[:p_max]
+        public_boxes = np.zeros((p_max, 4), np.float32)
+        public_valid = np.zeros((p_max,), bool)
+        public_boxes[:len(dets)] = dets
+        public_valid[:len(dets)] = True
+
+        prev = self._prev_features[0]
+        with torch.inference_mode():
+            self.state, frame_results, features = self._step(
+                self.state, batch, orig_size,
+                torch.as_tensor(public_boxes, device=dev),
+                torch.as_tensor(public_valid, device=dev), prev)
+        self._prev_features.append(features)
+
+        res = {k: v.cpu().numpy() for k, v in frame_results.items()}
+        ids = res["ids"]
+        for slot in np.nonzero(ids >= 0)[0]:
+            tid = int(ids[slot])
+            self.results.setdefault(tid, {})[self.frame_index] = {
+                "bbox": res["boxes"][slot],
+                "score": float(res["scores"][slot]),
+                "obj_ind": int(res["obj_ind"][slot])}
+        self.frame_index += 1
+        self.num_reids = int(self.state.num_reids)
+
+    def get_results(self) -> Dict[int, Dict[int, dict]]:
+        return self.results
