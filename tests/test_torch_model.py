@@ -87,7 +87,7 @@ def make_track_queries(c):
     valid = np.array([[True, False, True, True]])
     jt = jempty_targets(1, 1).with_track_queries(
         jnp.asarray(hs), jnp.asarray(boxes), jnp.asarray(valid))
-    tt = empty_targets(1, 1).with_track_queries(
+    tt = empty_targets(1, 1, "cpu").with_track_queries(
         torch.from_numpy(hs), torch.from_numpy(boxes),
         torch.from_numpy(valid))
     return jt, tt
@@ -98,17 +98,20 @@ def close(got, want, atol=ATOL):
                                atol=atol, rtol=1e-4)
 
 
-def test_config_matches_yaml():
-    train = load_config("train.yaml", NAMED)
+def assert_config_matches(cfg: FlagshipConfig, train: dict) -> None:
+    """Every field of `cfg` against the YAML loader's train config and
+    cfgs/track.yaml. A `tpu.*` key the YAML leaves unset takes the JAX
+    model's default, as the JAX factory does."""
+    from trackformer_tpu.models.deformable_detr import DeformableDETR
     track = load_config("track.yaml")
-    cfg = FlagshipConfig()
     tpu_keys = {"encoder_attention", "decoder_attention", "scan_layers",
-                "cached_prev_memory"}
+                "cached_prev_memory", "encoder_window"}
     for f in dataclasses.fields(cfg):
         name = f.name
         got = getattr(cfg, name)
         if name in tpu_keys:
-            assert got == train["tpu"][name], name
+            assert got == train["tpu"].get(
+                name, getattr(DeformableDETR, name)), name
         elif name in ("val_width", "max_size"):
             assert got == train["img_transform"][name], name
         elif name == "image_bucket":
@@ -121,6 +124,19 @@ def test_config_matches_yaml():
             assert got == track["tpu"][name], name
         else:
             assert got == train[name], name
+
+
+def test_config_matches_yaml():
+    assert_config_matches(FlagshipConfig(), load_config("train.yaml", NAMED))
+
+
+def test_build_model_defaults_to_the_card():
+    """Without a device, build_model builds on CUDA: on a machine without
+    one it raises rather than quietly building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(tiny_cfg())
 
 
 def test_weight_conversion_covers_every_port_param(models):

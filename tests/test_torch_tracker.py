@@ -181,7 +181,7 @@ def test_track_logic_matches_jax(variant, monkeypatch):
     jcfg = jtr.TrackerConfig(**kw)
     tcfg = ttr.TrackerConfig(**kw)
     jst = jtr.init_state(S, C)
-    tst = ttr.init_state(S, C)
+    tst = ttr.init_state(S, C, "cpu")
     def logic(st, *a):
         return jtr._track_logic(st, a[0], a[1], a[2], a[3], None, None,
                                 a[4], a[5], a[6], jcfg)

@@ -4,7 +4,8 @@ Counterpart of `trackformer_tpu/models/attention.py`; the decoder's
 self-attention uses it. Parameters are laid out as torch's
 `nn.MultiheadAttention` (`in_proj_weight` packs q/k/v, then `out_proj`), so
 original checkpoints load as they are. Logits and softmax run in float32,
-as the JAX package's `preferred_element_type=float32` contraction does.
+as the JAX package's `preferred_element_type=float32` contraction does, and
+every projection rounds as flax's `Dense` does (`dense`).
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
+
+from ..ops.linear import dense
 
 
 class MultiHeadAttention(nn.Module):
@@ -37,9 +39,9 @@ class MultiHeadAttention(nn.Module):
         h, dh = self.num_heads, c // self.num_heads
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
-        q = F.linear(query, wq, bq).view(b, lq, h, dh).transpose(1, 2)
-        k = F.linear(key, wk, bk).view(b, lk, h, dh).transpose(1, 2)
-        v = F.linear(value, wv, bv).view(b, lk, h, dh).transpose(1, 2)
+        q = dense(query, wq, bq).view(b, lq, h, dh).transpose(1, 2)
+        k = dense(key, wk, bk).view(b, lk, h, dh).transpose(1, 2)
+        v = dense(value, wv, bv).view(b, lk, h, dh).transpose(1, 2)
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         logits = logits / math.sqrt(dh)
         if key_padding_mask is not None:
@@ -47,4 +49,4 @@ class MultiHeadAttention(nn.Module):
                                         torch.finfo(torch.float32).min)
         attn = logits.softmax(-1).to(v.dtype)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
-        return self.out_proj(out)
+        return dense(out, self.out_proj.weight, self.out_proj.bias)

@@ -3,12 +3,21 @@ separate per-frame deformable encoder, the box-refinement decoder and
 track-query injection.
 
 Counterpart of `trackformer_tpu/models/deformable_detr.py`, for the
-flagship configuration only: multi-frame attention with a separate
-encoder per frame, box refinement, no two-stage, no scanned layers, no
-windowed encoder, no cached prev memory, no merged frame features. The
+flagship configuration in its two encoder modes: multi-frame attention with
+a separate encoder per frame and box refinement, where the encoder is
+either
+
+  * exact MSDA, run on both frames every step; or
+  * the TPU-fast mode (`cfgs/tpu_fast.yaml`): the windowed encoder, run on
+    the current frame only, frame-symmetrically (frame-0 positions and the
+    first half of the level embeds); the previous step's encoded memory is
+    reused as the previous half, and a learned `frame_embed` restores frame
+    identity after the encoder.
+
+No two-stage, no scanned layers, no merged frame features. The
 concatenation order is the JAX package's: memory is [cur, prev], while
-spatial shapes, masks, positions and valid ratios are built prev frame
-first.
+spatial shapes, masks, positions and valid ratios of the exact mode are
+built prev frame first.
 """
 from __future__ import annotations
 
@@ -50,8 +59,12 @@ class DeformableDETR(nn.Module):
                  dec_layers: int = 6, dim_feedforward: int = 1024,
                  num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, backbone_name: str = "resnet50",
-                 dilation: bool = False, aux_loss: bool = True):
+                 dilation: bool = False, aux_loss: bool = True,
+                 encoder_window: Optional[int] = None):
+        """`encoder_window` None: the exact-MSDA encoder; an int: the
+        TPU-fast mode with a windowed encoder of that window side."""
         super().__init__()
+        self.cached_memory = encoder_window is not None
         self.num_queries = num_queries
         self.hidden_dim = hidden_dim
         self.num_feature_levels = num_feature_levels
@@ -70,7 +83,8 @@ class DeformableDETR(nn.Module):
         self.query_embed = nn.Embedding(num_queries, 2 * hidden_dim)
         self.transformer = DeformableTransformer(
             hidden_dim, total_levels, num_feature_levels, enc_layers,
-            dec_layers, nheads, enc_n_points, dec_n_points, dim_feedforward)
+            dec_layers, nheads, enc_n_points, dec_n_points, dim_feedforward,
+            encoder_window)
         self.class_embed = nn.ModuleList(
             nn.Linear(hidden_dim, num_classes + 1) for _ in range(dec_layers))
         self.bbox_embed = nn.ModuleList(
@@ -108,6 +122,9 @@ class DeformableDETR(nn.Module):
         features, feat_masks = self.backbone[0](batch)
         feature_pairs = list(zip(features, feat_masks))
         cur3, cur3_masks = features[-3:], feat_masks[-3:]
+        if self.cached_memory:
+            return self._forward_cached(batch, targets, prev_features, cur3,
+                                        cur3_masks, feature_pairs)
         if prev_features is None:
             prev3, prev3_masks = cur3, cur3_masks
         else:
@@ -143,6 +160,29 @@ class DeformableDETR(nn.Module):
         memory = torch.cat([cur_memory, prev_memory], 1)
         return self._decode(batch, targets, memory, spatial_shapes,
                             mask_flat, valid_ratios, feature_pairs)
+
+    def _forward_cached(self, batch, targets, prev_features, cur3,
+                        cur3_masks, feature_pairs):
+        """The TPU-fast mode: encode the current frame only; the previous
+        half of the memory is `prev_features[-1][0]`, the encoded memory
+        this method appends to `feature_pairs` (the current frame's own on
+        the first frame)."""
+        srcs, masks, poses = self._project_frame(cur3, cur3_masks, batch.mask,
+                                                 0)
+        level_embed = self.transformer.level_embed
+        half_shapes = tuple((s.shape[-2], s.shape[-1]) for s in srcs)
+        mask_half = torch.cat([m.flatten(1) for m in masks], 1)
+        vr_half = torch.stack([get_valid_ratio(m) for m in masks], 1)
+        cur_memory = self.transformer.encoder(
+            srcs, masks, [p + level_embed[i] for i, p in enumerate(poses)])
+        prev_memory = (cur_memory if prev_features is None
+                       else prev_features[-1][0].to(cur_memory.dtype))
+        fe = self.transformer.frame_embed
+        memory = torch.cat([cur_memory + fe[1], prev_memory + fe[0]], 1)
+        feature_pairs.append((cur_memory, mask_half))
+        return self._decode(batch, targets, memory, half_shapes * 2,
+                            torch.cat([mask_half, mask_half], 1),
+                            torch.cat([vr_half, vr_half], 1), feature_pairs)
 
     def _decode(self, batch, targets, memory, spatial_shapes, mask_flat,
                 valid_ratios, feature_pairs):

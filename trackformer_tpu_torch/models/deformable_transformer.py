@@ -20,6 +20,7 @@ from torch.nn import functional as F
 
 from ..ops.msda import ms_deform_attn
 from .attention import MultiHeadAttention
+from .windowed_encoder import WindowedEncoder
 
 LN_EPS = 1e-6
 
@@ -179,16 +180,26 @@ class DeformableDecoder(nn.Module):
 
 
 class DeformableTransformer(nn.Module):
-    """Parameter group under the original `transformer.*` keys."""
+    """Parameter group under the original `transformer.*` keys. With
+    `encoder_window` the encoder is the TPU-fast `WindowedEncoder` of that
+    window side, and `frame_embed` (2, C) restores frame identity to the
+    cached memory (keys the original has not; `convert.py`)."""
 
     def __init__(self, d_model: int, total_levels: int, enc_levels: int,
                  enc_layers: int, dec_layers: int, n_heads: int,
-                 enc_n_points: int, dec_n_points: int, dim_feedforward: int):
+                 enc_n_points: int, dec_n_points: int, dim_feedforward: int,
+                 encoder_window: Optional[int] = None):
         super().__init__()
         self.level_embed = nn.Parameter(torch.empty(total_levels, d_model))
-        self.encoder = DeformableEncoder(d_model, enc_levels, enc_layers,
-                                         n_heads, enc_n_points,
-                                         dim_feedforward)
+        if encoder_window is None:
+            self.encoder = DeformableEncoder(d_model, enc_levels, enc_layers,
+                                             n_heads, enc_n_points,
+                                             dim_feedforward)
+        else:
+            self.encoder = WindowedEncoder(d_model, enc_levels, enc_layers,
+                                           n_heads, dim_feedforward,
+                                           encoder_window)
+            self.frame_embed = nn.Parameter(torch.empty(2, d_model))
         self.decoder = DeformableDecoder(d_model, total_levels, dec_layers,
                                          n_heads, dec_n_points,
                                          dim_feedforward)

@@ -1,11 +1,12 @@
 """Model factory: the flagship configuration -> (model, postprocessor).
 
 Counterpart of the part of `trackformer_tpu/models/factory.py` that builds
-the tracking model. Only the configuration this port supports is
-accepted. `init_params` draws every weight from an explicit
-`torch.Generator` with the JAX package's initializers (flax defaults:
-lecun-normal kernels, zero biases; plus the model's own special inits), so
-a seed gives the same weights on every run of one device type.
+the tracking model. Only the configurations this port supports are
+accepted: the flagship with the exact-MSDA encoder, or in the TPU-fast
+mode (`FlagshipConfig.tpu_fast()`). `init_params` draws every weight from
+an explicit `torch.Generator` with the JAX package's initializers (flax
+defaults: lecun-normal kernels, zero biases; plus the model's own special
+inits), so a seed gives the same weights on every run of one device type.
 """
 from __future__ import annotations
 
@@ -36,17 +37,24 @@ DATASET_NUM_CLASSES = {
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+# the two encoder modes ported: exact MSDA over both frames, and the
+# TPU-fast windowed encoder over the current frame with the cached memory
+_ENCODER_MODES = {("msda", False), ("windowed", True)}
+
+
 def _check_supported(cfg: FlagshipConfig) -> None:
     wanted = dict(deformable=True, with_box_refine=True, two_stage=False,
                   masks=False, focal_loss=True, multi_frame_attention=True,
                   multi_frame_encoding=True,
                   multi_frame_attention_separate_encoder=True,
-                  merge_frame_features=False, encoder_attention="msda",
-                  decoder_attention="msda", scan_layers=False,
-                  cached_prev_memory=False, position_embedding="sine",
+                  merge_frame_features=False, decoder_attention="msda",
+                  scan_layers=False, position_embedding="sine",
                   num_feature_levels=4)
     bad = {k: getattr(cfg, k) for k, v in wanted.items()
            if getattr(cfg, k) != v}
+    mode = (cfg.encoder_attention, cfg.cached_prev_memory)
+    if mode not in _ENCODER_MODES:
+        bad.update(encoder_attention=mode[0], cached_prev_memory=mode[1])
     if bad:
         raise NotImplementedError(f"not ported yet: {bad}")
 
@@ -104,6 +112,8 @@ def init_params(model: DeformableDETR, generator: torch.Generator) -> None:
                 msda_offset_bias(mod.n_heads, mod.n_levels, mod.n_points)))
             mod.attention_weights.weight.zero_()
     model.transformer.level_embed.normal_(0.0, 1.0, generator=g)
+    if model.cached_memory:
+        model.transformer.frame_embed.normal_(0.0, 1.0, generator=g)
     model.query_embed.weight.normal_(0.0, 1.0, generator=g)
     xavier(model.transformer.reference_points.weight)
     focal_bias = -math.log((1 - 0.01) / 0.01)
@@ -114,15 +124,20 @@ def init_params(model: DeformableDETR, generator: torch.Generator) -> None:
         box.layers[-1].bias.copy_(torch.tensor([0.0, 0.0, -2.0, -2.0]))
 
 
-def build_model(cfg: FlagshipConfig, device: torch.device | str = "cpu",
+def build_model(cfg: FlagshipConfig,
+                device: torch.device | str = torch.device("cuda"),
                 generator: torch.Generator | None = None
                 ) -> Tuple[DeformableDETR, Callable]:
-    """Build the model on `device` in the config's compute dtype. With a
-    generator the weights are drawn from it; without one they are left
-    uninitialized for `load_state_dict`. FrozenBN statistics stay float32,
-    as the JAX package keeps its parameters float32 and casts them at
-    use."""
+    """Build the model on `device` (the card unless the caller asks for the
+    CPU) in the config's compute dtype. With a generator the weights are
+    drawn from it; without one they are left uninitialized for
+    `load_state_dict`. FrozenBN statistics stay float32, as the JAX package
+    keeps its parameters float32 and casts them at use."""
     _check_supported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
+                           "to build on the CPU")
     head_classes = DATASET_NUM_CLASSES[cfg.dataset] - 1  # focal: no bg slot
     with torch.device("meta"):
         model = DeformableDETR(
@@ -133,7 +148,9 @@ def build_model(cfg: FlagshipConfig, device: torch.device | str = "cpu",
             num_feature_levels=cfg.num_feature_levels,
             dec_n_points=cfg.dec_n_points, enc_n_points=cfg.enc_n_points,
             backbone_name=cfg.backbone, dilation=cfg.dilation,
-            aux_loss=cfg.aux_loss)
+            aux_loss=cfg.aux_loss,
+            encoder_window=(cfg.encoder_window
+                            if cfg.encoder_attention == "windowed" else None))
     model.to_empty(device=device)
     if generator is not None:
         init_params(model, generator)

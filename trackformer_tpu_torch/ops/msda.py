@@ -22,28 +22,18 @@ the TPU's missing gather. On a CPU tensor the op runs the plain version
 `ms_deform_attn_plain`. Nothing falls back from the kernel to the plain
 version.
 
-The kernel is built from the sources in `csrc/` at first use, with nvcc,
-into `_build/` beside this package, keyed by a hash of the sources and the
-flags, and loaded with ctypes. This slice is forward only: a CUDA call with
-inputs that require grad raises.
+The kernel is built from `csrc/msda_fwd.cu` at first use (`cuda_build.py`).
+This slice is forward only: a CUDA call with inputs that require grad
+raises.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc" / "msda_fwd.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .cuda_build import CudaLib
 # queries per block: enough work per block to amortize its start, small
 # enough that the encoder call still spreads over every SM several times
 Q_PER_BLOCK = 4
@@ -121,54 +111,11 @@ def ms_deform_attn_plain(value: torch.Tensor,
 # CUDA kernel: build, load, launch
 # --------------------------------------------------------------------------
 
-class _Kernel:
-    lib: Optional[ctypes.CDLL] = None
-    build_seconds: Optional[float] = None
-    build_log: str = ""
-    path: Optional[Path] = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME)")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build_kernel() -> ctypes.CDLL:
-    """Compile `csrc/msda_fwd.cu` into `_build/` (once per source hash) and
-    load it. Records the build seconds and nvcc's ptxas report."""
-    if _Kernel.lib is not None:
-        return _Kernel.lib
-    src = CSRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"msda_fwd_{key[:16]}.so"
-    t0 = time.perf_counter()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(CSRC)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-        _Kernel.build_log = (proc.stdout + proc.stderr).strip()
-    lib = ctypes.CDLL(str(so))
-    lib.msda_fwd.restype = ctypes.c_int
-    lib.msda_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
-    _Kernel.lib = lib
-    _Kernel.path = so
-    _Kernel.build_seconds = time.perf_counter() - t0
-    return lib
-
-
-def kernel_build_info() -> dict:
-    return {"path": None if _Kernel.path is None else str(_Kernel.path),
-            "seconds": _Kernel.build_seconds, "log": _Kernel.build_log}
+LIB = CudaLib("msda_fwd.cu", {"msda_fwd": (
+    ctypes.c_int,
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+       ctypes.c_void_p])})
 
 
 def _check_inputs(value, spatial_shapes, loc, attn):
@@ -208,7 +155,7 @@ def msda_fwd_cuda(value: torch.Tensor,
     in the value dtype. Counts the launch for `wrapper`."""
     _check_inputs(value, spatial_shapes, sampling_locations,
                   attention_weights)
-    lib = build_kernel()
+    lib = LIB.load()
     n, s, m, d = value.shape
     _, lq, _, l, p, _ = sampling_locations.shape
     out = torch.empty(n, lq, m, d, dtype=value.dtype, device=value.device)

@@ -96,7 +96,8 @@ class Targets:
 
 
 def empty_targets(batch_size: int, max_objects: int,
-                  device: torch.device | str = "cpu") -> Targets:
+                  device: torch.device | str = torch.device("cuda")
+                  ) -> Targets:
     """All-padding Targets (pure detection forward passes)."""
     b, t = batch_size, max_objects
     return Targets(

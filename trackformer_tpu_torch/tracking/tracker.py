@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -70,7 +70,8 @@ class TrackerState:
 
 
 def init_state(max_tracks: int, hidden_dim: int,
-               device: torch.device | str = "cpu") -> TrackerState:
+               device: torch.device | str = torch.device("cuda")
+               ) -> TrackerState:
     s = max_tracks
 
     def ints(fill):
@@ -308,25 +309,54 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
 
 
 def make_tracker_step(model: Callable, postprocess: Callable,
-                      cfg: TrackerConfig):
-    """The per-frame step: step(state, batch (1, H, W, 3), orig_size (1, 2),
+                      cfg: TrackerConfig, batched: bool = False):
+    """The per-frame step. `model(batch, targets, prev_features)` returns
+    the model 5-tuple.
+
+    Unbatched (default): step(state, batch (1, H, W, 3), orig_size (1, 2),
     public_boxes (P, 4), public_valid (P,), prev_features) ->
-    (state, frame_results, features). `model(batch, targets,
-    prev_features)` returns the model 5-tuple."""
+    (state, frame_results, features).
+
+    Batched: step(states, batch (B, H, W, 3), orig_sizes (B, 2),
+    public_boxes (B, P, 4), public_valid (B, P), prev_features) ->
+    (states, frame_results, features), with a list of B states in and out
+    and a list of B result dicts. The model runs once at batch B; the track
+    logic, which reads a few scalars back to the host (the NMS fixed point,
+    the reid gate and solver), runs per sequence on its slice of the
+    batched outputs."""
+
+    def core(states: List[TrackerState], batch: FrameBatch, orig_sizes,
+             public_boxes, public_valid, prev_features):
+        prepared = [_prepare_track_queries(st, osz, cfg)
+                    for st, osz in zip(states, orig_sizes)]
+        states = [p[0] for p in prepared]
+        tq_hs, tq_boxes, tq_valid = (torch.stack([p[i] for p in prepared])
+                                     for i in (1, 2, 3))
+        targets = empty_targets(len(states), 1, tq_hs.device
+                                ).with_track_queries(tq_hs, tq_boxes,
+                                                     tq_valid)
+        out, _, features, _, _ = model(batch, targets, prev_features)
+        res = postprocess(out, orig_sizes)
+        hw = orig_sizes.float()
+        new_states, frame_results = [], []
+        for i, st in enumerate(states):
+            st, fr = _track_logic(st, res["boxes"][i], res["scores"][i],
+                                  res["labels"][i], out["hs_embed"][i],
+                                  public_boxes[i], public_valid[i], hw[i],
+                                  cfg)
+            new_states.append(st)
+            frame_results.append(fr)
+        return new_states, frame_results, features
+
+    if batched:
+        return core
 
     def step(state, batch: FrameBatch, orig_size, public_boxes, public_valid,
              prev_features):
-        state, tq_hs, tq_boxes, tq_valid = _prepare_track_queries(
-            state, orig_size[0], cfg)
-        targets = empty_targets(1, 1, tq_hs.device).with_track_queries(
-            tq_hs[None], tq_boxes[None], tq_valid[None])
-        out, _, features, _, _ = model(batch, targets, prev_features)
-        res = postprocess(out, orig_size)
-        state, frame_results = _track_logic(
-            state, res["boxes"][0], res["scores"][0], res["labels"][0],
-            out["hs_embed"][0], public_boxes, public_valid,
-            orig_size[0].float(), cfg)
-        return state, frame_results, features
+        states, frame_results, features = core(
+            [state], batch, orig_size, public_boxes[None], public_valid[None],
+            prev_features)
+        return states[0], frame_results[0], features
 
     return step
 

@@ -3,8 +3,10 @@
 It holds the values that the JAX package's
 `load_config("train.yaml", ["deformable", "tracking", "multi_frame"])`
 gives, together with `cfgs/track.yaml`, so the port needs neither YAML nor
-the JAX package to build its main path. A test holds every field against
-`trackformer_tpu.utils.config.load_config`.
+the JAX package to build its main path. `FlagshipConfig.tpu_fast()` adds
+the named config `tpu_fast` (`cfgs/tpu_fast.yaml`): the windowed encoder
+with the cached previous-frame memory. Tests hold every field of both
+against `trackformer_tpu.utils.config.load_config`.
 """
 from __future__ import annotations
 
@@ -64,6 +66,9 @@ class FlagshipConfig:
     decoder_attention: str = "msda"
     scan_layers: bool = False
     cached_prev_memory: bool = False
+    # window side in tokens of the windowed encoder (the JAX factory's
+    # default; cfgs/tpu_fast.yaml sets the same)
+    encoder_window: int = 8
     # eval transform (train.yaml `img_transform`) and the image bucket it
     # pads to (train.yaml `tpu.image_buckets`)
     val_width: int = 800
@@ -77,3 +82,12 @@ class FlagshipConfig:
 
     def replace(self, **changes) -> "FlagshipConfig":
         return dataclasses.replace(self, **changes)
+
+    @classmethod
+    def tpu_fast(cls, **changes) -> "FlagshipConfig":
+        """The flagship with the named config `tpu_fast` on top: windowed
+        encoder, exact-MSDA decoder, cached previous-frame memory. Its
+        `lr_warmup_steps` applies to training only and is not held here."""
+        return cls(encoder_attention="windowed", encoder_window=8,
+                   decoder_attention="msda", cached_prev_memory=True,
+                   **changes)
