@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's tracking step, on one NVIDIA GPU.
+"""Where the time goes in the port's tracking step and its training step,
+on one NVIDIA GPU.
 
     python3 chip_profile.py [--frames 8] [--seed 0] [--out DIR]
+                            [--paths exact_b1,fast_b1,fast_b8,train_v5,train_v2]
 
 For each path — the exact mode through `Tracker` (B = 1), the TPU-fast mode
 through `Tracker` (B = 1) and through `BatchedTracker` (8 sequences in
@@ -19,6 +21,14 @@ synthetic 800x1344 frames of `chip_smoke.py`:
     host) and of the untraced steady step above
     (`device_share_of_untraced_step`), kernel launches per step, and the
     device time by operator (top 12).
+
+The training step (`train_v5`, `train_v2`: the two encoder routes of
+`PALLAS_SKIP_IMPL`) is the full-width exact-MSDA flagship in bfloat16, B = 2
+frame pairs at 800x1344 with `chip_smoke.py`'s synthetic boxes: three
+untraced steps (step ms and its split by stage, host clock with a
+synchronize after each stage; the median of the last two), then one traced
+step: device ms, the device's busy share, kernel launches, device time by
+operator, the MSDA kernels' launch counts, and peak memory.
 
 One JSON line per path, also written to `--out DIR` when given.
 
@@ -148,35 +158,117 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
                                                                 indent=1))
 
 
+def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
+    from chip_smoke import (launch_counts, reset_launch_counts,
+                            synthetic_train_pack)
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, crit_cfg, _, track_cfg = build_model(cfg, "cuda", generator=gen,
+                                                train=True)
+    optimizer = make_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer)
+    split = {}
+
+    def timings(stage):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[stage] = (now - timings.last) * 1e3
+        timings.last = now
+
+    step_fn = make_train_step(model, crit_cfg, optimizer, track_cfg,
+                              tracking=True, timings=timings)
+    saved_impl = msda.PALLAS_SKIP_IMPL
+    msda.PALLAS_SKIP_IMPL = route
+    try:
+        step_ms, splits = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(3):
+            pack = synthetic_train_pack(cfg, seed, step)
+            torch.cuda.synchronize()
+            t0 = timings.last = time.perf_counter()
+            state, metrics = step_fn(state, pack, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            splits.append(dict(split))
+        peak = torch.cuda.max_memory_allocated()
+        pack = synthetic_train_pack(cfg, seed, 3)
+        reset_launch_counts()
+
+        def profiled():
+            timings.last = time.perf_counter()
+            step_fn(state, pack, gen)
+        dev_ms, wall_ms, launches, top = profile_steps(profiled, 1)
+        counts = launch_counts()
+    finally:
+        msda.PALLAS_SKIP_IMPL = saved_impl
+    steady_ms = statistics.median(step_ms[1:])
+    line = {"path": tag, "batch": 2, "route": route,
+            "steady_step_ms": steady_ms,
+            "step_ms": [round(t, 2) for t in step_ms],
+            "steady_split_ms": {k: round(statistics.median(
+                s[k] for s in splits[1:]), 2) for k in splits[0]},
+            "loss": float(metrics["loss"]),
+            "peak_memory_gib": peak / 2 ** 30,
+            "profiled_device_ms_per_step": dev_ms,
+            "profiled_wall_ms_per_step": wall_ms,
+            "device_busy_share": dev_ms / wall_ms,
+            "device_share_of_untraced_step": dev_ms / steady_ms,
+            "kernel_launches_per_step": launches,
+            "msda_launches_per_step": {k: v for k, v in counts.items() if v},
+            "top_device_ops": top}
+    print(json.dumps(line), flush=True)
+    if out_dir is not None:
+        (out_dir / f"profile_{tag}.json").write_text(json.dumps(line,
+                                                                indent=1))
+
+
+PATHS = ("exact_b1", "fast_b1", "fast_b8", "train_v5", "train_v2")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--paths", default=",".join(PATHS),
+                    help="comma-separated subset of: " + ", ".join(PATHS))
     args = ap.parse_args()
+    paths = [x for x in args.paths.split(",") if x]
+    if set(paths) - set(PATHS):
+        ap.error(f"unknown paths {sorted(set(paths) - set(PATHS))}")
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
     import subprocess
 
-    from trackformer_tpu_torch.ops import msda, window_attn
+    from trackformer_tpu_torch.ops import msda, msda_dense, window_attn
     from trackformer_tpu_torch.ops.cuda_build import build_all
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    build_all([msda.LIB, window_attn.LIB])
+    build_all([msda.LIB, msda.BWD_LIB, msda_dense.V2_LIB, window_attn.LIB])
     out_dir = None if args.out is None else Path(args.out)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
     exact = FlagshipConfig().replace(dataset="mot_crowdhuman")
     fast = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
-    with torch.inference_mode():
-        run_path("exact_b1", exact, 1, args.frames, args.seed, out_dir)
-        run_path("fast_b1", fast, 1, args.frames, args.seed, out_dir)
-        run_path("fast_b8", fast, 8, args.frames, args.seed, out_dir)
+    serving = {"exact_b1": (exact, 1), "fast_b1": (fast, 1),
+               "fast_b8": (fast, 8)}
+    for tag in paths:
+        if tag in serving:
+            with torch.inference_mode():
+                run_path(tag, *serving[tag], args.frames, args.seed, out_dir)
+        else:
+            run_train(tag, tag.split("_")[1], args.seed, out_dir)
     return 0
 
 

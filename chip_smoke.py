@@ -2,37 +2,68 @@
 """Smoke run of the PyTorch + CUDA port (trackformer_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--frames 8] [--seed 0]
+    python3 chip_smoke.py [--frames 6] [--seed 0] [--phases a,b,...]
 
-Phases, one line each:
-  1. device: requires CUDA, prints `nvidia-smi` name and power limit;
-  2. build: compiles both kernels from trackformer_tpu_torch/csrc for
+Phases, a few lines each (`--phases` runs a subset and then ends with a
+last line marked "partial"; the kernels line needs all of them):
+  device: requires CUDA, prints `nvidia-smi` name and power limit;
+  build: compiles the four kernel sources of trackformer_tpu_torch/csrc for
      sm_90a, one nvcc each, started together; reports each one's seconds
      and registers;
-  3. kernel msda: holds each MSDA wrapper's CUDA launch against the plain
-     PyTorch version at the main paths' shapes (encoder all levels;
-     decoder eight levels at B = 1 and at the lockstep step's B = 8; one
-     decoder level), in float32 with TF32 off and in bfloat16, and times
-     both;
-  4. kernel window_layer: holds the fused window-layer kernel against its
-     plain version at the fast mode's B = 1 and B = 8 shapes (380 and 3,040
-     windows of 64 tokens, C = 288), both shift parities, with the key
-     padding of the 750x1333 region in the 800x1344 bucket (fully-padded
-     windows present), in float32 and bfloat16; times it, the plain
-     version, a library composition (cuBLAS linears +
-     scaled_dot_product_attention + layer_norm) and the weight packing;
+  msda: holds each MSDA wrapper's CUDA launch against the plain PyTorch
+     version at the main paths' shapes (encoder all levels at B = 1 and at
+     the training step's B = 2; decoder eight levels at B = 1, at the
+     lockstep step's B = 8 and at the training step's 611 and 500 queries,
+     B = 2;
+     one decoder level), in float32 with TF32 off and in bfloat16, and
+     times both;
+  window: holds the fused window-layer kernel against its plain version at
+     the fast mode's B = 1 and B = 8 shapes (380 and 3,040 windows of 64
+     tokens, C = 288), both shift parities, with the key padding of the
+     750x1333 region in the 800x1344 bucket (fully-padded windows
+     present), in float32 and bfloat16; times it, the plain version, a
+     library composition (cuBLAS linears + scaled_dot_product_attention +
+     layer_norm) and the weight packing;
+  msda_bwd: holds the backward kernel's three gradients against autograd
+     through the plain version at the training step's encoder call (N = 2,
+     Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
+     levels) and route v2's four single-level encoder calls, float32 and
+     bfloat16, with samples outside [0, 1];
+  dense_v2: holds the block-skipping level kernel against the plain level
+     on each of the four encoder levels, float32 and bfloat16, N = 1 and 2,
+     with the initial offsets and with offsets six times as large, and its
+     row bands against `v2_row_band`; times it, the plain version and the
+     gather kernel on the same level; then the differentiable wrapper
+     `dense_level_pallas_v2` on a slice of the value table, and the whole
+     encoder call through route "v2" of `ms_deform_attn`: output and the
+     three gradients against autograd through the plain version;
   Times are CUDA-event medians over back-to-back calls (`time_ms`);
-  5. slice exact: the full-width flagship model (hidden 288, 6+6 layers,
-     500 queries, 4 levels x 2 frames, exact MSDA) with seeded random
-     weights in bfloat16 through the port's `Tracker` over synthetic
-     800x1344 frames, counting the kernel launches of that run; then the
-     same weights' float32 forward on the card against the CPU;
-  6. slice fast: the same in the TPU-fast mode (windowed encoder, cached
-     memory): `Tracker` over the frames, 6 window-layer and 6 decoder MSDA
-     launches per frame; then `BatchedTracker` over 8 sequences in
-     lockstep; then the float32 forward, card against CPU, over two frames
-     (the second reuses the first's cached memory).
-Then one JSON line with the kernels, and last the device line
+  exact: the full-width flagship model (hidden 288, 6+6 layers, 500
+     queries, 4 levels x 2 frames, exact MSDA) with seeded random weights
+     in bfloat16 through the port's `Tracker` over synthetic 800x1344
+     frames, counting the kernel launches of that run; then the same
+     weights' float32 forward on the card against the CPU;
+  fast: the same in the TPU-fast mode (windowed encoder, cached memory):
+     `Tracker` over the frames, 6 window-layer and 6 decoder MSDA launches
+     per frame; then `BatchedTracker` over 8 sequences in lockstep; then
+     the float32 forward, card against CPU, over two frames (the second
+     reuses the first's cached memory);
+  train: two-frame track-query training of the full-width exact-MSDA
+     flagship in bfloat16, B = 2 frame pairs at 800x1344 with seeded
+     synthetic boxes and track ids: 3 optimizer steps with the encoder on
+     route "v5" (the gather kernel), then 2 on route "v2" (the
+     block-skipping kernel, one launch per level) from the same state;
+     finite losses, moved trainable and unmoved frozen weights, the launch
+     counts of every step, step ms with its split by stage, peak memory;
+     route v2's first loss, first grad_norm and second loss against route
+     v5's;
+  train_reference: one float32 train step at 128x192, 2 + 2 layers, on the
+     card (kernels) against the same step on the CPU (plain versions):
+     loss, grad_norm and every gradient name by name, for two seeds, held
+     against the CPU's float32 step and, ten times closer, its float64 step.
+Then one JSON line with the kernels, each with the launches that the main
+paths made at exactly its shape (it fails if a path launched a kernel at a
+shape that no kernel phase held), and last the device line
 `{"ok": true, "device": {...}}`. Any failed check exits non-zero before
 that line; without a CUDA device the script exits non-zero at once.
 """
@@ -58,6 +89,11 @@ VALID_HW = (750, 1333)         # a 1080x1920 video under the eval transform
 M, D, P = 8, 36, 4
 C, FF = 288, 1024
 DEC_QUERIES = 650  # 150 track slots + 500 object queries
+# training shapes: two frame pairs per step; the decoder sees 500 object
+# queries + 111 track-query slots (100 objects + 11 false positives)
+TRAIN_BATCH = 2
+TRAIN_DEC_QUERIES = 611
+TRAIN_PREV_QUERIES = 500       # the previous frame's forward: no track query
 # float32: the kernel and the plain version sum in different orders;
 # bfloat16: the kernel rounds its float32 sum to bfloat16 once (half an
 # ulp, at most 2^-8 relative) where the plain version returns float32
@@ -139,26 +175,45 @@ def reset_launch_counts() -> None:
     window_attn.reset_launch_counts()
 
 
+# MSDA launches of the main paths by shape, (count name, items, queries per
+# item, levels) -> launches, summed over the paths' runs: each run adds what
+# the wrappers counted between its reset and its read (`record_path`)
+PATH_SHAPES: dict = {}
+
+
+def record_path() -> None:
+    from trackformer_tpu_torch.ops import msda
+    for key, n in msda.launch_shapes().items():
+        PATH_SHAPES[key] = PATH_SHAPES.get(key, 0) + n
+
+
 # --------------------------------------------------------------------------
 # kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def msda_inputs(shapes, lq, encoder, gen, n=1):
+def token_centres(shapes) -> torch.Tensor:
+    """(S, 2) normalized (x, y) centre of every cell of every level, in
+    raster order: the encoder's reference points on an unpadded image."""
+    refs = []
+    for h, w in shapes:
+        ys = (torch.arange(h, device="cuda") + 0.5) / h
+        xs = (torch.arange(w, device="cuda") + 0.5) / w
+        refs.append(torch.stack(torch.broadcast_tensors(
+            xs[None, :], ys[:, None]), -1).reshape(-1, 2))
+    return torch.cat(refs)
+
+
+def msda_inputs(shapes, lq, encoder, gen, n=1, ref_shapes=None):
     """value, locations, weights of `n` items on the card. Encoder queries
-    sample near their own token (as a trained encoder does); decoder
-    queries anywhere, some corners out of range."""
+    (the tokens of `ref_shapes`, by default of `shapes`) sample near their
+    own token (as a trained encoder does); decoder queries anywhere, some
+    corners out of range."""
     dev = "cuda"
     s = sum(h * w for h, w in shapes)
     value = torch.randn(n, s, M, D, device=dev, generator=gen)
     nl = len(shapes)
     if encoder:
-        refs = []
-        for h, w in shapes:
-            ys = (torch.arange(h, device=dev) + 0.5) / h
-            xs = (torch.arange(w, device=dev) + 0.5) / w
-            refs.append(torch.stack(torch.broadcast_tensors(
-                xs[None, :], ys[:, None]), -1).reshape(-1, 2))
-        ref = torch.cat(refs)[None, :, None, None, None, :]
+        ref = token_centres(ref_shapes or shapes)[None, :, None, None, None, :]
         jitter = torch.randn(n, lq, M, nl, P, 2, device=dev, generator=gen)
         loc = ref + 0.03 * jitter
     else:
@@ -188,18 +243,36 @@ def kernel_phase_msda(seed: int):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dec_levels = LEVELS * 2
     mid = LEVELS[1]
+    s_enc = sum(h * w for h, w in LEVELS)
+
+    def enc_kernel(v, lo, a):
+        return msda_patch(v, LEVELS, lo, a)
+
+    def enc_plain(v, lo, a):
+        return msda.ms_deform_attn_plain(v, LEVELS, lo, a)
+
+    def dec_kernel(v, lo, a):
+        return msda.ms_deform_attn(v, dec_levels, lo, a)
+
+    def dec_plain(v, lo, a):
+        return msda.ms_deform_attn_plain(v, dec_levels, lo, a)
+
     # (name, levels, queries per item, encoder-like sampling, items,
-    # kernel, plain); decoder_b8 is the lockstep step's decoder call
+    # kernel, plain); decoder_b8 is the lockstep step's decoder call,
+    # encoder_train and decoder_train the training step's (two frame pairs,
+    # 500 object queries + 111 track-query slots), decoder_train_prev that
+    # of its previous-frame forward (the object queries alone)
     cases = [
-        ("encoder", LEVELS, sum(h * w for h, w in LEVELS), True, 1,
-         lambda v, lo, a: msda_patch(v, LEVELS, lo, a),
-         lambda v, lo, a: msda.ms_deform_attn_plain(v, LEVELS, lo, a)),
-        ("decoder", dec_levels, DEC_QUERIES, False, 1,
-         lambda v, lo, a: msda.ms_deform_attn(v, dec_levels, lo, a),
-         lambda v, lo, a: msda.ms_deform_attn_plain(v, dec_levels, lo, a)),
-        ("decoder_b8", dec_levels, DEC_QUERIES, False, 8,
-         lambda v, lo, a: msda.ms_deform_attn(v, dec_levels, lo, a),
-         lambda v, lo, a: msda.ms_deform_attn_plain(v, dec_levels, lo, a)),
+        ("encoder", LEVELS, s_enc, True, 1, enc_kernel, enc_plain),
+        ("decoder", dec_levels, DEC_QUERIES, False, 1, dec_kernel, dec_plain),
+        ("decoder_b8", dec_levels, DEC_QUERIES, False, 8, dec_kernel,
+         dec_plain),
+        ("encoder_train", LEVELS, s_enc, True, TRAIN_BATCH, enc_kernel,
+         enc_plain),
+        ("decoder_train", dec_levels, TRAIN_DEC_QUERIES, False, TRAIN_BATCH,
+         dec_kernel, dec_plain),
+        ("decoder_train_prev", dec_levels, TRAIN_PREV_QUERIES, False,
+         TRAIN_BATCH, dec_kernel, dec_plain),
         ("single_level", (mid,), DEC_QUERIES, False, 1,
          lambda v, lo, a: dense_level_pallas(v, lo[:, :, :, 0],
                                              a[:, :, :, 0], *mid),
@@ -410,6 +483,295 @@ def kernel_phase_window(seed: int):
     return results
 
 
+def grad_tol(dtype, ref: torch.Tensor, value_grad: bool) -> torch.Tensor:
+    """Elementwise bound for a gradient of the backward kernel against
+    autograd through the plain version. A gradient is a sum of signed terms
+    in another order (float32 atomics for the value gradient), so its error
+    scales with the terms, not the result: 1e-5 of max(1, max |ref|), plus
+    1e-5 |ref|. In bfloat16 each side rounds its own float32 sum of the
+    value gradient to bfloat16, so the two may land on neighbouring
+    bfloat16 values, one ulp apart: up to 2^-7 |ref| there."""
+    rel = 2.0 ** -7 if (value_grad and dtype == torch.bfloat16) else 1e-5
+    return 1e-5 * max(1.0, ref.abs().max().item()) + rel * ref.abs()
+
+
+def msda_bwd_bound(value, loc, attn, grad_es):
+    """grad_out, value, locations and weights read once; the float32 value
+    gradient read and written once; the other two gradients written once.
+    Operations on the CUDA cores, as the kernel's arithmetic counts them.
+    Per sampled channel 32: the bilinear sum of four corners 7 (a product
+    and three multiply-adds), times the output gradient and summed 2; each
+    of the x and y derivatives 7 (two differences, a product, a
+    multiply-add, times the gradient and summed); the weight times the
+    gradient 1, times each corner weight 4, and four atomic adds 4. Per
+    sample, shared by its channels, 18: pixel coordinates 4, floors and
+    fractions 4, their complements 2, four corner weights 4, scaling the
+    location gradient 4."""
+    n, s, m, d = value.shape
+    lq, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    n_bytes = (n * lq * m * d * grad_es + value.numel() * value.element_size()
+               + 2 * loc.numel() * 4 + 2 * attn.numel() * 4
+               + 2 * value.numel() * 4)
+    return bound(n_bytes, n * lq * m * l * p * (32 * d + 18), FP32_FLOPS)
+
+
+def kernel_phase_msda_bwd(seed: int):
+    """The backward kernel's three gradients against autograd through
+    `ms_deform_attn_plain`, at the training step's encoder call (N = 2,
+    Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
+    levels) and the four single-level calls that route v2 makes per encoder
+    layer (N = 2, all 22,323 tokens query one level), float32 and bfloat16,
+    with samples outside [0, 1]."""
+    from trackformer_tpu_torch.ops import msda
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    s_enc = sum(h * w for h, w in LEVELS)
+    cases = [("encoder", LEVELS, s_enc, True),
+             ("decoder", LEVELS * 2, TRAIN_DEC_QUERIES, False)]
+    cases += [(f"encoder_l{i}", (hw,), s_enc, True)
+              for i, hw in enumerate(LEVELS)]
+    results = {}
+    for name, shapes, lq, encoder in cases:
+        value, loc, attn = msda_inputs(shapes, lq, encoder, gen, TRAIN_BATCH,
+                                       ref_shapes=LEVELS)
+        if encoder:
+            # push every 16th query's samples across the border
+            loc[:, ::16] = loc[:, ::16] * 1.2 - 0.1
+        outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+        g32 = torch.randn(TRAIN_BATCH, lq, M, D, device="cuda", generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            v = value.to(dtype).requires_grad_(True)
+            lo = loc.clone().requires_grad_(True)
+            at = attn.clone().requires_grad_(True)
+            g = g32.to(dtype)
+            got = msda.msda_bwd_cuda(g, v.detach(), shapes, lo.detach(),
+                                     at.detach())
+            torch.cuda.synchronize()
+            out = msda.ms_deform_attn_plain(v, shapes, lo, at).to(dtype)
+            want = torch.autograd.grad(out, (v, lo, at), g,
+                                       retain_graph=True)
+            ok, errs = True, {}
+            for key, a, b in zip(("value", "loc", "attn"), got, want):
+                check(bool(torch.isfinite(a).all()),
+                      f"msda_bwd {name} {dtype}: non-finite grad_{key}")
+                err = (a.float() - b.float()).abs()
+                tol = grad_tol(dtype, b.float(), key == "value")
+                errs[key] = (err.max().item(), (err / tol).max().item())
+                ok = ok and bool((err <= tol).all())
+            ms = time_ms(lambda: msda.msda_bwd_cuda(
+                g, v.detach(), shapes, lo.detach(), at.detach()), 10, INNER)
+            plain_ms = time_ms(lambda: torch.autograd.grad(
+                out, (v, lo, at), g, retain_graph=True), 3, 1)
+            bound_ms, bound_by = msda_bwd_bound(v, lo, at, g.element_size())
+            max_abs = max(e[0] for e in errs.values())
+            phase("kernel", case=f"msda_bwd_{name}",
+                  dtype=str(dtype).split(".")[-1], items=TRAIN_BATCH, lq=lq,
+                  levels=len(shapes), samples_outside=f"{outside:.3f}",
+                  **{f"grad_{k}_max_abs_err": f"{e[0]:.3e}"
+                     for k, e in errs.items()},
+                  **{f"grad_{k}_err_over_tol": f"{e[1]:.3f}"
+                     for k, e in errs.items()},
+                  tol="1e-5*max(1,max|ref|)+1e-5*|ref| (bf16 grad_value: "
+                      "2^-7*|ref|)",
+                  ms=f"{ms:.4f}", plain_backward_ms=f"{plain_ms:.4f}",
+                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, ok=ok)
+            check(ok, f"kernel msda_bwd {name} {dtype} out of tolerance: "
+                      f"{errs}")
+            check(outside > 0.01, f"msda_bwd {name}: no sample outside")
+            results[(name, dtype)] = dict(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            del out, want, got
+    return results
+
+
+def encoder_level_inputs(level: int, n: int, scale: float, gen):
+    """One level's inputs of the flagship encoder call: every token of all
+    four levels queries level `level` at its own centre plus the model's
+    initial sampling offsets (`msda_offset_bias`, normalized by (H, W) as
+    the module does), times `scale`."""
+    from trackformer_tpu_torch.models.factory import msda_offset_bias
+
+    dev = "cuda"
+    h, w = LEVELS[level]
+    ref = token_centres(LEVELS)                             # (S, 2)
+    off = torch.from_numpy(msda_offset_bias(M, len(LEVELS), P)).to(dev)
+    off = off.view(M, len(LEVELS), P, 2)[:, level]          # (M, P, 2)
+    off = scale * off / torch.tensor([h, w], device=dev, dtype=torch.float32)
+    loc = (ref[None, :, None, None, :] + off[None, None]).expand(
+        n, -1, -1, -1, -1).contiguous()
+    value = torch.randn(n, h * w, M, D, device=dev, generator=gen)
+    attn = torch.rand(n, ref.shape[0], M, P, device=dev, generator=gen)
+    attn = attn / (len(LEVELS) * attn.sum(-1, keepdim=True))
+    return value, loc, attn
+
+
+def grads_against_plain(tag: str, dtype, kernel_fn, plain_fn, inputs, g,
+                        **fields) -> None:
+    """A differentiable wrapper against its plain version on the same
+    inputs: the output within `TOL`, the gradients of the three `inputs`
+    (value first) for the output gradient `g` within `grad_tol`. The
+    plain version returns float32; `g` is rounded to `dtype` first, so both
+    sides are given the same numbers."""
+    g = g.to(dtype).float()
+    got, want = [], []
+    for fn, res in ((kernel_fn, got), (plain_fn, want)):
+        leaves = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = fn(*leaves)
+        res.append(out.detach().float())
+        res.extend(torch.autograd.grad(out, leaves, g.to(out.dtype)))
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    out_err = (got[0] - want[0].reshape(got[0].shape)).abs()
+    ok = bool((out_err <= atol + rtol * want[0].reshape(got[0].shape).abs())
+              .all())
+    errs = {"out": out_err.max().item()}
+    for key, a, b in zip(("value", "loc", "attn"), got[1:], want[1:]):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{tag} {dtype}: grad_{key} shape or non-finite")
+        err = (a.float() - b.float()).abs()
+        tol = grad_tol(dtype, b.float(), key == "value")
+        errs[key] = (err / tol).max().item()
+        ok = ok and bool((err <= tol).all())
+    phase("kernel", case=tag, dtype=str(dtype).split(".")[-1], **fields,
+          out_max_abs_err=f"{errs['out']:.3e}",
+          **{f"grad_{k}_err_over_tol": f"{errs[k]:.3f}"
+             for k in ("value", "loc", "attn")}, ok=ok)
+    check(ok, f"{tag} {dtype} {fields}: output or gradients out of "
+              f"tolerance: {errs}")
+
+
+def kernel_phase_dense_v2(seed: int):
+    """The block-skipping kernel on each level of the flagship encoder call
+    (Lq = 22,323 queries per item) against `level_plain`, float32 and
+    bfloat16, N = 1 and 2, with the initial offsets (scale 1) and with
+    offsets six times as large, so that a tile's band spans many rows; the
+    kernel's own row bands against `v2_row_band`; times of the kernel, the
+    plain version and the gather kernel on the same level (bfloat16, N = 2,
+    scale 1). At N = 2 also the differentiable wrapper
+    `dense_level_pallas_v2` as the training step calls it (the level's
+    slice of the whole value table): output and the three gradients
+    against autograd through `level_plain`; and at the end the whole
+    encoder call through route "v2" of `ms_deform_attn` (four forward and
+    four backward launches) against `ms_deform_attn_plain`."""
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.ops.msda_dense import (
+        V2_TQ, dense_level_pallas, dense_level_pallas_v2,
+        dense_level_v2_fwd_cuda, v2_row_band)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    bf16 = torch.bfloat16
+    s_enc = sum(h * w for h, w in LEVELS)
+    results = {}
+    for level, (h, w) in enumerate(LEVELS):
+        start = sum(a * b for a, b in LEVELS[:level])
+        for n in (1, TRAIN_BATCH):
+            for scale in (1.0, 6.0):
+                value, loc, attn = encoder_level_inputs(level, n, scale, gen)
+                lq = loc.shape[1]
+                plain_band = v2_row_band(loc, h, V2_TQ)
+                lo = plain_band[..., 0].clamp(min=0)
+                hi = plain_band[..., 1].clamp(max=h - 1)
+                rows = (hi - lo + 1).clamp(min=0).float()
+                for dtype in (torch.float32, bf16):
+                    v = value.to(dtype)
+                    with torch.no_grad():
+                        got, band = dense_level_v2_fwd_cuda(
+                            v, loc, attn, h, w, return_band=True)
+                        torch.cuda.synchronize()
+                        want = msda.level_plain(v, loc, attn, h, w)
+                    err = (got - want).abs()
+                    atol, rtol = TOL[dtype]
+                    ok = bool((err <= atol + rtol * want.abs()).all())
+                    ok = ok and bool(torch.isfinite(got).all())
+                    max_abs = err.max().item()
+                    band_ok = (bool((band[..., 0] == lo).all())
+                               and bool((band[..., 1] == hi).all()))
+                    phase("kernel", case=f"dense_level_v2_l{level}",
+                          level=f"{h}x{w}", dtype=str(dtype).split(".")[-1],
+                          items=n, lq=lq, offset_scale=scale,
+                          mean_band_rows=f"{rows.mean().item():.2f}",
+                          max_band_rows=int(rows.max().item()),
+                          rows_skipped=f"{1 - rows.mean().item() / h:.4f}",
+                          max_abs_err=f"{max_abs:.3e}",
+                          tol=f"{atol:g}+{rtol:g}*|ref|", band_ok=band_ok,
+                          ok=ok)
+                    check(ok, f"kernel dense_level_v2 level {level} {dtype} "
+                              f"N={n} scale {scale} out of tolerance: max "
+                              f"abs err {max_abs}")
+                    check(band_ok, f"kernel dense_level_v2 level {level}: "
+                                   "row bands differ from v2_row_band")
+                    if n != TRAIN_BATCH:
+                        continue
+                    # the level's cells as a slice of the whole table
+                    table = torch.zeros(n, s_enc, M, D, dtype=dtype,
+                                        device="cuda")
+                    table[:, start:start + h * w] = v
+                    g = torch.randn(n, lq, M, D, device="cuda",
+                                    generator=gen)
+                    reset_launch_counts()
+                    grads_against_plain(
+                        f"dense_level_pallas_v2_grad_l{level}", dtype,
+                        lambda t, lo_, at: dense_level_pallas_v2(
+                            t[:, start:start + h * w], lo_, at, h, w),
+                        lambda t, lo_, at: msda.level_plain(
+                            t[:, start:start + h * w], lo_, at, h, w),
+                        (table, loc, attn), g, items=n, offset_scale=scale)
+                    shapes_seen = msda.launch_shapes()
+                    check(shapes_seen == {
+                        ("dense_level_pallas_v2", n, lq, ((h, w),)): 1,
+                        ("msda_bwd", n, lq, ((h, w),)): 1},
+                        f"dense_level_pallas_v2 level {level}: launched "
+                        f"{shapes_seen}")
+                    del table, g
+                    if scale != 1.0 or dtype != bf16:
+                        continue
+                    with torch.no_grad():
+                        ms = time_ms(lambda: dense_level_v2_fwd_cuda(
+                            v, loc, attn, h, w), 20, INNER)
+                        plain_ms = time_ms(lambda: msda.level_plain(
+                            v, loc, attn, h, w), 5, INNER)
+                        gather_ms = time_ms(lambda: dense_level_pallas(
+                            v, loc, attn, h, w), 20, INNER)
+                    n_bytes = (v.numel() * 2 + loc.numel() * 4
+                               + attn.numel() * 4 + got.numel() * 4)
+                    bound_ms, bound_by = bound(
+                        n_bytes, 2 * n * lq * M * P * 4 * D, FP32_FLOPS)
+                    phase("kernel", case=f"dense_level_v2_l{level}",
+                          dtype="bfloat16", items=n, ms=f"{ms:.4f}",
+                          plain_ms=f"{plain_ms:.4f}",
+                          gather_kernel_ms=f"{gather_ms:.4f}",
+                          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+                    results[level] = dict(
+                        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        library_ms=None, gather_kernel_ms=gather_ms)
+
+    # the encoder call of the training step through the route switch
+    value, loc, attn = msda_inputs(LEVELS, s_enc, True, gen, TRAIN_BATCH)
+    loc[:, ::16] = loc[:, ::16] * 1.2 - 0.1
+    g = torch.randn(TRAIN_BATCH, s_enc, M * D, device="cuda", generator=gen)
+    saved_impl = msda.PALLAS_SKIP_IMPL
+    try:
+        msda.PALLAS_SKIP_IMPL = "v2"
+        for dtype in (torch.float32, bf16):
+            reset_launch_counts()
+            grads_against_plain(
+                "ms_deform_attn_route_v2_grad", dtype,
+                lambda v, lo_, at: msda.ms_deform_attn(v, LEVELS, lo_, at),
+                lambda v, lo_, at: msda.ms_deform_attn_plain(
+                    v, LEVELS, lo_, at).flatten(2),
+                (value.to(dtype), loc, attn), g, items=TRAIN_BATCH,
+                lq=s_enc)
+            counts = {k: v for k, v in msda.launch_counts().items() if v}
+            check(counts == {"dense_level_pallas_v2": len(LEVELS),
+                             "msda_bwd": len(LEVELS)},
+                  f"route v2 encoder call launched {counts}")
+    finally:
+        msda.PALLAS_SKIP_IMPL = saved_impl
+    return results
+
+
 # --------------------------------------------------------------------------
 # the main paths: exact mode, fast mode, fast mode batched
 # --------------------------------------------------------------------------
@@ -492,6 +854,7 @@ def tracker_run(tag: str, cfg, model, postprocess, n_frames: int,
         live.append(int((tracker.state.active | tracker.state.inactive)
                         .sum()))
     counts = launch_counts()
+    record_path()
 
     st = tracker.state
     finite = all(bool(torch.isfinite(x).all())
@@ -539,6 +902,7 @@ def batched_run(cfg, model, postprocess, n_seqs: int, n_frames: int,
     t0 = time.perf_counter()
     results = tracker.run(seqs, logger=logger)
     counts = launch_counts()
+    record_path()
     step_ms = np.diff([t0] + step_end) * 1e3
     steady = statistics.median(step_ms[1:])
     finite = all(np.isfinite(e["bbox"]).all() for r in results
@@ -598,11 +962,359 @@ def reference_run(tag: str, model, n_frames: int) -> float:
     return worst
 
 
+# --------------------------------------------------------------------------
+# training: two-frame track-query steps of the exact-MSDA flagship
+# --------------------------------------------------------------------------
+
+TRAIN_OBJECTS = 20             # boxes per image, in `max_objects` = 100 slots
+# route v2 against route v5 from the same state: the two encoder kernels
+# round differently (float32 partial sums per level against one sum over
+# all levels, each rounded to bfloat16), 12 bfloat16 layers amplify that,
+# and a changed Hungarian match moves the loss in a step. Held: the first
+# step's loss (the forwards), its grad_norm (the backward through either
+# route's launches) and the second step's loss (the update that the first
+# step's gradients made)
+ROUTE_LOSS_RTOL = 0.02
+# float32 train step on the card (kernels) against the same step on the CPU
+# (plain versions): loss and grad_norm to 1e-4; gradients name by name to
+# 1e-4 + 1e-3 |ref| elementwise. The model's gradient jumps where a ReLU
+# input changes sign and where a sampling location crosses a cell border,
+# so an activation that falls on the other side moves the gradients
+# upstream of it (one channel of a convolution, one row of a linear layer)
+# and nothing else: a small share of all elements may miss the elementwise
+# bound while every tensor as a whole stays within a fraction of |ref|_2
+# and no element errs by more than a fraction of its tensor's largest (a
+# wrong kernel misses all three by orders of magnitude). Two references,
+# each with (share of elements out, per-tensor L2, per-tensor max) limits:
+# the CPU's float32 step, where both sides' float32 rounding is in the
+# error, and the CPU's float64 step (float64 weights and activations; the
+# plain MSDA, the attention logits and the heads stay float32 inside it),
+# where only the card's is: four to ten times tighter. The CPU's float32
+# step, read against its float64 step, misses the elementwise bound as
+# often as the card's does or more: the misses are float32's, on either
+# device, not the kernels'.
+REF_LOSS_RTOL = 1e-4
+REF_GRAD_TOL = (1e-4, 1e-3)
+REF_LIMITS = {"cpu": (1e-3, 2e-3, 1e-2),
+              "cpu_float64": (1e-4, 5e-4, 2.5e-3)}
+
+
+def synthetic_train_pack(cfg, seed: int, step: int):
+    """`TRAIN_BATCH` frame pairs of the drifting texture with
+    `TRAIN_OBJECTS` (less two on the second image) drifting boxes each and
+    their track ids, padded to `cfg.max_objects` slots."""
+    from trackformer_tpu_torch.structures import FrameBatch, empty_targets
+
+    b, t = TRAIN_BATCH, cfg.max_objects
+    pairs = [synthetic_frames(2, seed + 1000 * step + 10 * i)
+             for i in range(b)]
+    valid_hw = torch.tensor([VALID_HW] * b)
+    rng = np.random.RandomState(seed + step)
+    scale = np.array([VALID_HW[1] / BUCKET[1], VALID_HW[0] / BUCKET[0]])
+    packs = []
+    centre = rng.uniform(0.1, 0.9, (b, TRAIN_OBJECTS, 2)) * scale
+    size = rng.uniform(0.03, 0.15, (b, TRAIN_OBJECTS, 2))
+    for frame in range(2):
+        targets = empty_targets(b, t, "cuda")
+        boxes = np.concatenate([centre + 0.01 * frame
+                                * rng.randn(b, TRAIN_OBJECTS, 2), size], -1)
+        n_obj = [TRAIN_OBJECTS - 2 * i for i in range(b)]
+        targets.boxes[:, :TRAIN_OBJECTS] = torch.from_numpy(
+            boxes.astype(np.float32)).cuda()
+        for i, n in enumerate(n_obj):
+            targets.valid[i, :n] = True
+            targets.track_ids[i, :n] = torch.arange(n, dtype=torch.int32)
+        targets.size[:] = valid_hw
+        targets.orig_size[:] = torch.tensor([[1080, 1920]] * b)
+        batch = FrameBatch.from_images(
+            torch.cat([p[frame] for p in pairs]), valid_hw)
+        packs.append((batch, targets))
+    return {"prev_batch": packs[0][0], "prev_targets": packs[0][1],
+            "batch": packs[1][0], "targets": packs[1][1]}
+
+
+def train_run(seed: int):
+    """The full-width exact-MSDA flagship in bfloat16, B = 2 frame pairs at
+    800x1344: 3 optimizer steps on route v5, then 2 on route v2 from the
+    same start state and the same draws. Every step's launches go into
+    `PATH_SHAPES`."""
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, crit_cfg, _, track_cfg = build_model(cfg, "cuda", generator=gen,
+                                                train=True)
+    optimizer = make_optimizer(cfg, model)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    frozen = [k for k, g in optimizer.labels.items() if g == "frozen"]
+    k_slots = cfg.max_objects + int(np.ceil(
+        cfg.track_query_false_positive_prob * cfg.max_objects)) + 1
+    phase("train", model="flagship exact MSDA", dtype=cfg.compute_dtype,
+          batch=TRAIN_BATCH, image=f"{BUCKET[0]}x{BUCKET[1]}",
+          queries=cfg.num_queries, track_query_slots=k_slots,
+          objects_per_image=TRAIN_OBJECTS, dropout=cfg.dropout,
+          tensors=len(optimizer.labels), frozen_tensors=len(frozen),
+          params=sum(p.numel() for p in model.parameters()))
+    check(cfg.num_queries + k_slots == TRAIN_DEC_QUERIES,
+          f"decoder queries {cfg.num_queries + k_slots}")
+
+    split = {}
+
+    def timings(tag):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[tag] = (now - timings.last) * 1e3
+        timings.last = now
+
+    step_fn = make_train_step(model, crit_cfg, optimizer, track_cfg,
+                              tracking=True, timings=timings)
+    enc = 12   # encoder layer calls per forward: 6 layers x 2 frames
+    want = {
+        "v5": {"msda_patch": 2 * enc, "ms_deform_attn": 12,
+               "dense_level_pallas_v2": 0, "msda_bwd": enc + 6},
+        "v2": {"msda_patch": 0, "ms_deform_attn": 12,
+               "dense_level_pallas_v2": 2 * enc * len(LEVELS),
+               "msda_bwd": enc * len(LEVELS) + 6},
+    }
+    by_route = {}
+    saved_impl = msda.PALLAS_SKIP_IMPL
+    try:
+        for route, n_steps in (("v5", 3), ("v2", 2)):
+            msda.PALLAS_SKIP_IMPL = route
+            model.load_state_dict(start)
+            state = TrainState.create(model, optimizer)
+            before = {k: v.clone() for k, v in state.params.items()}
+            gen.manual_seed(seed + 1)
+            torch.cuda.reset_peak_memory_stats()
+            step_ms, splits = [], []
+            for step in range(n_steps):
+                pack = synthetic_train_pack(cfg, seed, step)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = timings.last = time.perf_counter()
+                state, metrics = step_fn(state, pack, gen)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                splits.append(dict(split))
+                counts = launch_counts()
+                record_path()
+                values = {k: float(v) for k, v in metrics.items()}
+                bad = [k for k, v in values.items() if not np.isfinite(v)]
+                phase("train", route=route, step=step,
+                      loss=f"{values['loss']:.4f}",
+                      grad_norm=f"{values['grad_norm']:.4f}",
+                      loss_keys=len(values) - 2, step_ms=f"{step_ms[-1]:.1f}",
+                      launches=json.dumps(
+                          {k: v for k, v in counts.items() if v},
+                          separators=(",", ":")))
+                check(not bad, f"train {route} step {step}: non-finite {bad}")
+                check(values["grad_norm"] > 0, f"train {route}: zero "
+                                               "gradient")
+                for name, n in want[route].items():
+                    check(counts[name] == n, f"train {route} step {step}: "
+                          f"{counts[name]} {name} launches, want {n}")
+                check(counts["fused_window_layer"] == 0
+                      and counts["dense_level_pallas"] == 0,
+                      f"train {route}: stray launches {counts}")
+                by_route.setdefault(route, []).append(
+                    (values["loss"], values["grad_norm"]))
+                if step == 0:
+                    want_keys = set(crit_cfg.weight_dict) | {
+                        "class_error", "loss", "grad_norm"} | {
+                        f"cardinality_error{sfx}" for sfx in
+                        [""] + [f"_{i}" for i in range(cfg.dec_layers - 1)]}
+                    check(set(values) == want_keys,
+                          f"train: loss keys {sorted(set(values) ^ want_keys)}")
+            steady = step_ms[1:]
+            steady_split = {k: statistics.median(s[k] for s in splits[1:])
+                            for k in splits[0]}
+            moved = [k for k, g in optimizer.labels.items()
+                     if g != "frozen"
+                     and not torch.equal(before[k], state.params[k])]
+            still = [k for k in frozen
+                     if torch.equal(start[k], model.state_dict()[k])]
+            n_train = len(optimizer.labels) - len(frozen)
+            phase("train", route=route, steps=n_steps,
+                  steady_median_step_ms=f"{statistics.median(steady):.1f}",
+                  split_ms=json.dumps({k: round(v, 1)
+                                       for k, v in steady_split.items()},
+                                      separators=(",", ":")),
+                  peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+                  trainable_moved=f"{len(moved)}/{n_train}",
+                  frozen_unchanged=f"{len(still)}/{len(frozen)}")
+            check(len(moved) == n_train, f"train {route}: "
+                  f"{n_train - len(moved)} trainable tensors did not move")
+            check(len(still) == len(frozen), f"train {route}: a frozen "
+                                             "tensor changed")
+    finally:
+        msda.PALLAS_SKIP_IMPL = saved_impl
+    pairs = {"first_step_loss": (by_route["v5"][0][0], by_route["v2"][0][0]),
+             "first_step_grad_norm": (by_route["v5"][0][1],
+                                      by_route["v2"][0][1]),
+             "second_step_loss": (by_route["v5"][1][0], by_route["v2"][1][0])}
+    ok = all(abs(b - a) <= ROUTE_LOSS_RTOL * abs(a) for a, b in pairs.values())
+    phase("train", **{f"{k}_{r}": f"{v:.4f}" for k, ab in pairs.items()
+                      for r, v in zip(("v5", "v2"), ab)},
+          tol=f"{ROUTE_LOSS_RTOL}*|v5|", ok=ok)
+    check(ok, f"train: route v2 against route v5: {pairs}")
+
+
+def grad_readings(got: dict, ref: dict, limits) -> dict:
+    """Gradients name by name against a reference: the elements past the
+    elementwise bound and their share over its limit, the worst per-tensor
+    L2 and largest error over theirs, and the tensors that hold the most
+    outliers."""
+    atol, rtol = REF_GRAD_TOL
+    share_lim, l2_lim, max_lim = limits
+    worst_l2, worst_max, n_out, n_all, holders = (0.0, ""), (0.0, ""), 0, 0, []
+    for name, want in ref.items():
+        err = (got[name] - want).abs()
+        out = int((err > atol + rtol * want.abs()).sum())
+        if out:
+            holders.append((out, name))
+        n_out += out
+        n_all += want.numel()
+        l2 = err.norm().item() / (
+            l2_lim * want.norm().item() + atol * want.numel() ** 0.5)
+        top = err.max().item() / (atol + max_lim * want.abs().max().item())
+        worst_l2 = max(worst_l2, (l2, name))
+        worst_max = max(worst_max, (top, name))
+    ok = (n_out / n_all <= share_lim and worst_l2[0] <= 1.0
+          and worst_max[0] <= 1.0)
+    return dict(elements=n_all, elements_out=n_out,
+                share_out=f"{n_out / n_all:.2e}",
+                tensors_with_outliers=len(holders),
+                most_outliers=json.dumps(
+                    [f"{name}:{out}" for out, name in sorted(holders)[-3:]]),
+                worst_l2_err_over_tol=f"{worst_l2[0]:.3f}",
+                worst_l2_gradient=worst_l2[1],
+                worst_max_err_over_tol=f"{worst_max[0]:.3f}",
+                worst_max_gradient=worst_max[1],
+                tol=f"elementwise:{atol:g}+{rtol:g}*|ref| for all but "
+                    f"{share_lim:g} of all elements; per tensor "
+                    f"l2:{l2_lim:g}*|ref|_2+{atol:g}*sqrt(n) "
+                    f"max:{atol:g}+{max_lim:g}*max|ref|", ok=ok)
+
+
+def train_reference_run(seed: int):
+    """One float32 train step at 128x192, 2 + 2 layers, full width, on the
+    card (kernels) against the same step on the CPU (plain versions) in
+    float32 and in float64, with dropout 0 and the track-query draws
+    pinned: loss, grad_norm and every gradient, name by name, within
+    `REF_LIMITS`. The CPU's float32 step is also read against its float64
+    step (no check): that reading shows whose the misses of the
+    elementwise bound are."""
+    import copy
+
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.models.deformable_transformer import \
+        MSDeformAttnModule
+    from trackformer_tpu_torch.structures import FrameBatch, empty_targets
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    t, n_obj = 10, 7
+    cfg = FlagshipConfig().replace(
+        dataset="mot_crowdhuman", compute_dtype="float32", enc_layers=2,
+        dec_layers=2, num_queries=100, max_objects=t, dropout=0.0)
+    gen = torch.Generator().manual_seed(seed)
+    cpu_model, crit_cfg, _, track_cfg = build_model(cfg, "cpu", gen,
+                                                    train=True)
+    # The initial sampling offsets are whole cells, so encoder samples sit
+    # exactly on cell borders, where the location gradient jumps and the
+    # last bit of a reference point decides the side. Shift every offset by
+    # a fraction of a cell, as training does.
+    with torch.no_grad():
+        for mod in cpu_model.modules():
+            if isinstance(mod, MSDeformAttnModule):
+                bias = mod.sampling_offsets.bias
+                bias.add_(0.15 + 0.2 * torch.rand(bias.shape, generator=gen))
+    rng = np.random.RandomState(seed)
+    imgs = [torch.from_numpy(rng.randn(TRAIN_BATCH, 128, 192, 3)
+                             .astype(np.float32)) for _ in range(2)]
+    boxes = np.concatenate([rng.uniform(0.2, 0.8, (TRAIN_BATCH, t, 2)),
+                            rng.uniform(0.05, 0.3, (TRAIN_BATCH, t, 2))],
+                           -1).astype(np.float32)
+    forced = {"num": 4, "num_fps": 1,
+              "order": np.tile(np.arange(t), (TRAIN_BATCH, 1)),
+              "fp_seed_pos": np.tile(np.arange(t), (TRAIN_BATCH, 1))}
+    results = {}
+    for tag, dev, dtype in (("card", "cuda", torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu_float64", "cpu", torch.float64)):
+        model = copy.deepcopy(cpu_model).to(dev, dtype)
+        optimizer = make_optimizer(cfg, model)
+        state = TrainState.create(model, optimizer)
+        step_fn = make_train_step(model, crit_cfg, optimizer, track_cfg,
+                                  tracking=True, return_grads=True)
+        targets = empty_targets(TRAIN_BATCH, t, dev)
+        targets.boxes[:] = torch.from_numpy(boxes).to(dev)
+        targets.valid[:, :n_obj] = True
+        targets.track_ids[:, :n_obj] = torch.arange(n_obj, dtype=torch.int32)
+        valid = torch.tensor([[120, 180]] * TRAIN_BATCH)
+        pack = {"prev_batch": FrameBatch.from_images(imgs[0].to(dev), valid),
+                "prev_targets": targets,
+                "batch": FrameBatch.from_images(imgs[1].to(dev), valid),
+                "targets": targets}
+        reset_launch_counts()
+        _, metrics = step_fn(state, pack, None, forced=forced)
+        results[tag] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                        {k: v.cpu() for k, v in metrics["_grads"].items()},
+                        launch_counts())
+        del model, state, step_fn, metrics
+    loss_c, norm_c, grads_c, counts = results["card"]
+    for name, got in grads_c.items():
+        check(bool(torch.isfinite(got).all()),
+              f"train_reference: non-finite gradient {name}")
+    phase("train_reference", seed=seed, step="float32, 128x192, 2+2 layers, "
+          "B=2", gradients=len(grads_c),
+          **{f"{k}_{tag}": f"{results[tag][i]:.6f}"
+             for i, k in enumerate(("loss", "grad_norm")) for tag in results},
+          card_launches=json.dumps({k: v for k, v in counts.items() if v},
+                                   separators=(",", ":")))
+    check(counts["msda_bwd"] > 0 and counts["msda_patch"] > 0,
+          f"train_reference: the card's step launched {counts}")
+    failed = []
+    for ref in ("cpu", "cpu_float64"):
+        loss_r, norm_r, grads_r, _ = results[ref]
+        scalars_ok = (
+            abs(loss_c - loss_r) <= REF_LOSS_RTOL * max(1.0, abs(loss_r))
+            and abs(norm_c - norm_r) <= REF_LOSS_RTOL * max(1.0, abs(norm_r)))
+        r = grad_readings(grads_c, grads_r, REF_LIMITS[ref])
+        r["ok"] = r["ok"] and scalars_ok
+        phase("train_reference", seed=seed, held=f"card against {ref}",
+              loss_grad_norm_tol=f"{REF_LOSS_RTOL:g}*max(1,|ref|)", **r)
+        if not r["ok"]:
+            failed.append(ref)
+    r = grad_readings(results["cpu"][2], results["cpu_float64"][2],
+                      REF_LIMITS["cpu"])
+    phase("train_reference", seed=seed,
+          reading="cpu against cpu_float64 (no check)", **r)
+    check(not failed, f"train_reference seed {seed}: the card's step "
+                      f"differs from {failed}")
+
+
+PHASES = ("msda", "window", "msda_bwd", "dense_v2", "exact", "fast",
+          "train", "train_reference")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=6,
+                    help="frames of each tracker run")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of: " + ", ".join(PHASES))
     args = ap.parse_args()
+    phases = [x for x in args.phases.split(",") if x]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -612,7 +1324,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from trackformer_tpu_torch.ops import msda, window_attn
+    from trackformer_tpu_torch.ops import msda, msda_dense, window_attn
     from trackformer_tpu_torch.ops.cuda_build import NVCC_FLAGS, build_all
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
@@ -626,75 +1338,140 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    build_all([msda.LIB, window_attn.LIB])
-    for lib in (msda.LIB, window_attn.LIB):
+    libs = [msda.LIB, msda.BWD_LIB, msda_dense.V2_LIB, window_attn.LIB]
+    build_all(libs)
+    for lib in libs:
         info = lib.info()
         regs = [ln.strip() for ln in info["log"].splitlines()
                 if "registers" in ln or "spill" in ln]
         phase("build", source=info["source"],
               flags=json.dumps(" ".join(NVCC_FLAGS[:2])),
               seconds=f"{info['seconds']:.2f}", ptxas=json.dumps(regs))
-    phase("build", both_seconds=f"{time.perf_counter() - t0:.2f}")
+    phase("build", all_seconds=f"{time.perf_counter() - t0:.2f}")
 
     # the deployed tracking checkpoint (cfgs/track.yaml) is trained on
     # mot_crowdhuman: a 20-class head
     exact_cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
     fast_cfg = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
+    kmsda = kwin = kbwd = kv2 = None
+    fast_counts = batched_counts = None
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        kmsda = kernel_phase_msda(args.seed)
-        kwin = kernel_phase_window(args.seed)
+        if "msda" in phases:
+            kmsda = kernel_phase_msda(args.seed)
+        if "window" in phases:
+            kwin = kernel_phase_window(args.seed)
+        if "msda_bwd" in phases:
+            kbwd = kernel_phase_msda_bwd(args.seed)
+        if "dense_v2" in phases:
+            kv2 = kernel_phase_dense_v2(args.seed)
 
-        model, post = smoke_model(exact_cfg, args.seed, "exact")
-        exact_counts = tracker_run("exact", exact_cfg, model, post,
-                                   args.frames, args.seed,
-                                   {"msda_patch": 12, "ms_deform_attn": 6})
-        reference_run("exact", model, 1)
-        del model
+        if "exact" in phases:
+            model, post = smoke_model(exact_cfg, args.seed, "exact")
+            tracker_run("exact", exact_cfg, model, post,
+                        args.frames, args.seed,
+                        {"msda_patch": 12, "ms_deform_attn": 6})
+            reference_run("exact", model, 1)
+            del model
 
-        model, post = smoke_model(fast_cfg, args.seed, "fast")
-        fast_counts = tracker_run("fast", fast_cfg, model, post,
-                                  args.frames, args.seed,
-                                  {"fused_window_layer": 6,
-                                   "ms_deform_attn": 6})
-        batched_counts = batched_run(fast_cfg, model, post, 8, 6, args.seed)
-        reference_run("fast", model, 2)
+        if "fast" in phases:
+            model, post = smoke_model(fast_cfg, args.seed, "fast")
+            fast_counts = tracker_run("fast", fast_cfg, model, post,
+                                      args.frames, args.seed,
+                                      {"fused_window_layer": 6,
+                                       "ms_deform_attn": 6})
+            batched_counts = batched_run(fast_cfg, model, post, 8, 4,
+                                         args.seed)
+            reference_run("fast", model, 2)
+            del model
+
+        if "train" in phases:
+            train_run(args.seed)
+        if "train_reference" in phases:
+            # a second seed: the limits were not fitted to one draw
+            train_reference_run(args.seed)
+            train_reference_run(args.seed + 1)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
 
-    msda_src = "trackformer_tpu_torch/csrc/msda_fwd.cu"
-    win_src = "trackformer_tpu_torch/csrc/window_layer_fwd.cu"
+    if phases != list(PHASES):
+        print(json.dumps({"ok": True, "partial": phases, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    csrc = "trackformer_tpu_torch/csrc/"
+    msda_src, win_src = csrc + "msda_fwd.cu", csrc + "window_layer_fwd.cu"
+    bwd_src, v2_src = csrc + "msda_bwd.cu", csrc + "msda_dense_v2_fwd.cu"
     bf16 = torch.bfloat16
-    kernels = [
-        {"name": "msda_fwd via msda_patch (exact encoder, all levels)",
-         "route": "cuda", "source": msda_src,
-         "replaces": "trackformer_tpu/ops/msda_patch.py:108",
-         "launches": exact_counts["msda_patch"],
-         **kmsda[("encoder", bf16)]},
-        {"name": "msda_fwd via ms_deform_attn (decoder, 8 levels, B = 1)",
-         "route": "cuda", "source": msda_src,
-         "replaces": "trackformer_tpu/ops/msda_dense.py:216",
-         "launches": exact_counts["ms_deform_attn"]
-         + fast_counts["ms_deform_attn"],
-         **kmsda[("decoder", bf16)]},
-        {"name": "msda_fwd via ms_deform_attn (decoder, 8 levels, B = 8)",
-         "route": "cuda", "source": msda_src,
-         "replaces": "trackformer_tpu/ops/msda_dense.py:216",
-         "launches": batched_counts["ms_deform_attn"],
-         **kmsda[("decoder_b8", bf16)]},
-        {"name": "window_layer_fwd via fused_window_layer (fast encoder, "
-                 "B = 1)",
-         "route": "cuda", "source": win_src,
-         "replaces": "trackformer_tpu/ops/window_attn.py:56",
-         "launches": fast_counts["fused_window_layer"], **kwin[1]},
-        {"name": "window_layer_fwd via fused_window_layer (fast encoder, "
-                 "B = 8)",
-         "route": "cuda", "source": win_src,
-         "replaces": "trackformer_tpu/ops/window_attn.py:56",
-         "launches": batched_counts["fused_window_layer"], **kwin[8]},
+    s_enc = sum(h * w for h, w in LEVELS)
+    dec_levels = LEVELS * 2
+    patch_py = "trackformer_tpu/ops/msda_patch.py"
+    dense_py = "trackformer_tpu/ops/msda_dense.py"
+    # (name, source, TPU kernel, the kernel phase's result at this shape,
+    # the shape as the wrappers count it: count name, items, queries,
+    # levels). Launches are the main paths' at exactly that shape.
+    msda_entries = [
+        ("msda_fwd via msda_patch (exact encoder, all levels, B = 1)",
+         msda_src, patch_py + ":108", kmsda[("encoder", bf16)],
+         ("msda_patch", 1, s_enc, LEVELS)),
+        ("msda_fwd via msda_patch (training, encoder, all levels, B = 2)",
+         msda_src, patch_py + ":108", kmsda[("encoder_train", bf16)],
+         ("msda_patch", TRAIN_BATCH, s_enc, LEVELS)),
+        ("msda_fwd via ms_deform_attn (decoder, 8 levels, B = 1)",
+         msda_src, dense_py + ":216", kmsda[("decoder", bf16)],
+         ("ms_deform_attn", 1, DEC_QUERIES, dec_levels)),
+        ("msda_fwd via ms_deform_attn (decoder, 8 levels, B = 8)",
+         msda_src, dense_py + ":216", kmsda[("decoder_b8", bf16)],
+         ("ms_deform_attn", 8, DEC_QUERIES, dec_levels)),
+        ("msda_fwd via ms_deform_attn (training, decoder, 8 levels, 611 "
+         "queries, B = 2)",
+         msda_src, dense_py + ":216", kmsda[("decoder_train", bf16)],
+         ("ms_deform_attn", TRAIN_BATCH, TRAIN_DEC_QUERIES, dec_levels)),
+        ("msda_fwd via ms_deform_attn (training, previous frame's decoder, "
+         "8 levels, 500 queries, B = 2)",
+         msda_src, dense_py + ":216", kmsda[("decoder_train_prev", bf16)],
+         ("ms_deform_attn", TRAIN_BATCH, TRAIN_PREV_QUERIES, dec_levels)),
+        ("msda_bwd (training, encoder call, all levels, B = 2)",
+         bwd_src, patch_py + ":367", kbwd[("encoder", bf16)],
+         ("msda_bwd", TRAIN_BATCH, s_enc, LEVELS)),
+        ("msda_bwd (training, decoder call, 8 levels, B = 2)",
+         bwd_src, dense_py + ":780", kbwd[("decoder", bf16)],
+         ("msda_bwd", TRAIN_BATCH, TRAIN_DEC_QUERIES, dec_levels)),
     ]
+    for lvl, hw in enumerate(LEVELS):
+        at = f"route v2, encoder level {lvl} {hw[0]}x{hw[1]}, B = 2)"
+        msda_entries += [
+            ("msda_bwd (training, " + at, bwd_src, dense_py + ":780",
+             kbwd[(f"encoder_l{lvl}", bf16)],
+             ("msda_bwd", TRAIN_BATCH, s_enc, (hw,))),
+            ("msda_dense_v2_fwd via dense_level_pallas_v2 (training, " + at,
+             v2_src, dense_py + ":68", kv2[lvl],
+             ("dense_level_pallas_v2", TRAIN_BATCH, s_enc, (hw,)))]
+    kernels = [{"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": PATH_SHAPES.get(key, 0),
+                **result}
+               for name, source, replaces, result, key in msda_entries]
+    # every shape the main paths launched was held in a kernel phase
+    unheld = sorted(set(PATH_SHAPES) - {e[4] for e in msda_entries})
+    if unheld:
+        print(f"chip_smoke: FAILED: the main paths launched at shapes no "
+              f"kernel phase held: {unheld}", file=sys.stderr, flush=True)
+        return 1
+    kernels += [
+        {"name": f"window_layer_fwd via fused_window_layer (fast encoder, "
+                 f"B = {batch})",
+         "route": "cuda", "source": win_src,
+         "replaces": "trackformer_tpu/ops/window_attn.py:56",
+         "launches": counts["fused_window_layer"], **kwin[batch]}
+        for batch, counts in ((1, fast_counts), (8, batched_counts))]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        print(f"chip_smoke: FAILED: no main path launched {idle}",
+              file=sys.stderr, flush=True)
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

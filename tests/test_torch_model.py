@@ -105,13 +105,15 @@ def assert_config_matches(cfg: FlagshipConfig, train: dict) -> None:
     from trackformer_tpu.models.deformable_detr import DeformableDETR
     track = load_config("track.yaml")
     tpu_keys = {"encoder_attention", "decoder_attention", "scan_layers",
-                "cached_prev_memory", "encoder_window"}
+                "cached_prev_memory", "encoder_window", "max_objects",
+                "lr_warmup_steps"}
     for f in dataclasses.fields(cfg):
         name = f.name
         got = getattr(cfg, name)
         if name in tpu_keys:
-            assert got == train["tpu"].get(
-                name, getattr(DeformableDETR, name)), name
+            want = (train["tpu"][name] if name in train["tpu"]
+                    else getattr(DeformableDETR, name))
+            assert got == want, name
         elif name in ("val_width", "max_size"):
             assert got == train["img_transform"][name], name
         elif name == "image_bucket":

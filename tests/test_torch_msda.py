@@ -131,5 +131,6 @@ def test_cpu_calls_launch_nothing():
     msda_patch(t[0], ENC_SHAPES, t[1], t[2])
     counts = msda.launch_counts()
     assert set(counts) == {"ms_deform_attn", "msda_patch",
-                           "dense_level_pallas"}
+                           "dense_level_pallas", "dense_level_pallas_v2",
+                           "msda_bwd"}
     assert all(v == 0 for v in counts.values())

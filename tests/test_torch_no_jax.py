@@ -2,7 +2,8 @@
 and flax are absent, as on the machine with the card: every module of the
 package imports, and tiny tracker runs of both encoder modes (exact MSDA,
 and the TPU-fast windowed mode with the cached memory, through `Tracker`
-and `BatchedTracker`) go through on the CPU, in a subprocess in which
+and `BatchedTracker`) and one two-frame training step of the exact mode go
+through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -68,6 +69,25 @@ for cfg in (FlagshipConfig().replace(enc_layers=1, **tiny),
         batched = BatchedTracker(model, post, tracker_cfg, cfg.hidden_dim,
                                  cfg.num_queries)
         assert len(batched.run([[blob, blob], [blob, blob]])) == 2
+
+from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                          make_train_step)
+from trackformer_tpu_torch.structures import empty_targets
+
+cfg = FlagshipConfig().replace(enc_layers=1, **tiny)
+gen = torch.Generator().manual_seed(0)
+model, crit, _, track = build_model(cfg, "cpu", gen, train=True)
+optimizer = make_optimizer(cfg, model)
+state = TrainState.create(model, optimizer)
+targets = empty_targets(1, 3, "cpu")
+targets.valid[:, :2] = True
+targets.boxes[:, :2] = torch.tensor([[.3, .3, .2, .2], [.6, .6, .2, .3]])
+targets.track_ids[:, :2] = torch.arange(2, dtype=torch.int32)
+pack = {"batch": blob["batch"], "targets": targets,
+        "prev_batch": blob["batch"], "prev_targets": targets}
+step = make_train_step(model, crit, optimizer, track, tracking=True)
+state, metrics = step(state, pack, gen)
+assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax")
                for k in sys.modules)
 print("NO_JAX_OK")

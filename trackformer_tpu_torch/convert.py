@@ -16,6 +16,11 @@ extended with the TPU-fast mode's params, which have no original key:
     `transformer.encoder.fuse.{i}.{up,down,norm}.{j}.{weight,bias}`;
   * `frame_embed` -> `transformer.frame_embed`.
 
+The map is linear (transposes and the q/k/v packing), so the same function
+carries a JAX gradient tree, or the params after an optimizer update, to
+the port's names: the training tests compare gradients and post-step
+weights name by name through it.
+
 Layout changes:
 
   * Dense kernels (in, out) -> Linear weights (out, in);
@@ -167,9 +172,10 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX params ({"params": {...}}) -> the port's float32 state_dict.
-    Raises on a JAX parameter with no key and on a key that would be
-    written twice."""
+    """JAX params ({"params": {...}}), or any tree of their structure (a
+    gradient tree, updated params) -> float32 tensors by the port's
+    state-dict keys. Raises on a JAX parameter with no key and on a key that
+    would be written twice."""
     out: Dict[str, np.ndarray] = {}
     packed: Dict[str, Dict[int, np.ndarray]] = {}
     for path, arr in flatten_tree(params).items():

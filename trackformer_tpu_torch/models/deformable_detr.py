@@ -60,9 +60,11 @@ class DeformableDETR(nn.Module):
                  num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, backbone_name: str = "resnet50",
                  dilation: bool = False, aux_loss: bool = True,
-                 encoder_window: Optional[int] = None):
+                 encoder_window: Optional[int] = None, dropout: float = 0.0):
         """`encoder_window` None: the exact-MSDA encoder; an int: the
-        TPU-fast mode with a windowed encoder of that window side."""
+        TPU-fast mode with a windowed encoder of that window side.
+        `dropout` acts in training mode only, in the exact-MSDA encoder and
+        the decoder (the windowed encoder's training is not ported)."""
         super().__init__()
         self.cached_memory = encoder_window is not None
         self.num_queries = num_queries
@@ -84,7 +86,7 @@ class DeformableDETR(nn.Module):
         self.transformer = DeformableTransformer(
             hidden_dim, total_levels, num_feature_levels, enc_layers,
             dec_layers, nheads, enc_n_points, dec_n_points, dim_feedforward,
-            encoder_window)
+            encoder_window, dropout)
         self.class_embed = nn.ModuleList(
             nn.Linear(hidden_dim, num_classes + 1) for _ in range(dec_layers))
         self.bbox_embed = nn.ModuleList(

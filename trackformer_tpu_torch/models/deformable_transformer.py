@@ -7,7 +7,9 @@ head. `DeformableTransformer` here only groups the parameters under the
 original checkpoint keys (`transformer.level_embed`,
 `transformer.encoder.layers.{i}`, `transformer.decoder.layers.{i}`,
 `transformer.reference_points`). Every norm takes its eps explicitly: the
-JAX package uses flax's 1e-6.
+JAX package uses flax's 1e-6. Dropout sits where the JAX layers put it
+(after each attention and the FFN, inside the FFN and on the self-attention
+weights) and is inactive in `eval()`.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.msda import ms_deform_attn
-from .attention import MultiHeadAttention
+from .attention import Dropout, MultiHeadAttention
 from .windowed_encoder import WindowedEncoder
 
 LN_EPS = 1e-6
@@ -29,8 +31,12 @@ LN_EPS = 1e-6
 def _shapes_tensor(spatial_shapes: Tuple[Tuple[int, int], ...],
                    device: torch.device) -> torch.Tensor:
     """(L, 2) float32 level shapes on `device`, made once per shape set: a
-    fresh host-to-device copy each call would wait for the stream."""
-    return torch.tensor(spatial_shapes, dtype=torch.float32, device=device)
+    fresh host-to-device copy each call would wait for the stream. Made
+    outside inference mode, whoever calls first: a training step after a
+    tracker run takes the same tensor into its graph."""
+    with torch.inference_mode(False):
+        return torch.tensor(spatial_shapes, dtype=torch.float32,
+                            device=device)
 
 
 class MSDeformAttnModule(nn.Module):
@@ -85,7 +91,7 @@ class MSDeformAttnModule(nn.Module):
 class DeformableEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int,
-                 n_points: int, dim_feedforward: int):
+                 n_points: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
         self.self_attn = MSDeformAttnModule(d_model, n_levels, n_heads,
                                             n_points)
@@ -93,14 +99,17 @@ class DeformableEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = Dropout(dropout)
 
     def forward(self, src, pos, reference_points, spatial_shapes,
                 padding_mask=None):
+        drop = self.drop
         src2 = self.self_attn(src + pos if pos is not None else src,
                               reference_points, src, spatial_shapes,
                               padding_mask)
-        src = self.norm1(src + src2)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        src = self.norm1(src + drop(src2))
+        ffn = self.linear2(drop(F.relu(self.linear1(src))))
+        return self.norm2(src + drop(ffn))
 
 
 def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
@@ -123,11 +132,12 @@ def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
 class DeformableEncoder(nn.Module):
 
     def __init__(self, d_model: int, n_levels: int, num_layers: int,
-                 n_heads: int, n_points: int, dim_feedforward: int):
+                 n_heads: int, n_points: int, dim_feedforward: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, n_levels, n_heads, n_points,
-                                   dim_feedforward)
+                                   dim_feedforward, dropout)
             for _ in range(num_layers))
 
     def forward(self, src, spatial_shapes, valid_ratios, pos=None,
@@ -144,9 +154,10 @@ class DeformableEncoder(nn.Module):
 class DeformableDecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int,
-                 n_points: int, dim_feedforward: int):
+                 n_points: int, dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads)
+        self.drop = Dropout(dropout)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads,
                                              n_points)
@@ -158,24 +169,27 @@ class DeformableDecoderLayer(nn.Module):
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 src_padding_mask=None, tgt_key_padding_mask=None):
         """reference_points are already valid-ratio scaled (B, Q, L, 2|4)."""
+        drop = self.drop
         q = k = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, k, tgt,
-                                              tgt_key_padding_mask))
+        tgt = self.norm2(tgt + drop(self.self_attn(q, k, tgt,
+                                                   tgt_key_padding_mask)))
         t2 = self.cross_attn(tgt + query_pos, reference_points, src,
                              spatial_shapes, src_padding_mask)
-        tgt = self.norm1(tgt + t2)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm1(tgt + drop(t2))
+        ffn = self.linear2(drop(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + drop(ffn))
 
 
 class DeformableDecoder(nn.Module):
     """Holds the decoder layers; the refinement loop is in DeformableDETR."""
 
     def __init__(self, d_model: int, n_levels: int, num_layers: int,
-                 n_heads: int, n_points: int, dim_feedforward: int):
+                 n_heads: int, n_points: int, dim_feedforward: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(d_model, n_levels, n_heads, n_points,
-                                   dim_feedforward)
+                                   dim_feedforward, dropout)
             for _ in range(num_layers))
 
 
@@ -188,13 +202,13 @@ class DeformableTransformer(nn.Module):
     def __init__(self, d_model: int, total_levels: int, enc_levels: int,
                  enc_layers: int, dec_layers: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int, dim_feedforward: int,
-                 encoder_window: Optional[int] = None):
+                 encoder_window: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
         self.level_embed = nn.Parameter(torch.empty(total_levels, d_model))
         if encoder_window is None:
             self.encoder = DeformableEncoder(d_model, enc_levels, enc_layers,
                                              n_heads, enc_n_points,
-                                             dim_feedforward)
+                                             dim_feedforward, dropout)
         else:
             self.encoder = WindowedEncoder(d_model, enc_levels, enc_layers,
                                            n_heads, dim_feedforward,
@@ -202,7 +216,7 @@ class DeformableTransformer(nn.Module):
             self.frame_embed = nn.Parameter(torch.empty(2, d_model))
         self.decoder = DeformableDecoder(d_model, total_levels, dec_layers,
                                          n_heads, dec_n_points,
-                                         dim_feedforward)
+                                         dim_feedforward, dropout)
         self.reference_points = nn.Linear(d_model, 2)
 
 

@@ -1,7 +1,8 @@
-"""Model factory: the flagship configuration -> (model, postprocessor).
+"""Model factory: the flagship configuration -> (model, postprocessor),
+or for training (model, criterion config, postprocessor, tracking config).
 
 Counterpart of the part of `trackformer_tpu/models/factory.py` that builds
-the tracking model. Only the configurations this port supports are
+the tracking model and its training companions. Only the configurations this port supports are
 accepted: the flagship with the exact-MSDA encoder, or in the TPU-fast
 mode (`FlagshipConfig.tpu_fast()`). `init_params` draws every weight from
 an explicit `torch.Generator` with the JAX package's initializers (flax
@@ -11,7 +12,7 @@ inits), so a seed gives the same weights on every run of one device type.
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -20,9 +21,12 @@ from torch import nn
 from ..utils.config import FlagshipConfig
 from .attention import MultiHeadAttention
 from .backbone import FrozenBatchNorm2d
+from .criterion import CriterionConfig
 from .deformable_detr import DeformableDETR, InputProj
 from .deformable_transformer import MSDeformAttnModule
+from .matcher import MatcherConfig
 from .postprocess import postprocess_sigmoid
+from .tracking import TrackingConfig
 
 DATASET_NUM_CLASSES = {
     "coco": 91,
@@ -124,16 +128,57 @@ def init_params(model: DeformableDETR, generator: torch.Generator) -> None:
         box.layers[-1].bias.copy_(torch.tensor([0.0, 0.0, -2.0, -2.0]))
 
 
+def train_configs(cfg: FlagshipConfig
+                  ) -> Tuple[CriterionConfig, TrackingConfig]:
+    """The criterion and track-query configs the JAX factory derives from
+    the same fields: matcher costs, the loss weights with their `_i` keys
+    for the auxiliary decoder outputs, and the augmentation
+    probabilities."""
+    matcher = MatcherConfig(
+        cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
+        cost_giou=cfg.set_cost_giou, focal_loss=cfg.focal_loss,
+        focal_alpha=cfg.focal_alpha, focal_gamma=cfg.focal_gamma)
+    weight_dict = {"loss_ce": cfg.cls_loss_coef,
+                   "loss_bbox": cfg.bbox_loss_coef,
+                   "loss_giou": cfg.giou_loss_coef}
+    if cfg.aux_loss:
+        aux = {}
+        for i in range(cfg.dec_layers - 1):
+            aux.update({f"{k}_{i}": v for k, v in weight_dict.items()})
+        weight_dict.update(aux)
+    criterion = CriterionConfig(
+        num_classes=DATASET_NUM_CLASSES[cfg.dataset], matcher=matcher,
+        weight_dict=weight_dict, eos_coef=cfg.eos_coef,
+        focal_loss=cfg.focal_loss, focal_alpha=cfg.focal_alpha,
+        focal_gamma=cfg.focal_gamma, tracking=cfg.tracking,
+        track_query_false_positive_eos_weight=(
+            cfg.track_query_false_positive_eos_weight))
+    tracking = TrackingConfig(
+        false_positive_prob=cfg.track_query_false_positive_prob,
+        false_negative_prob=cfg.track_query_false_negative_prob,
+        backprop_prev_frame=cfg.track_backprop_prev_frame, matcher=matcher)
+    return criterion, tracking
+
+
 def build_model(cfg: FlagshipConfig,
                 device: torch.device | str = torch.device("cuda"),
-                generator: torch.Generator | None = None
-                ) -> Tuple[DeformableDETR, Callable]:
+                generator: torch.Generator | None = None,
+                train: bool = False):
     """Build the model on `device` (the card unless the caller asks for the
-    CPU) in the config's compute dtype. With a generator the weights are
-    drawn from it; without one they are left uninitialized for
-    `load_state_dict`. FrozenBN statistics stay float32, as the JAX package
-    keeps its parameters float32 and casts them at use."""
+    CPU) in the config's compute dtype -> (model, postprocess). With a
+    generator the weights are drawn from it; without one they are left
+    uninitialized for `load_state_dict`. FrozenBN statistics stay float32,
+    as the JAX package keeps its parameters float32 and casts them at use.
+
+    With `train` the model carries the config's dropout and is returned in
+    training mode, as (model, criterion config, postprocess, tracking
+    config), the JAX factory's tuple; the float32 master weights that AdamW
+    updates live in the train state (`engine/train_step.py`)."""
     _check_supported(cfg)
+    if train and cfg.cached_prev_memory:
+        raise NotImplementedError("training the TPU-fast mode is not ported "
+                                  "yet: its window-layer kernel has no "
+                                  "backward")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
@@ -150,7 +195,8 @@ def build_model(cfg: FlagshipConfig,
             backbone_name=cfg.backbone, dilation=cfg.dilation,
             aux_loss=cfg.aux_loss,
             encoder_window=(cfg.encoder_window
-                            if cfg.encoder_attention == "windowed" else None))
+                            if cfg.encoder_attention == "windowed" else None),
+            dropout=cfg.dropout if train else 0.0)
     model.to_empty(device=device)
     if generator is not None:
         init_params(model, generator)
@@ -158,5 +204,9 @@ def build_model(cfg: FlagshipConfig,
     for mod in model.modules():
         if isinstance(mod, FrozenBatchNorm2d):
             mod.float()
+    if train:
+        model.train()
+        criterion_cfg, tracking_cfg = train_configs(cfg)
+        return model, criterion_cfg, postprocess_sigmoid, tracking_cfg
     model.eval()
     return model, postprocess_sigmoid

@@ -132,8 +132,10 @@ def nearest_idx(n_out: int, n_in: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _idx_tensor(n_out: int, n_in: int, device: torch.device) -> torch.Tensor:
     # made once per size pair: a fresh host-to-device copy each call would
-    # wait for the stream
-    return torch.as_tensor(nearest_idx(n_out, n_in), device=device)
+    # wait for the stream; outside inference mode, so that a later call
+    # under autograd may use the same tensor
+    with torch.inference_mode(False):
+        return torch.as_tensor(nearest_idx(n_out, n_in), device=device)
 
 
 def nearest_resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:

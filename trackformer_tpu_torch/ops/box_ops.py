@@ -1,4 +1,4 @@
-"""Box geometry (cxcywh/xyxy conversions, areas, IoU, clipping).
+"""Box geometry (cxcywh/xyxy conversions, areas, IoU, GIoU, clipping).
 
 Counterpart of `trackformer_tpu/ops/box_ops.py`; every function broadcasts
 over leading batch dimensions and is safe on padded (degenerate) boxes.
@@ -38,6 +38,39 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 0.0):
     union = area1[..., :, None] + area2[..., None, :] - inter
     iou = inter / (union + eps) if eps else inter / union
     return iou, union
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
+                        eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise GIoU on xyxy boxes -> (..., N, M). Degenerate padded boxes
+    are tolerated through the eps in the denominators; callers mask padded
+    entries."""
+    iou, union = box_iou(boxes1, boxes2, eps=eps)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / (area + eps)
+
+
+def elementwise_generalized_box_iou(boxes1: torch.Tensor,
+                                    boxes2: torch.Tensor,
+                                    eps: float = 1e-7) -> torch.Tensor:
+    """GIoU between aligned box pairs (..., 4) x (..., 4) -> (...): the
+    matched diagonal the box loss needs, without the N x M matrix."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area1 + area2 - inter
+    iou = inter / (union + eps)
+    lt_c = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb_c = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh_c = (rb_c - lt_c).clamp(min=0.0)
+    area_c = wh_c[..., 0] * wh_c[..., 1]
+    return iou - (area_c - union) / (area_c + eps)
 
 
 def clip_boxes_to_image(boxes: torch.Tensor, size) -> torch.Tensor:

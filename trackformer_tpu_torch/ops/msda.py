@@ -13,27 +13,50 @@ Counterpart of `trackformer_tpu/ops/msda.py`. The contract is the same as
 Every level is sampled bilinearly with grid_sample semantics
 (align_corners=False, zero padding) and reduced with the attention weights.
 
-On a CUDA tensor the op is ONE launch of the kernel in `csrc/msda_fwd.cu`
-over all levels of the call: the encoder's self-pattern (Lq == S) goes
-through `msda_patch`, every other call through the launch here. That covers
-what the TPU package splits over its v5 patch kernel, its v1 dense kernel
-and its XLA dense and gather paths, a routing that exists there only for
-the TPU's missing gather. On a CPU tensor the op runs the plain version
-`ms_deform_attn_plain`. Nothing falls back from the kernel to the plain
-version.
+On a CUDA tensor, with the default route, the op is ONE launch of the
+kernel in `csrc/msda_fwd.cu` over all levels of the call: the encoder's
+self-pattern (Lq == S) goes through `msda_patch`, every other call through
+the launch here. That covers what the TPU package splits over its v5 patch
+kernel, its v1 dense kernel and its XLA dense and gather paths, a routing
+that exists there only for the TPU's missing gather. On a CPU tensor the
+op runs the plain version `ms_deform_attn_plain`. Nothing falls back from
+a kernel to the plain version.
 
-The kernel is built from `csrc/msda_fwd.cu` at first use (`cuda_build.py`).
-This slice is forward only: a CUDA call with inputs that require grad
-raises.
+The route switch is the JAX package's: the module global
+`PALLAS_SKIP_IMPL`, read from the environment variable of that name, default
+"v5". With "v2" the levels that the JAX routing sends to its block-skipping
+kernel (`v2_levels`) go through `dense_level_pallas_v2`
+(`ops/msda_dense.py`, `csrc/msda_dense_v2_fwd.cu`), one launch per level,
+and the other levels of the call through one launch of the gather kernel;
+a call with no such level takes the default route. "v4" is not ported.
+
+The op is differentiable: on the card `MSDAFunction` pairs the forward
+launch with the backward kernel in `csrc/msda_bwd.cu`, which returns the
+gradients of value, locations and weights in one launch over all levels;
+its float32 atomics make the value gradient differ in its last bits from
+run to run. On a CPU tensor autograd differentiates the plain version.
+Kernels are built at first use (`cuda_build.py`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+import os
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from .cuda_build import CudaLib
+
+# which kernel serves the levels of a call (module docstring); read at every
+# call, so a caller may set it between calls
+PALLAS_SKIP_IMPL = os.environ.get("PALLAS_SKIP_IMPL", "v5")
+# the JAX routing's constants (`trackformer_tpu/ops/msda.py`): a level whose
+# N*Lq*M*H*W is within the budget runs there as a dense XLA product; a level
+# over it, of at most PALLAS_V2_MAX_CELLS cells and queried by at least
+# PALLAS_V2_MIN_QUERIES queries, is a "v2 level"
+DENSE_CELL_BUDGET = 8_000_000
+PALLAS_V2_MAX_CELLS = 32768
+PALLAS_V2_MIN_QUERIES = 4096
 # queries per block: enough work per block to amortize its start, small
 # enough that the encoder call still spreads over every SM several times
 Q_PER_BLOCK = 4
@@ -43,16 +66,33 @@ Q_PER_BLOCK = 4
 # show that a run went through the kernel; each wrapper adds one where it
 # launches and nowhere else.
 LAUNCHES: Dict[str, int] = {"ms_deform_attn": 0, "msda_patch": 0,
-                            "dense_level_pallas": 0}
+                            "dense_level_pallas": 0,
+                            "dense_level_pallas_v2": 0, "msda_bwd": 0}
+# The same launches by shape, (count name, items, queries per item, levels):
+# they show which shapes a run gave each kernel, the backward's split over
+# the encoder's and the decoder's calls included.
+LAUNCH_SHAPES: Dict[tuple, int] = {}
+
+
+def count_launch(name: str, n: int, lq: int, spatial_shapes) -> None:
+    """Adds one launch to `name`; called where a kernel was launched."""
+    LAUNCHES[name] += 1
+    key = (name, n, lq, tuple(tuple(hw) for hw in spatial_shapes))
+    LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def launch_shapes() -> Dict[tuple, int]:
+    return dict(LAUNCH_SHAPES)
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCH_SHAPES.clear()
 
 
 # --------------------------------------------------------------------------
@@ -127,11 +167,6 @@ def _check_inputs(value, spatial_shapes, loc, attn):
         raise TypeError(f"msda_fwd: value dtype {value.dtype}")
     if loc.dtype != torch.float32 or attn.dtype != torch.float32:
         raise TypeError("msda_fwd: locations and weights must be float32")
-    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
-                                    or attn.requires_grad):
-        raise RuntimeError("msda_fwd is forward-only: call it under "
-                           "torch.no_grad() (the backward kernel is not "
-                           "ported yet)")
     n, s, m, d = value.shape
     if loc.shape[:3] != (n, loc.shape[1], m) or loc.shape[-1] != 2:
         raise ValueError(f"msda_fwd: loc shape {tuple(loc.shape)}")
@@ -170,7 +205,135 @@ def msda_fwd_cuda(value: torch.Tensor,
                           stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd launch failed: cudaError {rc}")
-    LAUNCHES[wrapper] += 1
+    count_launch(wrapper, n, lq, spatial_shapes)
+    return out
+
+
+BWD_LIB = CudaLib("msda_bwd.cu", {"msda_bwd": (
+    ctypes.c_int,
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_void_p])})
+# warps per block of the backward kernel: one warp per (query, head)
+BWD_WARPS = 8
+
+
+def msda_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
+                  spatial_shapes: Sequence[Tuple[int, int]],
+                  sampling_locations: torch.Tensor,
+                  attention_weights: torch.Tensor):
+    """One launch of the backward kernel over the given levels. grad_out
+    (N, Lq, M, D) float32 or bfloat16 -> (grad_value in the value dtype,
+    grad_locations, grad_weights float32). Counts the launch as
+    "msda_bwd"."""
+    _check_inputs(value, spatial_shapes, sampling_locations,
+                  attention_weights)
+    n, s, m, d = value.shape
+    _, lq, _, l, p, _ = sampling_locations.shape
+    if grad_out.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"msda_bwd: grad dtype {grad_out.dtype}")
+    if grad_out.device != value.device or grad_out.numel() != n * lq * m * d:
+        raise ValueError(f"msda_bwd: grad shape {tuple(grad_out.shape)} on "
+                         f"{grad_out.device}")
+    grad_out = grad_out.contiguous()
+    lib = BWD_LIB.load()
+    grad_value = torch.zeros(n, s, m, d, dtype=torch.float32,
+                             device=value.device)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attn = torch.empty_like(attention_weights)
+    shapes = (ctypes.c_int * (2 * l))(*[int(v) for hw in spatial_shapes
+                                        for v in hw])
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msda_bwd(grad_out.data_ptr(), value.data_ptr(),
+                          sampling_locations.data_ptr(),
+                          attention_weights.data_ptr(), grad_value.data_ptr(),
+                          grad_loc.data_ptr(), grad_attn.data_ptr(),
+                          n, s, lq, m, l, p, d, shapes,
+                          int(value.dtype == torch.bfloat16),
+                          int(grad_out.dtype == torch.bfloat16), BWD_WARPS,
+                          stream)
+    if rc != 0:
+        raise RuntimeError(f"msda_bwd launch failed: cudaError {rc}")
+    count_launch("msda_bwd", n, lq, spatial_shapes)
+    return grad_value.to(value.dtype), grad_loc, grad_attn
+
+
+class MSDAFunction(torch.autograd.Function):
+    """The gather kernel's forward launch with the backward kernel as its
+    gradient. `wrapper` names the count the forward launch adds to."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights,
+                spatial_shapes, wrapper):
+        out = msda_fwd_cuda(value, spatial_shapes, sampling_locations,
+                            attention_weights, wrapper)
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        grads = msda_bwd_cuda(grad_out, value, ctx.spatial_shapes, loc, attn)
+        return (*grads, None, None)
+
+
+def msda_cuda(value: torch.Tensor,
+              spatial_shapes: Sequence[Tuple[int, int]],
+              sampling_locations: torch.Tensor,
+              attention_weights: torch.Tensor, wrapper: str) -> torch.Tensor:
+    """Differentiable launch of the gather kernel -> (N, Lq, M, D) in the
+    value dtype."""
+    return MSDAFunction.apply(value.contiguous(),
+                              sampling_locations.contiguous(),
+                              attention_weights.contiguous(),
+                              tuple(tuple(hw) for hw in spatial_shapes),
+                              wrapper)
+
+
+def v2_levels(n: int, lq: int, m: int,
+              spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """The levels of a call that route "v2" sends to the block-skipping
+    kernel, as the JAX routing picks them: over the dense budget, at least
+    PALLAS_V2_MIN_QUERIES queries, at most PALLAS_V2_MAX_CELLS cells."""
+    return [i for i, (h, w) in enumerate(spatial_shapes)
+            if n * lq * m * h * w > DENSE_CELL_BUDGET
+            and lq >= PALLAS_V2_MIN_QUERIES
+            and h * w <= PALLAS_V2_MAX_CELLS]
+
+
+def _ms_deform_attn_v2(value, spatial_shapes, loc, attn, skip):
+    """Route "v2" of a call with v2 levels `skip`: (N, Lq, M, D) float32
+    sum of those levels, one launch each, and of the remaining levels
+    through one launch of the gather kernel (CPU tensors: the plain
+    versions)."""
+    from .msda_dense import dense_level_pallas_v2
+    starts = [0]
+    for h, w in spatial_shapes:
+        starts.append(starts[-1] + h * w)
+    out = None
+    for i in skip:
+        h, w = spatial_shapes[i]
+        part = dense_level_pallas_v2(value[:, starts[i]:starts[i + 1]],
+                                     loc[:, :, :, i], attn[:, :, :, i], h, w)
+        out = part if out is None else out + part
+    rest = [i for i in range(len(spatial_shapes)) if i not in skip]
+    if rest:
+        shapes = tuple(spatial_shapes[i] for i in rest)
+        a, b = rest[0], rest[-1] + 1
+        if rest == list(range(a, b)):      # a run of levels: slices
+            v = value[:, starts[a]:starts[b]]
+            lo, at = loc[:, :, :, a:b], attn[:, :, :, a:b]
+        else:
+            v = torch.cat([value[:, starts[i]:starts[i + 1]] for i in rest],
+                          1)
+            lo, at = loc[:, :, :, rest], attn[:, :, :, rest]
+        if value.device.type == "cpu":
+            part = ms_deform_attn_plain(v, shapes, lo, at)
+        else:
+            part = msda_cuda(v, shapes, lo, at, "ms_deform_attn").float()
+        out = part if out is None else out + part
     return out
 
 
@@ -182,7 +345,19 @@ def ms_deform_attn(value: torch.Tensor,
     dtype."""
     n, s, m, d = value.shape
     lq = sampling_locations.shape[1]
-    if value.device.type == "cpu":
+    impl = PALLAS_SKIP_IMPL
+    if impl == "v4":
+        raise NotImplementedError(
+            'PALLAS_SKIP_IMPL="v4": the compacted-grid kernel is not ported '
+            "yet (ROADMAP.md queue 2 #5)")
+    if impl not in ("v5", "v2"):
+        raise ValueError(f"PALLAS_SKIP_IMPL={impl!r}: want v5, v2 or v4")
+    # a call without v2 levels (every decoder call) takes the default route
+    skip = v2_levels(n, lq, m, spatial_shapes) if impl == "v2" else []
+    if skip:
+        out = _ms_deform_attn_v2(value, spatial_shapes, sampling_locations,
+                                 attention_weights, skip).to(value.dtype)
+    elif value.device.type == "cpu":
         out = ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                                    attention_weights).to(value.dtype)
     elif lq == s:
@@ -190,7 +365,6 @@ def ms_deform_attn(value: torch.Tensor,
         out = msda_patch(value, spatial_shapes, sampling_locations,
                          attention_weights)
     else:
-        out = msda_fwd_cuda(value.contiguous(), spatial_shapes,
-                            sampling_locations.contiguous(),
-                            attention_weights.contiguous(), "ms_deform_attn")
+        out = msda_cuda(value, spatial_shapes, sampling_locations,
+                        attention_weights, "ms_deform_attn")
     return out.reshape(n, lq, m * d)

@@ -9,7 +9,7 @@ it is the plain version.
 It keeps the TPU contract: every level at once, and queries are the level
 tokens themselves (Lq == S). The output is (N, Lq, M, D) in the value dtype,
 where the TPU kernel returns float32; its one caller casts to the value
-dtype either way.
+dtype either way. Differentiable (`ops/msda.py:MSDAFunction`).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .msda import ms_deform_attn_plain, msda_fwd_cuda
+from .msda import ms_deform_attn_plain, msda_cuda
 
 
 def msda_patch(value: torch.Tensor,
@@ -33,6 +33,5 @@ def msda_patch(value: torch.Tensor,
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                                     attention_weights).to(value.dtype)
-    return msda_fwd_cuda(value.contiguous(), spatial_shapes,
-                         sampling_locations.contiguous(),
-                         attention_weights.contiguous(), "msda_patch")
+    return msda_cuda(value, spatial_shapes, sampling_locations,
+                     attention_weights, "msda_patch")

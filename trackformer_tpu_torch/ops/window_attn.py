@@ -120,7 +120,9 @@ def _check_inputs(xw, pw, kp, layer) -> None:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in [xw, pw, *params]):
         raise RuntimeError("window_layer_fwd is forward-only: call it under "
-                           "torch.no_grad()")
+                           "torch.no_grad(); to train the windowed encoder "
+                           "run its module path (window_layer_plain), as "
+                           "the JAX package does")
     nw = xw.shape[0]
     ff = layer.linear1.weight.shape[0]
     if (xw.dim() != 3 or tuple(xw.shape[1:]) != (WS, C)

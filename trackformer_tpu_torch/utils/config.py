@@ -5,8 +5,10 @@ It holds the values that the JAX package's
 gives, together with `cfgs/track.yaml`, so the port needs neither YAML nor
 the JAX package to build its main path. `FlagshipConfig.tpu_fast()` adds
 the named config `tpu_fast` (`cfgs/tpu_fast.yaml`): the windowed encoder
-with the cached previous-frame memory. Tests hold every field of both
-against `trackformer_tpu.utils.config.load_config`.
+with the cached previous-frame memory. The training fields (optimizer,
+loss and matcher coefficients, track-query augmentation) are train.yaml's
+too. Tests hold every field of both against
+`trackformer_tpu.utils.config.load_config`.
 """
 from __future__ import annotations
 
@@ -61,6 +63,35 @@ class FlagshipConfig:
     multi_frame_encoding: bool = True
     multi_frame_attention_separate_encoder: bool = True
     merge_frame_features: bool = False
+    # --- training (same YAML): optimization, matcher costs, losses,
+    # track-query augmentation ---
+    lr: float = 0.0002
+    lr_backbone: float = 0.00002
+    lr_linear_proj_mult: float = 0.1
+    lr_track: float = 0.0001
+    batch_size: int = 2
+    weight_decay: float = 0.0001
+    lr_drop: int = 40            # epoch of the x0.1 learning-rate drop
+    clip_max_norm: float = 0.1
+    dropout: float = 0.1
+    set_cost_class: float = 2.0
+    set_cost_bbox: float = 5.0
+    set_cost_giou: float = 2.0
+    cls_loss_coef: float = 2.0
+    bbox_loss_coef: float = 5.0
+    giou_loss_coef: float = 2.0
+    eos_coef: float = 0.1
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    track_query_false_positive_prob: float = 0.1
+    track_query_false_negative_prob: float = 0.4
+    track_query_false_positive_eos_weight: bool = True
+    track_backprop_prev_frame: bool = False
+    track_prev_prev_frame: bool = False
+    # train.yaml `tpu:` training knobs: target slots per image, linear
+    # learning-rate warmup steps (0 = off)
+    max_objects: int = 100
+    lr_warmup_steps: int = 0
     # train.yaml `tpu:` architecture knobs of the exact-MSDA mode
     encoder_attention: str = "msda"
     decoder_attention: str = "msda"
@@ -86,8 +117,8 @@ class FlagshipConfig:
     @classmethod
     def tpu_fast(cls, **changes) -> "FlagshipConfig":
         """The flagship with the named config `tpu_fast` on top: windowed
-        encoder, exact-MSDA decoder, cached previous-frame memory. Its
-        `lr_warmup_steps` applies to training only and is not held here."""
+        encoder, exact-MSDA decoder, cached previous-frame memory, and the
+        learning-rate warmup that its deep windowed encoder needs."""
         return cls(encoder_attention="windowed", encoder_window=8,
                    decoder_attention="msda", cached_prev_memory=True,
-                   **changes)
+                   lr_warmup_steps=1000, **changes)
