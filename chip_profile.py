@@ -3,7 +3,8 @@
 on one NVIDIA GPU.
 
     python3 chip_profile.py [--frames 8] [--seed 0] [--out DIR]
-                            [--paths exact_b1,fast_b1,fast_b8,train_v5,train_v2]
+                            [--paths exact_b1,fast_b1,fast_b8,train_v5,train_v2,
+                                     exact_v4,exact_decskip,train_v4]
 
 For each path — the exact mode through `Tracker` (B = 1), the TPU-fast mode
 through `Tracker` (B = 1) and through `BatchedTracker` (8 sequences in
@@ -22,7 +23,12 @@ synthetic 800x1344 frames of `chip_smoke.py`:
     (`device_share_of_untraced_step`), kernel launches per step, and the
     device time by operator (top 12).
 
-The training step (`train_v5`, `train_v2`: the two encoder routes of
+`exact_v4` and `exact_decskip` are the exact B = 1 path with
+`PALLAS_SKIP_IMPL=v4` (the encoder's levels through the range-walking
+kernel) and with `MSDA_DEC_SKIP` on (the decoder's two 100x168 levels
+through it).
+
+The training step (`train_v5`, `train_v2`, `train_v4`: the encoder routes of
 `PALLAS_SKIP_IMPL`) is the full-width exact-MSDA flagship in bfloat16, B = 2
 frame pairs at 800x1344 with `chip_smoke.py`'s synthetic boxes: three
 untraced steps (step ms and its split by stage, host clock with a
@@ -228,7 +234,8 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
                                                                 indent=1))
 
 
-PATHS = ("exact_b1", "fast_b1", "fast_b8", "train_v5", "train_v2")
+PATHS = ("exact_b1", "fast_b1", "fast_b8", "train_v5", "train_v2",
+         "exact_v4", "exact_decskip", "train_v4")
 
 
 def main() -> int:
@@ -248,25 +255,36 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import subprocess
 
-    from trackformer_tpu_torch.ops import msda, msda_dense, window_attn
+    from chip_smoke import all_libs
+    from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.cuda_build import build_all
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    build_all([msda.LIB, msda.BWD_LIB, msda_dense.V2_LIB, window_attn.LIB])
+    build_all(all_libs())
     out_dir = None if args.out is None else Path(args.out)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
     exact = FlagshipConfig().replace(dataset="mot_crowdhuman")
     fast = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
-    serving = {"exact_b1": (exact, 1), "fast_b1": (fast, 1),
-               "fast_b8": (fast, 8)}
+    # (config, batch, PALLAS_SKIP_IMPL, MSDA_DEC_SKIP)
+    serving = {"exact_b1": (exact, 1, "v5", False),
+               "fast_b1": (fast, 1, "v5", False),
+               "fast_b8": (fast, 8, "v5", False),
+               "exact_v4": (exact, 1, "v4", False),
+               "exact_decskip": (exact, 1, "v5", True)}
     for tag in paths:
         if tag in serving:
-            with torch.inference_mode():
-                run_path(tag, *serving[tag], args.frames, args.seed, out_dir)
+            cfg, batch, impl, dec_skip = serving[tag]
+            saved = (msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP)
+            msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP = impl, dec_skip
+            try:
+                with torch.inference_mode():
+                    run_path(tag, cfg, batch, args.frames, args.seed, out_dir)
+            finally:
+                msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP = saved
         else:
             run_train(tag, tag.split("_")[1], args.seed, out_dir)
     return 0

@@ -7,14 +7,14 @@ NVIDIA GPU.
 Phases, a few lines each (`--phases` runs a subset and then ends with a
 last line marked "partial"; the kernels line needs all of them):
   device: requires CUDA, prints `nvidia-smi` name and power limit;
-  build: compiles the four kernel sources of trackformer_tpu_torch/csrc for
-     sm_90a, one nvcc each, started together; reports each one's seconds
+  build: compiles the eight kernel sources of trackformer_tpu_torch/csrc
+     for sm_90a, one nvcc each, started together; reports each one's seconds
      and registers;
   msda: holds each MSDA wrapper's CUDA launch against the plain PyTorch
      version at the main paths' shapes (encoder all levels at B = 1 and at
      the training step's B = 2; decoder eight levels at B = 1, at the
      lockstep step's B = 8 and at the training step's 611 and 500 queries,
-     B = 2;
+     B = 2; the six levels that `MSDA_DEC_SKIP` leaves to the gather kernel;
      one decoder level), in float32 with TF32 off and in bfloat16, and
      times both;
   window: holds the fused window-layer kernel against its plain version at
@@ -37,12 +37,41 @@ last line marked "partial"; the kernels line needs all of them):
      `dense_level_pallas_v2` on a slice of the value table, and the whole
      encoder call through route "v2" of `ms_deform_attn`: output and the
      three gradients against autograd through the plain version;
+  dense_v4: holds the range-walking level kernel (TPU kernel v4 / v4p)
+     against the plain level on each encoder level, N = 1 and 2, float32
+     and bfloat16, with the initial offsets and with offsets six times as
+     large, sorted in 64-column chunks (the call's one permutation, as route
+     "v4" does) and unsorted at full width; on the decoder's 100x168 level
+     with 650 (N = 1), 611 and 500 (N = 2) scattered queries; its walk
+     bounds against `v4_ranges`, with the share of the level each walk
+     reads; times beside the gather kernel's and the block-skipping
+     kernel's on the same level; the differentiable wrappers' gradients;
+     then the whole encoder call through route "v4" and the whole decoder
+     call under `MSDA_DEC_SKIP`, output and gradients against the plain
+     version, with their launch counts;
+  dense_v3, gather_rows, patch_v6: the three kernels that no route of the
+     JAX package reaches. Their path is the public op on the inputs of one
+     real encoder MSDA call of the full-width exact model on a frame (the
+     value after its projection, the layer's own locations and weights):
+     `dense_level_pallas_v3` per level (windows against `v3_windows`, both
+     the fitting and the full-width branch, also with offsets six times as
+     large), `ms_deform_attn_pallas` (also at the decoder call's shape;
+     timed beside torch.gather + multiply + sum, a library composition),
+     `msda_patch_v6` (also N = 2 with samples pushed across the border);
+     each against its plain version in float32 and bfloat16, with the
+     wrappers' gradients where the op has them. These four kernels are also
+     held at small shapes whose head rows align to 2 and to 4 bytes only
+     (the staging words that D = 36 never takes);
   Times are CUDA-event medians over back-to-back calls (`time_ms`);
   exact: the full-width flagship model (hidden 288, 6+6 layers, 500
      queries, 4 levels x 2 frames, exact MSDA) with seeded random weights
      in bfloat16 through the port's `Tracker` over synthetic 800x1344
      frames, counting the kernel launches of that run; then the same
-     weights' float32 forward on the card against the CPU;
+     weights' float32 forward on the card against the CPU; then the same
+     tracker over fewer frames with `PALLAS_SKIP_IMPL=v4` (48 launches of
+     kernel v4 and 6 decoder launches per frame) and with `MSDA_DEC_SKIP`
+     (12 `msda_patch`, 12 of kernel v4 on the decoder's two 100x168 levels
+     and 6 gather launches of the other six levels per frame);
   fast: the same in the TPU-fast mode (windowed encoder, cached memory):
      `Tracker` over the frames, 6 window-layer and 6 decoder MSDA launches
      per frame; then `BatchedTracker` over 8 sequences in lockstep; then
@@ -52,11 +81,12 @@ last line marked "partial"; the kernels line needs all of them):
      flagship in bfloat16, B = 2 frame pairs at 800x1344 with seeded
      synthetic boxes and track ids: 3 optimizer steps with the encoder on
      route "v5" (the gather kernel), then 2 on route "v2" (the
-     block-skipping kernel, one launch per level) from the same state;
-     finite losses, moved trainable and unmoved frozen weights, the launch
+     block-skipping kernel, one launch per level) and 2 on route "v4" (the
+     range-walking kernel likewise), each from the same state; finite
+     losses, moved trainable and unmoved frozen weights, the launch
      counts of every step, step ms with its split by stage, peak memory;
-     route v2's first loss, first grad_norm and second loss against route
-     v5's;
+     route v2's and route v4's first loss, first grad_norm and second loss
+     against route v5's;
   train_reference: one float32 train step at 128x192, 2 + 2 layers, on the
      card (kernels) against the same step on the CPU (plain versions):
      loss, grad_norm and every gradient name by name, for two seeds, held
@@ -175,6 +205,15 @@ def reset_launch_counts() -> None:
     window_attn.reset_launch_counts()
 
 
+def all_libs():
+    """Every kernel library of the port."""
+    from trackformer_tpu_torch.ops import (msda, msda_dense, msda_pallas,
+                                           msda_patch, window_attn)
+    return [msda.LIB, msda.BWD_LIB, msda_dense.V2_LIB, window_attn.LIB,
+            msda_dense.V4_LIB, msda_dense.V3_LIB, msda_pallas.LIB,
+            msda_patch.V6_LIB]
+
+
 # MSDA launches of the main paths by shape, (count name, items, queries per
 # item, levels) -> launches, summed over the paths' runs: each run adds what
 # the wrappers counted between its reset and its read (`record_path`)
@@ -224,14 +263,15 @@ def msda_inputs(shapes, lq, encoder, gen, n=1, ref_shapes=None):
     return value, loc.contiguous(), attn
 
 
-def msda_bound(value, loc, attn):
-    """Each input read once, the output written once; 10 flops per sampled
-    channel (4 bilinear corners and the weight) on the CUDA cores."""
+def msda_bound(value, loc, attn, out_es=None):
+    """Each input read once, the output written once (`out_es` bytes an
+    element, by default the value's); 10 flops per sampled channel (4
+    bilinear corners and the weight) on the CUDA cores."""
     n, s, m, d = value.shape
     lq, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
     es = value.element_size()
     n_bytes = (value.numel() * es + loc.numel() * 4 + attn.numel() * 4
-               + n * lq * m * d * es)
+               + n * lq * m * d * (out_es or es))
     return bound(n_bytes, n * lq * m * l * p * d * 10, FP32_FLOPS)
 
 
@@ -242,6 +282,8 @@ def kernel_phase_msda(seed: int):
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dec_levels = LEVELS * 2
+    # what `MSDA_DEC_SKIP` leaves to the gather kernel of a decoder call
+    rest_levels = LEVELS[1:] * 2
     mid = LEVELS[1]
     s_enc = sum(h * w for h, w in LEVELS)
 
@@ -259,6 +301,8 @@ def kernel_phase_msda(seed: int):
 
     # (name, levels, queries per item, encoder-like sampling, items,
     # kernel, plain); decoder_b8 is the lockstep step's decoder call,
+    # decoder_rest the six coarser levels of a decoder call, launched as
+    # that route launches them: the float32 sums handed over unrounded,
     # encoder_train and decoder_train the training step's (two frame pairs,
     # 500 object queries + 111 track-query slots), decoder_train_prev that
     # of its previous-frame forward (the object queries alone)
@@ -267,6 +311,10 @@ def kernel_phase_msda(seed: int):
         ("decoder", dec_levels, DEC_QUERIES, False, 1, dec_kernel, dec_plain),
         ("decoder_b8", dec_levels, DEC_QUERIES, False, 8, dec_kernel,
          dec_plain),
+        ("decoder_rest", rest_levels, DEC_QUERIES, False, 1,
+         lambda v, lo, a: msda.msda_cuda(v, rest_levels, lo, a,
+                                         "ms_deform_attn", out_f32=True),
+         lambda v, lo, a: msda.ms_deform_attn_plain(v, rest_levels, lo, a)),
         ("encoder_train", LEVELS, s_enc, True, TRAIN_BATCH, enc_kernel,
          enc_plain),
         ("decoder_train", dec_levels, TRAIN_DEC_QUERIES, False, TRAIN_BATCH,
@@ -285,7 +333,11 @@ def kernel_phase_msda(seed: int):
         for dtype in (torch.float32, torch.bfloat16):
             v = value.to(dtype)
             with torch.no_grad():
-                got = kern(v, loc, attn).float().reshape(n, lq, M * D)
+                got = kern(v, loc, attn)
+                check(got.dtype == (torch.float32 if name == "decoder_rest"
+                                    else dtype),
+                      f"kernel {name} {dtype}: output in {got.dtype}")
+                got = got.float().reshape(n, lq, M * D)
                 torch.cuda.synchronize()
                 want = plain(v, loc, attn).reshape(n, lq, M * D)
                 err = (got - want).abs()
@@ -295,7 +347,8 @@ def kernel_phase_msda(seed: int):
                 max_rel = (err / want.abs().clamp(min=1e-3)).max().item()
                 ms = time_ms(lambda: kern(v, loc, attn), 20, INNER)
                 plain_ms = time_ms(lambda: plain(v, loc, attn), 5, INNER)
-            bound_ms, bound_by = msda_bound(v, loc, attn)
+            bound_ms, bound_by = msda_bound(
+                v, loc, attn, 4 if name == "decoder_rest" else None)
             phase("kernel", case=name, dtype=str(dtype).split(".")[-1],
                   items=n, lq=lq, levels=len(shapes),
                   max_abs_err=f"{max_abs:.3e}",
@@ -610,9 +663,10 @@ def grads_against_plain(tag: str, dtype, kernel_fn, plain_fn, inputs, g,
                         **fields) -> None:
     """A differentiable wrapper against its plain version on the same
     inputs: the output within `TOL`, the gradients of the three `inputs`
-    (value first) for the output gradient `g` within `grad_tol`. The
-    plain version returns float32; `g` is rounded to `dtype` first, so both
-    sides are given the same numbers."""
+    (value first)
+    for the output gradient `g` within `grad_tol`. The plain version
+    returns float32; `g` is rounded to `dtype` first, so both sides are
+    given the same numbers."""
     g = g.to(dtype).float()
     got, want = [], []
     for fn, res in ((kernel_fn, got), (plain_fn, want)):
@@ -623,8 +677,8 @@ def grads_against_plain(tag: str, dtype, kernel_fn, plain_fn, inputs, g,
     torch.cuda.synchronize()
     atol, rtol = TOL[dtype]
     out_err = (got[0] - want[0].reshape(got[0].shape)).abs()
-    ok = bool((out_err <= atol + rtol * want[0].reshape(got[0].shape).abs())
-              .all())
+    out_tol = atol + rtol * want[0].reshape(got[0].shape).abs()
+    ok = bool((out_err <= out_tol).all())
     errs = {"out": out_err.max().item()}
     for key, a, b in zip(("value", "loc", "attn"), got[1:], want[1:]):
         check(a.shape == b.shape and bool(torch.isfinite(a).all()),
@@ -770,6 +824,649 @@ def kernel_phase_dense_v2(seed: int):
     finally:
         msda.PALLAS_SKIP_IMPL = saved_impl
     return results
+
+
+# --------------------------------------------------------------------------
+# the tile-walking kernels of this slice: v4 / v4p, v3, gather-rows, v6
+# --------------------------------------------------------------------------
+
+def touched_value_rows(loc, shapes) -> int:
+    """Distinct (item, head, cell) value rows that carry weight for these
+    samples: loc (N, Lq, M, L, P, 2). What a kernel that skips has to read
+    of the value table for this run's data."""
+    n, _, m = loc.shape[:3]
+    total = 0
+    for lvl, (h, w) in enumerate(shapes):
+        x0 = torch.floor(loc[:, :, :, lvl, :, 0] * w - 0.5).long()
+        y0 = torch.floor(loc[:, :, :, lvl, :, 1] * h - 0.5).long()
+        head = (torch.arange(n, device=loc.device)[:, None, None, None] * m
+                + torch.arange(m, device=loc.device)[None, None, :, None])
+        hit = torch.zeros(n * m * h * w + 1, dtype=torch.bool,
+                          device=loc.device)
+        for cx, cy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            ix, iy = x0 + cx, y0 + cy
+            ok = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+            flat = torch.where(ok, head * (h * w) + iy * w + ix,
+                               torch.full_like(ix, n * m * h * w))
+            hit[flat.reshape(-1)] = True
+        total += int(hit[:-1].sum())
+    return total
+
+
+def level_bound(value, loc, attn, h, w, extra_bytes: int = 0):
+    """One level through a kernel that skips: the value rows that carry
+    weight read once, locations and weights read once, the float32 output
+    written once (+ `extra_bytes`, e.g. a permutation); 10 flops per
+    sampled channel on the CUDA cores, as `msda_bound` counts them."""
+    n, _, m, d = value.shape
+    lq, p = loc.shape[1], loc.shape[3]
+    rows = touched_value_rows(loc.unsqueeze(3), ((h, w),))
+    n_bytes = (rows * d * value.element_size() + loc.numel() * 4
+               + attn.numel() * 4 + n * lq * m * d * 4 + extra_bytes)
+    return bound(n_bytes, n * lq * m * p * d * 10, FP32_FLOPS)
+
+
+# Small shapes whose head rows align to 2 bytes (D = 5 bfloat16) and to 4
+# (D = 6 bfloat16, D = 5 float32) only: the staging words the flagship's
+# D = 36 never takes, with ragged tiles, three heads and three points
+ODD_LEVELS = ((11, 17), (6, 9))
+ODD_HEADS, ODD_POINTS, ODD_TQ = 3, 3, 16
+
+
+def odd_shape_inputs(gen, d: int, shapes, lq: int):
+    """value (2, S, 3, d), locations in [-0.1, 1.1] and weights for `lq`
+    queries on `shapes`."""
+    s = sum(h * w for h, w in shapes)
+    value = torch.randn(2, s, ODD_HEADS, d, device="cuda", generator=gen)
+    loc = torch.rand(2, lq, ODD_HEADS, len(shapes), ODD_POINTS, 2,
+                     device="cuda", generator=gen) * 1.2 - 0.1
+    attn = torch.rand(2, lq, ODD_HEADS, len(shapes), ODD_POINTS,
+                      device="cuda", generator=gen)
+    return value, loc, attn / attn.sum((-2, -1), keepdim=True)
+
+
+def held_against_plain(tag: str, dtype, got, want, **fields) -> float:
+    """A kernel's float32 output against its plain version's within `TOL`;
+    prints the reading, fails the run if it is out -> max abs error."""
+    err = (got.float() - want.float().reshape(got.shape)).abs()
+    atol, rtol = TOL[dtype]
+    ok = bool((err <= atol + rtol * want.reshape(got.shape).abs()).all())
+    ok = ok and bool(torch.isfinite(got).all())
+    max_abs = err.max().item()
+    phase("kernel", case=tag, dtype=str(dtype).split(".")[-1], **fields,
+          max_abs_err=f"{max_abs:.3e}", tol=f"{atol:g}+{rtol:g}*|ref|", ok=ok)
+    check(ok, f"kernel {tag} {dtype} {fields} out of tolerance: max abs err "
+              f"{max_abs}")
+    return max_abs
+
+
+def kernel_phase_dense_v4(seed: int):
+    """The range-walking kernel (module docstring). -> results by
+    ("enc", N, level) and ("dec", N, Lq), each timed in bfloat16 with the
+    initial offsets, sorted in chunks as the routes launch it."""
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.ops.msda_dense import (
+        V2_TQ, dense_level_pallas, dense_level_pallas_v4,
+        dense_level_pallas_v4p, dense_level_v2_fwd_cuda,
+        dense_level_v4_fwd_cuda, spatial_sort_perm, v4_ranges)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    bf16 = torch.bfloat16
+    cw = msda.PALLAS_V4_CW
+    s_enc = sum(h * w for h, w in LEVELS)
+    results = {}
+
+    def held(tag, value, loc, attn, h, w, perm, chunk, **fields):
+        """Both dtypes against the plain level, the kernel's walk bounds
+        against `v4_ranges` -> bfloat16 max abs error."""
+        want_r = v4_ranges(loc, h, w, V2_TQ, chunk, perm)
+        cells = ((want_r[..., 1] - want_r[..., 0] + 1).clamp(min=0)
+                 * (want_r[..., 3] - want_r[..., 2] + 1)).float()
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            with torch.no_grad():
+                got, ranges = dense_level_v4_fwd_cuda(
+                    v, loc, attn, h, w, perm=perm, cw=chunk,
+                    return_ranges=True)
+                torch.cuda.synchronize()
+                want = msda.level_plain(v, loc, attn, h, w)
+            ranges_ok = bool((ranges.long() == want_r).all())
+            err = held_against_plain(
+                tag, dtype, got, want, level=f"{h}x{w}", items=loc.shape[0],
+                lq=loc.shape[1], **fields,
+                walk="sorted, chunks of %d" % chunk if chunk else
+                "raster, full width",
+                mean_cells_walked=f"{cells.mean().item():.0f}",
+                level_skipped=f"{1 - cells.mean().item() / (h * w):.4f}",
+                ranges_ok=ranges_ok)
+            check(ranges_ok, f"kernel {tag}: walk bounds differ from "
+                             "v4_ranges")
+        return err
+
+    def timed(tag, v, loc, attn, h, w, perm, err):
+        with torch.no_grad():
+            ms = time_ms(lambda: dense_level_v4_fwd_cuda(
+                v, loc, attn, h, w, perm=perm, cw=cw), 20, INNER)
+            rows_ms = time_ms(lambda: dense_level_v4_fwd_cuda(
+                v, loc, attn, h, w), 20, INNER)
+            plain_ms = time_ms(lambda: msda.level_plain(v, loc, attn, h, w),
+                               5, INNER)
+            gather_ms = time_ms(lambda: dense_level_pallas(
+                v, loc, attn, h, w), 20, INNER)
+            v2_ms = time_ms(lambda: dense_level_v2_fwd_cuda(
+                v, loc, attn, h, w), 20, INNER)
+            sort_ms = time_ms(lambda: spatial_sort_perm(loc, h, w), 10, INNER)
+        bound_ms, bound_by = level_bound(v, loc, attn, h, w, perm.numel() * 8)
+        phase("kernel", case=tag, dtype="bfloat16", items=loc.shape[0],
+              lq=loc.shape[1], ms=f"{ms:.4f}",
+              unsorted_full_width_ms=f"{rows_ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", gather_kernel_ms=f"{gather_ms:.4f}",
+              block_skipping_kernel_ms=f"{v2_ms:.4f}",
+              spatial_sort_ms=f"{sort_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+              bound_by=bound_by)
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    gather_kernel_ms=gather_ms, block_skipping_kernel_ms=v2_ms,
+                    unsorted_full_width_ms=rows_ms)
+
+    # the encoder's call: every token queries every level
+    for n in (1, TRAIN_BATCH):
+        for scale in (1.0, 6.0):
+            # the call's one permutation, from level 0's locations
+            perm = spatial_sort_perm(
+                encoder_level_inputs(0, n, scale, gen)[1], *LEVELS[0])
+            for level, (h, w) in enumerate(LEVELS):
+                start = sum(a * b for a, b in LEVELS[:level])
+                value, loc, attn = encoder_level_inputs(level, n, scale, gen)
+                tag = f"dense_level_v4_l{level}"
+                err = held(tag, value, loc, attn, h, w, perm, cw,
+                           offset_scale=scale)
+                held(tag, value, loc, attn, h, w, None, None,
+                     offset_scale=scale)
+                if scale == 1.0:
+                    results[("enc", n, level)] = timed(
+                        tag, value.to(bf16), loc, attn, h, w, perm, err)
+                if n != TRAIN_BATCH:
+                    continue
+                # the wrappers as the training step calls them: the level's
+                # cells as a slice of the whole table
+                g = torch.randn(n, s_enc, M, D, device="cuda", generator=gen)
+                for dtype in (torch.float32, bf16):
+                    table = torch.zeros(n, s_enc, M, D, dtype=dtype,
+                                        device="cuda")
+                    table[:, start:start + h * w] = value.to(dtype)
+                    wrappers = [("dense_level_pallas_v4p_grad",
+                                 lambda t, lo_, at: dense_level_pallas_v4p(
+                                     t[:, start:start + h * w], lo_, at, perm,
+                                     h, w, cw))]
+                    if scale == 1.0:
+                        wrappers.append((
+                            "dense_level_pallas_v4_grad",
+                            lambda t, lo_, at: dense_level_pallas_v4(
+                                t[:, start:start + h * w], lo_, at, h, w)))
+                    for name, fn in wrappers:
+                        reset_launch_counts()
+                        grads_against_plain(
+                            f"{name}_l{level}", dtype, fn,
+                            lambda t, lo_, at: msda.level_plain(
+                                t[:, start:start + h * w], lo_, at, h, w),
+                            (table, loc, attn), g, items=n,
+                            offset_scale=scale)
+                        seen = msda.launch_shapes()
+                        check(seen == {
+                            ("dense_level_pallas_v4", n, s_enc, ((h, w),)): 1,
+                            ("msda_bwd", n, s_enc, ((h, w),)): 1},
+                            f"{name} level {level}: launched {seen}")
+                    del table
+
+    # the decoder's call on a frame's finest level: scattered queries
+    h, w = LEVELS[0]
+    for n, lq in ((1, DEC_QUERIES), (TRAIN_BATCH, TRAIN_DEC_QUERIES),
+                  (TRAIN_BATCH, TRAIN_PREV_QUERIES)):
+        value, loc, attn = msda_inputs((LEVELS[0],), lq, False, gen, n)
+        loc, attn = loc[:, :, :, 0].contiguous(), attn[:, :, :, 0].contiguous()
+        perm = spatial_sort_perm(loc, h, w)
+        err = held("dense_level_v4_decoder", value, loc, attn, h, w, perm, cw)
+        results[("dec", n, lq)] = timed("dense_level_v4_decoder",
+                                        value.to(bf16), loc, attn, h, w, perm,
+                                        err)
+        g = torch.randn(n, lq, M, D, device="cuda", generator=gen)
+        for dtype in (torch.float32, bf16):
+            grads_against_plain(
+                "dense_level_pallas_v4p_grad_decoder", dtype,
+                lambda v, lo_, at: dense_level_pallas_v4p(v, lo_, at, perm, h,
+                                                          w, cw),
+                lambda v, lo_, at: msda.level_plain(v, lo_, at, h, w),
+                (value.to(dtype), loc, attn), g, items=n, lq=lq)
+
+    # the other staging words (`ODD_LEVELS`)
+    h, w = ODD_LEVELS[0]
+    for d in (5, 6):
+        value, loc, attn = odd_shape_inputs(gen, d, ODD_LEVELS[:1], 70)
+        loc, attn = loc[:, :, :, 0].contiguous(), attn[:, :, :, 0].contiguous()
+        perm = spatial_sort_perm(loc, h, w)
+        want_r = v4_ranges(loc, h, w, ODD_TQ, 8, perm)
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            got, ranges = dense_level_v4_fwd_cuda(
+                v, loc, attn, h, w, perm=perm, cw=8, tq=ODD_TQ,
+                return_ranges=True)
+            held_against_plain("dense_level_v4_odd_shape", dtype, got,
+                               msda.level_plain(v, loc, attn, h, w), d=d,
+                               ranges_ok=bool((ranges.long() == want_r).all()))
+            check(bool((ranges.long() == want_r).all()),
+                  "dense_level_v4 odd shape: walk bounds")
+
+    # whole calls through the route switches
+    value, loc, attn = msda_inputs(LEVELS, s_enc, True, gen, TRAIN_BATCH)
+    loc[:, ::16] = loc[:, ::16] * 1.2 - 0.1
+    g = torch.randn(TRAIN_BATCH, s_enc, M * D, device="cuda", generator=gen)
+    saved = (msda.PALLAS_SKIP_IMPL, msda.PALLAS_V4_SORT, msda.MSDA_DEC_SKIP)
+    try:
+        msda.PALLAS_SKIP_IMPL = "v4"
+        for sort in (True, False):
+            msda.PALLAS_V4_SORT = sort
+            for dtype in (torch.float32, bf16):
+                reset_launch_counts()
+                grads_against_plain(
+                    "ms_deform_attn_route_v4_grad", dtype,
+                    lambda v, lo_, at: msda.ms_deform_attn(v, LEVELS, lo_, at),
+                    lambda v, lo_, at: msda.ms_deform_attn_plain(
+                        v, LEVELS, lo_, at).flatten(2),
+                    (value.to(dtype), loc, attn), g, items=TRAIN_BATCH,
+                    lq=s_enc, sorted=sort)
+                counts = {k: v for k, v in msda.launch_counts().items() if v}
+                check(counts == {"dense_level_pallas_v4": len(LEVELS),
+                                 "msda_bwd": len(LEVELS)},
+                      f"route v4 encoder call launched {counts}")
+        msda.PALLAS_SKIP_IMPL, msda.PALLAS_V4_SORT = saved[:2]
+        msda.MSDA_DEC_SKIP = True
+        dec_levels = LEVELS * 2
+        value, loc, attn = msda_inputs(dec_levels, DEC_QUERIES, False, gen, 1)
+        g = torch.randn(1, DEC_QUERIES, M * D, device="cuda", generator=gen)
+        for dtype in (torch.float32, bf16):
+            reset_launch_counts()
+            grads_against_plain(
+                "ms_deform_attn_dec_skip_grad", dtype,
+                lambda v, lo_, at: msda.ms_deform_attn(v, dec_levels, lo_, at),
+                lambda v, lo_, at: msda.ms_deform_attn_plain(
+                    v, dec_levels, lo_, at).flatten(2),
+                (value.to(dtype), loc, attn), g, items=1, lq=DEC_QUERIES)
+            counts = {k: v for k, v in msda.launch_counts().items() if v}
+            check(counts == {"dense_level_pallas_v4": 2, "ms_deform_attn": 1,
+                             "msda_bwd": 3},
+                  f"MSDA_DEC_SKIP decoder call launched {counts}")
+    finally:
+        (msda.PALLAS_SKIP_IMPL, msda.PALLAS_V4_SORT,
+         msda.MSDA_DEC_SKIP) = saved
+    return results
+
+
+def captured_encoder_call(seed: int):
+    """The inputs of one real encoder MSDA call of the full-width exact
+    model on a frame: (value (1, S, M, D) after the value projection, in
+    the model's bfloat16; the layer's own locations and weights, float32).
+    The first layer's call on the first synthetic frame."""
+    from trackformer_tpu_torch.models import deformable_transformer
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
+    model, _ = smoke_model(cfg, seed, "captured_call")
+    real = deformable_transformer.ms_deform_attn
+    seen = []
+
+    def recorder(value, spatial_shapes, loc, attn):
+        if not seen and loc.shape[1] == value.shape[1]:
+            seen.append((value.detach().clone(), loc.detach().clone(),
+                         attn.detach().clone(),
+                         tuple(tuple(hw) for hw in spatial_shapes)))
+        return real(value, spatial_shapes, loc, attn)
+
+    deformable_transformer.ms_deform_attn = recorder
+    try:
+        with torch.inference_mode():
+            model(frame_blobs(1, seed)[0]["batch"], None, None)
+    finally:
+        deformable_transformer.ms_deform_attn = real
+    check(len(seen) == 1, "no encoder MSDA call was seen")
+    value, loc, attn, shapes = seen[0]
+    check(shapes == LEVELS and value.shape == (1, loc.shape[1], M, D)
+          and value.dtype == torch.bfloat16,
+          f"captured call: levels {shapes}, value {tuple(value.shape)} "
+          f"{value.dtype}")
+    # out of inference mode, so that the gradient checks can use them
+    value, loc, attn = (x.clone() for x in (value, loc, attn))
+    outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+    phase("captured_call", call="encoder layer 0, frame 0", items=1,
+          lq=loc.shape[1], levels=len(shapes), dtype="bfloat16",
+          samples_outside=f"{outside:.4f}",
+          attn_min=f"{attn.min().item():.4f}",
+          attn_max=f"{attn.max().item():.4f}")
+    del model
+    return value, loc.float().contiguous(), attn.float().contiguous()
+
+
+def kernel_phase_dense_v3(seed: int, captured):
+    """The sorted, x-windowed kernel: the public op on each level of the
+    captured encoder call (its path), its windows against `v3_windows`;
+    the same with offsets six times as large, N = 2, where tiles do not
+    fit; and with a window of one column, which no tile fits, so that every
+    tile takes the full width. -> results by level."""
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.ops.msda_dense import (
+        V2_TQ, V3_CW, dense_level_pallas, dense_level_pallas_v3,
+        dense_level_v2_fwd_cuda, dense_level_v3_fwd_cuda, spatial_sort_perm,
+        v3_windows)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    bf16 = torch.bfloat16
+    value_all, loc_all, attn_all = captured
+    s_enc = loc_all.shape[1]
+    results, fit_share = {}, []
+    for level, (h, w) in enumerate(LEVELS):
+        start = sum(a * b for a, b in LEVELS[:level])
+        cases = [("captured call", value_all[:, start:start + h * w].float(),
+                  loc_all[:, :, :, level].contiguous(),
+                  attn_all[:, :, :, level].contiguous())]
+        cases.append(("offsets x6, N=2",
+                      *encoder_level_inputs(level, TRAIN_BATCH, 6.0, gen)))
+        for what, value, loc, attn in cases:
+            perm = spatial_sort_perm(loc, h, w)
+            want_w = v3_windows(loc, h, w, perm, V2_TQ, V3_CW)
+            fits = want_w[..., 3].float().mean().item()
+            fit_share.append(fits)
+            for dtype in (torch.float32, bf16):
+                v = value.to(dtype).contiguous()
+                with torch.no_grad():
+                    got, windows = dense_level_v3_fwd_cuda(
+                        v, loc, attn, h, w, return_windows=True)
+                    full, none_fit = dense_level_v3_fwd_cuda(
+                        v, loc, attn, h, w, cw=1, return_windows=True)
+                    torch.cuda.synchronize()
+                    want = msda.level_plain(v, loc, attn, h, w)
+                windows_ok = bool((windows.long() == want_w).all())
+                err = held_against_plain(
+                    f"dense_level_v3_l{level}", dtype, got, want,
+                    level=f"{h}x{w}", inputs=json.dumps(what),
+                    items=loc.shape[0], tiles_that_fit=f"{fits:.4f}",
+                    windows_ok=windows_ok)
+                held_against_plain(
+                    f"dense_level_v3_l{level}", dtype, full, want,
+                    level=f"{h}x{w}", inputs=json.dumps(what),
+                    branch="cw=1: every tile on the full width",
+                    tiles_that_fit=int(none_fit[..., 3].sum().item()))
+                check(int(none_fit[..., 3].sum().item()) == 0,
+                      f"dense_level_v3 level {level}: a tile fits one column")
+                check(windows_ok, f"kernel dense_level_v3 level {level}: "
+                                  "windows differ from v3_windows")
+            if what != "captured call":
+                continue
+            # the path: the public op on the captured call, counted
+            v = value.to(bf16).contiguous()
+            reset_launch_counts()
+            with torch.no_grad():
+                out = dense_level_pallas_v3(v, loc, attn, h, w)
+            check(out.shape == (1, s_enc, M, D)
+                  and bool(torch.isfinite(out).all()),
+                  "dense_level_pallas_v3: output")
+            record_path()
+            g = torch.randn(1, s_enc, M, D, device="cuda", generator=gen)
+            for dtype in (torch.float32, bf16):
+                grads_against_plain(
+                    f"dense_level_pallas_v3_grad_l{level}", dtype,
+                    lambda v_, lo_, at: dense_level_pallas_v3(v_, lo_, at, h,
+                                                              w),
+                    lambda v_, lo_, at: msda.level_plain(v_, lo_, at, h, w),
+                    (value.to(dtype), loc, attn), g, items=1)
+            with torch.no_grad():
+                ms = time_ms(lambda: dense_level_v3_fwd_cuda(
+                    v, loc, attn, h, w, perm=perm), 20, INNER)
+                with_sort_ms = time_ms(lambda: dense_level_v3_fwd_cuda(
+                    v, loc, attn, h, w), 20, INNER)
+                full_ms = time_ms(lambda: dense_level_v3_fwd_cuda(
+                    v, loc, attn, h, w, perm=perm, cw=1), 20, INNER)
+                plain_ms = time_ms(lambda: msda.level_plain(
+                    v, loc, attn, h, w), 5, INNER)
+                gather_ms = time_ms(lambda: dense_level_pallas(
+                    v, loc, attn, h, w), 20, INNER)
+                v2_ms = time_ms(lambda: dense_level_v2_fwd_cuda(
+                    v, loc, attn, h, w), 20, INNER)
+            bound_ms, bound_by = level_bound(v, loc, attn, h, w)
+            phase("kernel", case=f"dense_level_v3_l{level}",
+                  dtype="bfloat16", items=1, lq=s_enc, ms=f"{with_sort_ms:.4f}",
+                  kernel_alone_ms=f"{ms:.4f}",
+                  every_tile_full_width_ms=f"{full_ms:.4f}",
+                  plain_ms=f"{plain_ms:.4f}",
+                  gather_kernel_ms=f"{gather_ms:.4f}",
+                  block_skipping_kernel_ms=f"{v2_ms:.4f}",
+                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+            results[level] = dict(
+                max_abs_err=err, ms=with_sort_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                kernel_alone_ms=ms, gather_kernel_ms=gather_ms,
+                block_skipping_kernel_ms=v2_ms)
+    h, w = ODD_LEVELS[0]
+    for d in (5, 6):                # the other staging words
+        value, loc, attn = odd_shape_inputs(gen, d, ODD_LEVELS[:1], 70)
+        loc, attn = loc[:, :, :, 0].contiguous(), attn[:, :, :, 0].contiguous()
+        perm = spatial_sort_perm(loc, h, w)
+        want_w = v3_windows(loc, h, w, perm, ODD_TQ, 8)
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            got, windows = dense_level_v3_fwd_cuda(
+                v, loc, attn, h, w, perm=perm, cw=8, tq=ODD_TQ,
+                return_windows=True)
+            held_against_plain(
+                "dense_level_v3_odd_shape", dtype, got,
+                msda.level_plain(v, loc, attn, h, w), d=d,
+                windows_ok=bool((windows.long() == want_w).all()))
+            check(bool((windows.long() == want_w).all()),
+                  "dense_level_v3 odd shape: windows")
+    check(max(fit_share) > 0.5 and min(fit_share) < 0.5,
+          f"dense_level_v3: the cases do not exercise both branches: shares "
+          f"of fitting tiles {fit_share}")
+    return results
+
+
+def kernel_phase_gather_rows(seed: int, captured):
+    """The precomputed-rows gather: `ms_deform_attn_pallas` on the captured
+    encoder call (K = 64) and at the decoder call's shape (K = 128, 650
+    scattered queries), float32 and bfloat16 values, against
+    `ms_deform_attn_plain`; the kernel alone, on the operands the wrapper
+    builds, held against and timed beside the one library call that
+    computes the same function on the same operands
+    (`torch.nn.functional.embedding_bag` with per-sample weights, the
+    tables of all (item, head) laid end to end; used nowhere in the port)
+    and beside torch.gather + multiply + sum (the plain version, a
+    composition). -> results by "encoder" / "decoder"."""
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.ops.msda_pallas import (
+        gather_operands, gather_rows_cuda, gather_rows_plain,
+        ms_deform_attn_pallas)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    bf16 = torch.bfloat16
+    dec_levels = LEVELS * 2
+    cases = [("encoder", LEVELS, *captured),
+             ("decoder", dec_levels,
+              *msda_inputs(dec_levels, DEC_QUERIES, False, gen, 1))]
+    results = {}
+    for name, shapes, value, loc, attn in cases:
+        lq = loc.shape[1]
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            with torch.no_grad():
+                got = ms_deform_attn_pallas(v, shapes, loc, attn)
+                torch.cuda.synchronize()
+                want = msda.ms_deform_attn_plain(v, shapes, loc, attn)
+            check(got.dtype == dtype and got.shape == (1, lq, M * D),
+                  f"ms_deform_attn_pallas {name}: output")
+            err = held_against_plain(
+                f"ms_deform_attn_pallas_{name}", dtype, got.float(),
+                want.flatten(2), items=1, lq=lq, levels=len(shapes))
+        v = value.to(bf16)
+        reset_launch_counts()
+        with torch.no_grad():
+            ms_deform_attn_pallas(v, shapes, loc, attn)     # the path
+        record_path()
+        idx, weights, table = gather_operands(v, shapes, loc, attn)
+        with torch.no_grad():
+            same = gather_rows_cuda(idx, weights, table, M, shapes)
+            comp = gather_rows_plain(idx, weights, table)
+            check(bool(((same - comp).abs() <= 1e-5 + 1e-5 * comp.abs())
+                       .all()), f"gather_rows {name}: kernel against "
+                                "torch.gather composition")
+            # the library call's operands: one table of B*S rows, one bag
+            # of K rows per (item * head, query)
+            b, s_rows = table.shape[:2]
+            flat_table = table.reshape(b * s_rows, D)
+            bags = (idx + s_rows * torch.arange(
+                b, device="cuda", dtype=torch.int32)[:, None, None]
+                ).reshape(b * lq, -1)
+            bag_w = weights.reshape(b * lq, -1)
+
+            def library():
+                return torch.nn.functional.embedding_bag(
+                    bags, flat_table, per_sample_weights=bag_w, mode="sum")
+
+            lib_out = library().reshape(same.shape)
+            lib_err = (same - lib_out).abs().max().item()
+            check(bool(((same - lib_out).abs()
+                        <= 1e-5 + 1e-5 * lib_out.abs()).all()),
+                  f"gather_rows {name}: kernel against embedding_bag: "
+                  f"{lib_err}")
+            library_ms = time_ms(library, 20, INNER)
+            op_ms = time_ms(lambda: ms_deform_attn_pallas(v, shapes, loc,
+                                                          attn), 10, INNER)
+            ms = time_ms(lambda: gather_rows_cuda(idx, weights, table, M,
+                                                  shapes), 20, INNER)
+            plain_ms = time_ms(lambda: gather_rows_plain(idx, weights, table),
+                               5, INNER)
+            comp_ms = time_ms(
+                lambda: (torch.gather(
+                    table, 1, idx.long().reshape(idx.shape[0], -1, 1)
+                    .expand(-1, -1, D)).reshape(*idx.shape, D)
+                    * weights[..., None]).sum(2), 5, INNER)
+            fused_ms = time_ms(lambda: msda.ms_deform_attn(v, shapes, loc,
+                                                           attn), 20, INNER)
+        rows = touched_value_rows(loc, shapes)
+        n_bytes = (idx.numel() * 8 + rows * D * 4 + same.numel() * 4)
+        bound_ms, bound_by = bound(n_bytes, 2 * idx.numel() * D, FP32_FLOPS)
+        phase("kernel", case=f"msda_gather_rows_{name}",
+              table="float32, head-major", items=1, lq=lq, k=idx.shape[2],
+              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              library_ms=f"{library_ms:.4f}",
+              library_max_abs_diff=f"{lib_err:.3e}",
+              library_composition_ms=f"{comp_ms:.4f}",
+              whole_op_with_operands_ms=f"{op_ms:.4f}",
+              gather_kernel_same_call_ms=f"{fused_ms:.4f}",
+              bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
+        results[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms,
+            library_composition_ms=comp_ms, whole_op_with_operands_ms=op_ms,
+            gather_kernel_ms=fused_ms)
+        del idx, weights, table, same, comp, flat_table, bags, bag_w, lib_out
+    # K = 24 corners (a ragged load of 32) and D = 5 channels
+    value, loc, attn = odd_shape_inputs(gen, 5, ODD_LEVELS, 70)
+    for dtype in (torch.float32, bf16):
+        v = value.to(dtype)
+        held_against_plain(
+            "ms_deform_attn_pallas_odd_shape", dtype,
+            ms_deform_attn_pallas(v, ODD_LEVELS, loc, attn).float(),
+            msda.ms_deform_attn_plain(v, ODD_LEVELS, loc, attn).flatten(2),
+            d=5, k=24)
+    return results
+
+
+def kernel_phase_patch_v6(seed: int, captured):
+    """The flat chunk walk: `msda_patch_v6` on the captured encoder call
+    (its path) and on N = 2 items with every 16th query's samples pushed
+    across the border, float32 and bfloat16, against
+    `ms_deform_attn_plain`; the wrapper's gradients; times of the op, of
+    the kernel with the walk handed in, of `v6_walk`, of the plain version
+    and of the gather kernel on the same call. -> result."""
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.ops.msda_patch import (
+        V6_PH, V6_PW, V6_TQ, msda_patch, msda_patch_v6,
+        msda_patch_v6_fwd_cuda, v6_max_chunks, v6_walk)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    bf16 = torch.bfloat16
+    s_enc = sum(h * w for h, w in LEVELS)
+    pushed = msda_inputs(LEVELS, s_enc, True, gen, TRAIN_BATCH)
+    pushed[1][:, ::16] = pushed[1][:, ::16] * 1.2 - 0.1
+    maxc = v6_max_chunks(LEVELS, V6_PH, V6_PW)
+    errs = {}
+    for what, (value, loc, attn) in (("captured call", captured),
+                                     ("pushed across the border, N=2",
+                                      pushed)):
+        totals = v6_walk(LEVELS, loc)[1].float()
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            with torch.no_grad():
+                got = msda_patch_v6(v, LEVELS, loc, attn)
+                torch.cuda.synchronize()
+                want = msda.ms_deform_attn_plain(v, LEVELS, loc, attn)
+            errs[(what, dtype)] = held_against_plain(
+                "msda_patch_v6", dtype, got, want, inputs=json.dumps(what),
+                items=loc.shape[0], lq=s_enc, tile=V6_TQ,
+                chunk=f"{V6_PH}x{V6_PW}",
+                mean_chunks_walked=f"{totals.mean().item():.1f}",
+                max_chunks_walked=int(totals.max().item()),
+                all_chunks=maxc)
+    s_odd = sum(h * w for h, w in ODD_LEVELS)
+    for d in (5, 6):                # the other staging words, a ring of 3
+        value, loc, attn = odd_shape_inputs(gen, d, ODD_LEVELS, s_odd)
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            held_against_plain(
+                "msda_patch_v6_odd_shape", dtype,
+                msda_patch_v6_fwd_cuda(v, ODD_LEVELS, loc, attn, tq=ODD_TQ,
+                                       ph=4, pw=8, nslots=3),
+                msda.ms_deform_attn_plain(v, ODD_LEVELS, loc, attn), d=d)
+    value, loc, attn = captured
+    v = value.to(bf16)
+    reset_launch_counts()
+    with torch.no_grad():
+        msda_patch_v6(v, LEVELS, loc, attn)                 # the path
+    record_path()
+    g = torch.randn(1, s_enc, M, D, device="cuda", generator=gen)
+    for dtype in (torch.float32, bf16):
+        reset_launch_counts()
+        grads_against_plain(
+            "msda_patch_v6_grad", dtype,
+            lambda v_, lo_, at: msda_patch_v6(v_, LEVELS, lo_, at),
+            lambda v_, lo_, at: msda.ms_deform_attn_plain(v_, LEVELS, lo_,
+                                                          at),
+            (value.to(dtype), loc, attn), g, items=1)
+        counts = {k: n for k, n in msda.launch_counts().items() if n}
+        check(counts == {"msda_patch_v6": 1, "msda_bwd": 1},
+              f"msda_patch_v6 and its backward launched {counts}")
+    walk = v6_walk(LEVELS, loc)
+    with torch.no_grad():
+        ms = time_ms(lambda: msda_patch_v6(v, LEVELS, loc, attn), 20, INNER)
+        kernel_ms = time_ms(lambda: msda_patch_v6_fwd_cuda(
+            v, LEVELS, loc, attn, walk=walk), 20, INNER)
+        walk_ms = time_ms(lambda: v6_walk(LEVELS, loc), 10, INNER)
+        plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(
+            v, LEVELS, loc, attn), 5, INNER)
+        gather_ms = time_ms(lambda: msda_patch(v, LEVELS, loc, attn), 20,
+                            INNER)
+    rows = touched_value_rows(loc, LEVELS)
+    n_bytes = (rows * D * 2 + loc.numel() * 4 + attn.numel() * 4
+               + s_enc * M * D * 4 + s_enc * 4)
+    bound_ms, bound_by = bound(
+        n_bytes, s_enc * M * len(LEVELS) * P * D * 10, FP32_FLOPS)
+    phase("kernel", case="msda_patch_v6", dtype="bfloat16", items=1,
+          lq=s_enc, ms=f"{ms:.4f}", kernel_alone_ms=f"{kernel_ms:.4f}",
+          v6_walk_ms=f"{walk_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          gather_kernel_ms=f"{gather_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          bound_by=bound_by)
+    return dict(max_abs_err=errs[("captured call", bf16)], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, kernel_alone_ms=kernel_ms,
+                v6_walk_ms=walk_ms, gather_kernel_ms=gather_ms)
 
 
 # --------------------------------------------------------------------------
@@ -967,8 +1664,8 @@ def reference_run(tag: str, model, n_frames: int) -> float:
 # --------------------------------------------------------------------------
 
 TRAIN_OBJECTS = 20             # boxes per image, in `max_objects` = 100 slots
-# route v2 against route v5 from the same state: the two encoder kernels
-# round differently (float32 partial sums per level against one sum over
+# route v2 (and v4) against route v5 from the same state: the encoder
+# kernels round differently (float32 partial sums per level against one sum over
 # all levels, each rounded to bfloat16), 12 bfloat16 layers amplify that,
 # and a changed Hungarian match moves the loss in a step. Held: the first
 # step's loss (the forwards), its grad_norm (the backward through either
@@ -1035,9 +1732,9 @@ def synthetic_train_pack(cfg, seed: int, step: int):
 
 def train_run(seed: int):
     """The full-width exact-MSDA flagship in bfloat16, B = 2 frame pairs at
-    800x1344: 3 optimizer steps on route v5, then 2 on route v2 from the
-    same start state and the same draws. Every step's launches go into
-    `PATH_SHAPES`."""
+    800x1344: 3 optimizer steps on route v5, then 2 on route v2 and 2 on
+    route v4, each from the same start state and the same draws. Every
+    step's launches go into `PATH_SHAPES`."""
     from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
                                               make_train_step)
     from trackformer_tpu_torch.models import build_model
@@ -1075,15 +1772,18 @@ def train_run(seed: int):
     enc = 12   # encoder layer calls per forward: 6 layers x 2 frames
     want = {
         "v5": {"msda_patch": 2 * enc, "ms_deform_attn": 12,
-               "dense_level_pallas_v2": 0, "msda_bwd": enc + 6},
-        "v2": {"msda_patch": 0, "ms_deform_attn": 12,
+               "msda_bwd": enc + 6},
+        "v2": {"ms_deform_attn": 12,
                "dense_level_pallas_v2": 2 * enc * len(LEVELS),
+               "msda_bwd": enc * len(LEVELS) + 6},
+        "v4": {"ms_deform_attn": 12,
+               "dense_level_pallas_v4": 2 * enc * len(LEVELS),
                "msda_bwd": enc * len(LEVELS) + 6},
     }
     by_route = {}
     saved_impl = msda.PALLAS_SKIP_IMPL
     try:
-        for route, n_steps in (("v5", 3), ("v2", 2)):
+        for route, n_steps in (("v5", 3), ("v2", 2), ("v4", 2)):
             msda.PALLAS_SKIP_IMPL = route
             model.load_state_dict(start)
             state = TrainState.create(model, optimizer)
@@ -1114,12 +1814,10 @@ def train_run(seed: int):
                 check(not bad, f"train {route} step {step}: non-finite {bad}")
                 check(values["grad_norm"] > 0, f"train {route}: zero "
                                                "gradient")
-                for name, n in want[route].items():
-                    check(counts[name] == n, f"train {route} step {step}: "
-                          f"{counts[name]} {name} launches, want {n}")
-                check(counts["fused_window_layer"] == 0
-                      and counts["dense_level_pallas"] == 0,
-                      f"train {route}: stray launches {counts}")
+                for name, n in counts.items():
+                    check(n == want[route].get(name, 0),
+                          f"train {route} step {step}: {n} {name} launches, "
+                          f"want {want[route].get(name, 0)}")
                 by_route.setdefault(route, []).append(
                     (values["loss"], values["grad_norm"]))
                 if step == 0:
@@ -1152,15 +1850,19 @@ def train_run(seed: int):
                                              "tensor changed")
     finally:
         msda.PALLAS_SKIP_IMPL = saved_impl
-    pairs = {"first_step_loss": (by_route["v5"][0][0], by_route["v2"][0][0]),
-             "first_step_grad_norm": (by_route["v5"][0][1],
-                                      by_route["v2"][0][1]),
-             "second_step_loss": (by_route["v5"][1][0], by_route["v2"][1][0])}
-    ok = all(abs(b - a) <= ROUTE_LOSS_RTOL * abs(a) for a, b in pairs.values())
-    phase("train", **{f"{k}_{r}": f"{v:.4f}" for k, ab in pairs.items()
-                      for r, v in zip(("v5", "v2"), ab)},
-          tol=f"{ROUTE_LOSS_RTOL}*|v5|", ok=ok)
-    check(ok, f"train: route v2 against route v5: {pairs}")
+    for route in ("v2", "v4"):
+        pairs = {"first_step_loss": (by_route["v5"][0][0],
+                                     by_route[route][0][0]),
+                 "first_step_grad_norm": (by_route["v5"][0][1],
+                                          by_route[route][0][1]),
+                 "second_step_loss": (by_route["v5"][1][0],
+                                      by_route[route][1][0])}
+        ok = all(abs(b - a) <= ROUTE_LOSS_RTOL * abs(a)
+                 for a, b in pairs.values())
+        phase("train", **{f"{k}_{r}": f"{v:.4f}" for k, ab in pairs.items()
+                          for r, v in zip(("v5", route), ab)},
+              tol=f"{ROUTE_LOSS_RTOL}*|v5|", ok=ok)
+        check(ok, f"train: route {route} against route v5: {pairs}")
 
 
 def grad_readings(got: dict, ref: dict, limits) -> dict:
@@ -1299,8 +2001,11 @@ def train_reference_run(seed: int):
                       f"differs from {failed}")
 
 
-PHASES = ("msda", "window", "msda_bwd", "dense_v2", "exact", "fast",
-          "train", "train_reference")
+PHASES = ("msda", "window", "msda_bwd", "dense_v2", "dense_v4", "dense_v3",
+          "gather_rows", "patch_v6", "exact", "fast", "train",
+          "train_reference")
+# frames of the exact tracker's runs on the other routes
+ROUTE_FRAMES = 3
 
 
 def main() -> int:
@@ -1324,7 +2029,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from trackformer_tpu_torch.ops import msda, msda_dense, window_attn
+    from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.cuda_build import NVCC_FLAGS, build_all
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
@@ -1338,7 +2043,7 @@ def main() -> int:
           torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    libs = [msda.LIB, msda.BWD_LIB, msda_dense.V2_LIB, window_attn.LIB]
+    libs = all_libs()
     build_all(libs)
     for lib in libs:
         info = lib.info()
@@ -1353,7 +2058,7 @@ def main() -> int:
     # mot_crowdhuman: a 20-class head
     exact_cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
     fast_cfg = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
-    kmsda = kwin = kbwd = kv2 = None
+    kmsda = kwin = kbwd = kv2 = kv4 = kv3 = krows = kv6 = None
     fast_counts = batched_counts = None
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1366,12 +2071,39 @@ def main() -> int:
             kbwd = kernel_phase_msda_bwd(args.seed)
         if "dense_v2" in phases:
             kv2 = kernel_phase_dense_v2(args.seed)
+        if "dense_v4" in phases:
+            kv4 = kernel_phase_dense_v4(args.seed)
+        if {"dense_v3", "gather_rows", "patch_v6"} & set(phases):
+            captured = captured_encoder_call(args.seed)
+            if "dense_v3" in phases:
+                kv3 = kernel_phase_dense_v3(args.seed, captured)
+            if "gather_rows" in phases:
+                krows = kernel_phase_gather_rows(args.seed, captured)
+            if "patch_v6" in phases:
+                kv6 = kernel_phase_patch_v6(args.seed, captured)
+            del captured
 
         if "exact" in phases:
             model, post = smoke_model(exact_cfg, args.seed, "exact")
             tracker_run("exact", exact_cfg, model, post,
                         args.frames, args.seed,
                         {"msda_patch": 12, "ms_deform_attn": 6})
+            saved = (msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP)
+            try:
+                # 2 frames x 6 layers x 4 levels through kernel v4
+                msda.PALLAS_SKIP_IMPL = "v4"
+                tracker_run("exact_v4", exact_cfg, model, post, ROUTE_FRAMES,
+                            args.seed, {"dense_level_pallas_v4": 48,
+                                        "ms_deform_attn": 6})
+                # per decoder layer: the two frames' 100x168 levels through
+                # kernel v4, the other six levels in one gather launch
+                msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP = saved[0], True
+                tracker_run("exact_decskip", exact_cfg, model, post,
+                            ROUTE_FRAMES, args.seed,
+                            {"msda_patch": 12, "dense_level_pallas_v4": 12,
+                             "ms_deform_attn": 6})
+            finally:
+                msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP = saved
             reference_run("exact", model, 1)
             del model
 
@@ -1405,6 +2137,12 @@ def main() -> int:
     csrc = "trackformer_tpu_torch/csrc/"
     msda_src, win_src = csrc + "msda_fwd.cu", csrc + "window_layer_fwd.cu"
     bwd_src, v2_src = csrc + "msda_bwd.cu", csrc + "msda_dense_v2_fwd.cu"
+    v4_src, v3_src = (csrc + "msda_dense_v4_fwd.cu",
+                      csrc + "msda_dense_v3_fwd.cu")
+    rows_src, v6_src = (csrc + "msda_gather_rows_fwd.cu",
+                        csrc + "msda_patch_v6_fwd.cu")
+    pallas_py = "trackformer_tpu/ops/msda_pallas.py"
+    no_route = "public op, no route in the JAX package"
     bf16 = torch.bfloat16
     s_enc = sum(h * w for h, w in LEVELS)
     dec_levels = LEVELS * 2
@@ -1434,6 +2172,10 @@ def main() -> int:
          "8 levels, 500 queries, B = 2)",
          msda_src, dense_py + ":216", kmsda[("decoder_train_prev", bf16)],
          ("ms_deform_attn", TRAIN_BATCH, TRAIN_PREV_QUERIES, dec_levels)),
+        ("msda_fwd via ms_deform_attn (MSDA_DEC_SKIP: the decoder's other "
+         "six levels, B = 1)",
+         msda_src, dense_py + ":216", kmsda[("decoder_rest", bf16)],
+         ("ms_deform_attn", 1, DEC_QUERIES, (LEVELS[1:] * 2))),
         ("msda_bwd (training, encoder call, all levels, B = 2)",
          bwd_src, patch_py + ":367", kbwd[("encoder", bf16)],
          ("msda_bwd", TRAIN_BATCH, s_enc, LEVELS)),
@@ -1447,9 +2189,39 @@ def main() -> int:
             ("msda_bwd (training, " + at, bwd_src, dense_py + ":780",
              kbwd[(f"encoder_l{lvl}", bf16)],
              ("msda_bwd", TRAIN_BATCH, s_enc, (hw,))),
+            ("msda_dense_v4_fwd via dense_level_pallas_v4p (route v4, "
+             f"encoder level {lvl} {hw[0]}x{hw[1]}, B = 1)",
+             v4_src, dense_py + ":356", kv4[("enc", 1, lvl)],
+             ("dense_level_pallas_v4", 1, s_enc, (hw,))),
+            ("msda_dense_v4_fwd via dense_level_pallas_v4p (training, "
+             + at.replace("route v2", "route v4"),
+             v4_src, dense_py + ":356", kv4[("enc", TRAIN_BATCH, lvl)],
+             ("dense_level_pallas_v4", TRAIN_BATCH, s_enc, (hw,))),
+            (f"msda_dense_v3_fwd via dense_level_pallas_v3 (encoder level "
+             f"{lvl} {hw[0]}x{hw[1]} of a captured call, B = 1)",
+             v3_src, dense_py + ":270", {**kv3[lvl], "path": no_route},
+             ("dense_level_pallas_v3", 1, s_enc, (hw,))),
             ("msda_dense_v2_fwd via dense_level_pallas_v2 (training, " + at,
              v2_src, dense_py + ":68", kv2[lvl],
              ("dense_level_pallas_v2", TRAIN_BATCH, s_enc, (hw,)))]
+    msda_entries += [
+        ("msda_dense_v4_fwd via dense_level_pallas_v4p (MSDA_DEC_SKIP, "
+         "decoder level 100x168, 650 queries, B = 1)",
+         v4_src, dense_py + ":356", kv4[("dec", 1, DEC_QUERIES)],
+         ("dense_level_pallas_v4", 1, DEC_QUERIES, (LEVELS[0],))),
+        ("msda_gather_rows_fwd via ms_deform_attn_pallas (a captured "
+         "encoder call, all levels, B = 1)",
+         rows_src, pallas_py + ":34", {**krows["encoder"], "path": no_route},
+         ("ms_deform_attn_pallas", 1, s_enc, LEVELS)),
+        ("msda_gather_rows_fwd via ms_deform_attn_pallas (the decoder "
+         "call's shape, 8 levels, 650 queries, B = 1)",
+         rows_src, pallas_py + ":34", {**krows["decoder"], "path": no_route},
+         ("ms_deform_attn_pallas", 1, DEC_QUERIES, dec_levels)),
+        ("msda_patch_v6_fwd via msda_patch_v6 (a captured encoder call, all "
+         "levels, B = 1)",
+         v6_src, patch_py + ":411", {**kv6, "path": no_route},
+         ("msda_patch_v6", 1, s_enc, LEVELS)),
+    ]
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": PATH_SHAPES.get(key, 0),
                 **result}

@@ -132,5 +132,7 @@ def test_cpu_calls_launch_nothing():
     counts = msda.launch_counts()
     assert set(counts) == {"ms_deform_attn", "msda_patch",
                            "dense_level_pallas", "dense_level_pallas_v2",
-                           "msda_bwd"}
+                           "msda_bwd", "dense_level_pallas_v4",
+                           "dense_level_pallas_v3", "ms_deform_attn_pallas",
+                           "msda_patch_v6"}
     assert all(v == 0 for v in counts.values())

@@ -11,7 +11,8 @@
   * `v2_row_band`: zeroing every value row outside a tile's band leaves the
     tile's result unchanged (the skip is exact);
   * route "v2" of `ms_deform_attn` sends the levels to the block-skipping
-    function that the JAX routing sends there.
+    function that the JAX routing sends there (route "v4" and
+    `MSDA_DEC_SKIP`: tests/test_torch_msda_routes.py).
 
 The CUDA kernels cannot run in this CPU suite; `chip_smoke.py` holds them
 against the plain versions on the card. Tolerance: float32 on both sides,
@@ -25,7 +26,8 @@ import torch
 
 from trackformer_tpu.ops import msda as jmsda
 from trackformer_tpu.ops import msda_dense as jdense
-from trackformer_tpu_torch.ops import msda, msda_dense
+from trackformer_tpu_torch.ops import (msda, msda_dense, msda_pallas,
+                                       msda_patch)
 
 torch.set_num_threads(1)
 
@@ -233,12 +235,10 @@ def test_route_v2_takes_the_levels_the_jax_routing_takes(monkeypatch, shapes,
     close(got, base)
 
 
-def test_route_v4_is_not_ported(monkeypatch):
+def test_unknown_route_raises(monkeypatch):
+    # routes "v2" and "v4" are held in test_route_v2_... above and in
+    # tests/test_torch_msda_routes.py
     value, loc, attn, _ = make_inputs()
-    monkeypatch.setattr(msda, "PALLAS_SKIP_IMPL", "v4")
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        msda.ms_deform_attn(*map(torch.from_numpy, (value,)), SHAPES,
-                            torch.from_numpy(loc), torch.from_numpy(attn))
     monkeypatch.setattr(msda, "PALLAS_SKIP_IMPL", "v7")
     with pytest.raises(ValueError, match="PALLAS_SKIP_IMPL"):
         msda.ms_deform_attn(torch.from_numpy(value), SHAPES,
@@ -257,7 +257,23 @@ def test_new_cuda_launchers_refuse_cpu_tensors():
         msda_dense.dense_level_v2_fwd_cuda(
             tv[:, :h * w].contiguous(), tl[:, :, :, 0].contiguous(),
             ta[:, :, :, 0].contiguous(), h, w)
+    level = (tv[:, :h * w].contiguous(), tl[:, :, :, 0].contiguous(),
+             ta[:, :, :, 0].contiguous(), h, w)
+    perm = msda_dense.spatial_sort_perm(level[1], h, w)
+    for call in (
+            lambda: msda_dense.dense_level_v4_fwd_cuda(*level),
+            lambda: msda_dense.dense_level_v4_fwd_cuda(*level, perm=perm,
+                                                       cw=8),
+            lambda: msda_dense.dense_level_v3_fwd_cuda(*level),
+            lambda: msda_patch.msda_patch_v6_fwd_cuda(tv, SHAPES, tl, ta),
+            lambda: msda_pallas.gather_rows_cuda(
+                torch.zeros(2, 3, 4, dtype=torch.int32), torch.zeros(2, 3, 4),
+                torch.zeros(2, 5, 6), 2, ((1, 5),))):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     assert msda.launch_counts() == before
+    assert {"dense_level_pallas_v4", "dense_level_pallas_v3",
+            "ms_deform_attn_pallas", "msda_patch_v6"} <= set(before)
 
 
 def test_launches_are_counted_by_name_and_by_shape():

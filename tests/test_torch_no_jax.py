@@ -2,8 +2,9 @@
 and flax are absent, as on the machine with the card: every module of the
 package imports, and tiny tracker runs of both encoder modes (exact MSDA,
 and the TPU-fast windowed mode with the cached memory, through `Tracker`
-and `BatchedTracker`) and one two-frame training step of the exact mode go
-through on the CPU, in a subprocess in which
+and `BatchedTracker`; the exact mode also on route "v4" and under
+`MSDA_DEC_SKIP`), the public MSDA ops that no route calls, and one
+two-frame training step of the exact mode go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -65,10 +66,31 @@ for cfg in (FlagshipConfig().replace(enc_layers=1, **tiny),
     for _ in range(2):
         tracker.step(blob)
     assert tracker.frame_index == 2
-    if cfg.cached_prev_memory:
+    if not cfg.cached_prev_memory:
+        exact_tracker = tracker
+    else:
         batched = BatchedTracker(model, post, tracker_cfg, cfg.hidden_dim,
                                  cfg.num_queries)
         assert len(batched.run([[blob, blob], [blob, blob]])) == 2
+
+# the other routes of the MSDA op (kernel v4 for the encoder's levels, then
+# for every call with few queries), and the public ops that no route calls
+from trackformer_tpu_torch.ops import msda, msda_pallas, msda_patch
+msda.DENSE_CELL_BUDGET = 0
+msda.PALLAS_SKIP_IMPL, msda.PALLAS_V2_MIN_QUERIES = "v4", 100
+exact_tracker.step(blob)
+msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP = "v5", True
+msda.PALLAS_DENSE_MAX_CELLS = 0
+exact_tracker.step(blob)
+assert exact_tracker.frame_index == 4
+msda.MSDA_DEC_SKIP = False
+shapes = ((8, 12), (4, 6))
+value, loc = torch.randn(1, 120, 2, 4), torch.rand(1, 120, 2, 2, 3, 2)
+attn = torch.rand(1, 120, 2, 2, 3)
+want = msda.ms_deform_attn(value, shapes, loc, attn)
+for op in (msda_pallas.ms_deform_attn_pallas, msda_patch.msda_patch_v6):
+    assert torch.allclose(op(value, shapes, loc, attn).reshape(want.shape),
+                          want, atol=1e-5)
 
 from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
                                           make_train_step)

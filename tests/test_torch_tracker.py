@@ -225,7 +225,10 @@ H, W = 64, 96
 MAX_TRACKS = 8
 
 
-def test_tracker_end_to_end_matches_jax():
+@pytest.fixture(scope="module")
+def jax_tracker_run():
+    """The JAX tracker over four frames of the tiny model: its weights, the
+    frames, the active ids after each frame, its results and reid count."""
     args = nested_namespace(load_config(
         "train.yaml", NAMED, {**TINY, "tpu.compute_dtype": "float32"}))
     jmodel = jax_build_model(args)[0]
@@ -259,31 +262,42 @@ def test_tracker_end_to_end_matches_jax():
                                                  deterministic=True),
         jax_postprocess, tracker_cfg, hidden_dim=96,
         num_object_queries=TINY["num_queries"], overflow_boxes=True)
-    cfg = FlagshipConfig().replace(compute_dtype="float32", **TINY)
-    tmodel, postprocess = build_model(cfg, "cpu")
-    tmodel.load_state_dict(jax_params_to_state_dict(params))
-    ttracker = ttr.Tracker(tmodel, postprocess, tracker_cfg, hidden_dim=96,
-                           num_object_queries=TINY["num_queries"],
-                           overflow_boxes=True)
-
     orig_size = np.array([[120, 180]], np.int32)
-    per_frame = []
+    frames, ids = [], []
     for t in range(4):
         img = np.roll(base, (2 * t, 3 * t), axis=(1, 2))
         img = img + 0.3 * rng.randn(*img.shape).astype(np.float32)
+        frames.append(img)
         jtracker.step({"batch": JFrameBatch.from_images(
             jnp.asarray(img), jnp.asarray(valid_hw)),
             "orig_size": jnp.asarray(orig_size)})
+        ids.append(np.asarray(jtracker.state.ids)[np.asarray(
+            jtracker.state.active)])
+    return dict(params=params, tracker_cfg=tracker_cfg, frames=frames,
+                valid_hw=valid_hw, orig_size=orig_size, ids=ids,
+                results=jtracker.get_results(), num_reids=jtracker.num_reids)
+
+
+def port_tracker_matches(run):
+    """The port's `Tracker` on the same weights and frames: identical ids
+    after every frame, boxes to 1e-3 pixels."""
+    cfg = FlagshipConfig().replace(compute_dtype="float32", **TINY)
+    tmodel, postprocess = build_model(cfg, "cpu")
+    tmodel.load_state_dict(jax_params_to_state_dict(run["params"]))
+    ttracker = ttr.Tracker(tmodel, postprocess, run["tracker_cfg"],
+                           hidden_dim=96,
+                           num_object_queries=TINY["num_queries"],
+                           overflow_boxes=True)
+    per_frame = []
+    for t, img in enumerate(run["frames"]):
         ttracker.step({"batch": FrameBatch.from_images(
-            torch.from_numpy(img), torch.from_numpy(valid_hw)),
-            "orig_size": torch.from_numpy(orig_size)})
-        jids = np.asarray(jtracker.state.ids)[np.asarray(
-            jtracker.state.active)]
+            torch.from_numpy(img), torch.from_numpy(run["valid_hw"])),
+            "orig_size": torch.from_numpy(run["orig_size"])})
         tids = ttracker.state.ids[ttracker.state.active].numpy()
-        assert np.array_equal(np.sort(tids), np.sort(jids)), t
+        assert np.array_equal(np.sort(tids), np.sort(run["ids"][t])), t
         per_frame.append(set(tids.tolist()))
 
-    jres, tres = jtracker.get_results(), ttracker.get_results()
+    jres, tres = run["results"], ttracker.get_results()
     assert set(tres) == set(jres)
     for tid in jres:
         assert set(tres[tid]) == set(jres[tid]), tid
@@ -295,4 +309,56 @@ def test_tracker_end_to_end_matches_jax():
     assert per_frame[0]
     assert any(a & b for a, b in zip(per_frame, per_frame[1:]))
     assert any(a - b for a, b in zip(per_frame, per_frame[1:]))
-    assert ttracker.num_reids == jtracker.num_reids
+    assert ttracker.num_reids == run["num_reids"]
+
+
+def test_tracker_end_to_end_matches_jax(jax_tracker_run):
+    port_tracker_matches(jax_tracker_run)
+
+
+def reroute(monkeypatch, route, calls):
+    """Sends the tiny model's MSDA calls through a non-default route of the
+    port (the JAX side stays on its own): the limits that keep small calls
+    on the default route are lowered, and every per-level call is noted."""
+    from trackformer_tpu_torch.ops import msda, msda_dense
+    monkeypatch.setattr(msda, "DENSE_CELL_BUDGET", 0)
+    if route == "dec_skip":
+        monkeypatch.setattr(msda, "MSDA_DEC_SKIP", True)
+        monkeypatch.setattr(msda, "PALLAS_DENSE_MAX_CELLS", 0)
+    else:
+        monkeypatch.setattr(msda, "PALLAS_SKIP_IMPL", "v4")
+        monkeypatch.setattr(msda, "PALLAS_V2_MIN_QUERIES", 100)
+        monkeypatch.setattr(msda, "PALLAS_V4_SORT", route == "v4")
+    for name in ("dense_level_pallas_v4", "dense_level_pallas_v4p"):
+        real = getattr(msda_dense, name)
+
+        def noting(*a, _real=real, _name=name):
+            calls.append((_name, a[1].shape[1]))
+            return _real(*a)
+        monkeypatch.setattr(msda_dense, name, noting)
+
+
+@pytest.mark.parametrize("route", ["v4", "v4_unsorted", "dec_skip"])
+def test_tracker_end_to_end_matches_jax_on_route(jax_tracker_run, route,
+                                                 monkeypatch):
+    """The same run with the port's encoder calls on route "v4" (128 tokens
+    query 4 levels), or all its calls under `MSDA_DEC_SKIP` (few queries:
+    the decoder's 20 on 8 levels, and at this size the encoder's too): the
+    routes change which function serves a level, not the
+    result."""
+    calls = []
+    reroute(monkeypatch, route, calls)
+    port_tracker_matches(jax_tracker_run)
+    frames = len(jax_tracker_run["frames"])
+    if route == "dec_skip":
+        # every call here has few queries: per frame 2 decoder layers x 8
+        # levels (12 object + 8 track queries), and the encoder's calls too
+        assert sorted(set(calls)) == [("dense_level_pallas_v4p", 20),
+                                      ("dense_level_pallas_v4p", 128)]
+        assert calls.count(("dense_level_pallas_v4p", 20)) == frames * 2 * 8
+        assert calls.count(("dense_level_pallas_v4p", 128)) == frames * 2 * 4
+    else:
+        # 1 encoder layer x 2 frames x 4 levels, 128 tokens
+        name = "dense_level_pallas_v4p" if route == "v4" \
+            else "dense_level_pallas_v4"
+        assert calls == [(name, 128)] * (frames * 2 * 4)

@@ -211,17 +211,39 @@ def recording_optimizer(optimizer):
     return optax.chain(record, optimizer)
 
 
-def test_two_train_steps_match_jax(setup, monkeypatch):
+@pytest.fixture(scope="module")
+def jax_two_steps(setup):
+    """Two steps of the JAX train step with the pinned draws: per step its
+    metrics, gradients and weights (in the port's names), then the start
+    weights."""
     s = setup
     real = jtracking.add_track_queries_to_targets
-    monkeypatch.setattr(
-        jtracking, "add_track_queries_to_targets",
-        lambda *a, **kw: real(*a, **{**kw, "forced": FORCED}))
-    joptimizer = recording_optimizer(jtrain.make_optimizer(s.args, s.params))
-    jstate = jtrain.TrainState.create(s.params, joptimizer)
-    jstep = jax.jit(jtrain.make_train_step(s.jmodel, s.jcrit, joptimizer,
-                                           s.jtrack, tracking=True))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtracking, "add_track_queries_to_targets",
+                   lambda *a, **kw: real(*a, **{**kw, "forced": FORCED}))
+        joptimizer = recording_optimizer(
+            jtrain.make_optimizer(s.args, s.params))
+        jstate = jtrain.TrainState.create(s.params, joptimizer)
+        jstep = jax.jit(jtrain.make_train_step(s.jmodel, s.jcrit, joptimizer,
+                                               s.jtrack, tracking=True))
+        steps = []
+        for it in range(2):
+            jstate, jmetrics = jstep(jstate, s.jpack, jax.random.PRNGKey(it))
+            steps.append(dict(
+                step=int(jstate.step),
+                metrics={k: float(v) for k, v in jmetrics.items()},
+                grads=jax_params_to_state_dict(
+                    jax.tree.map(np.asarray, jstate.opt_state[0])),
+                after=jax_params_to_state_dict(
+                    jax.tree.map(np.asarray, jstate.params))))
+    return steps, jax_params_to_state_dict(s.params)
 
+
+def port_two_steps_match(s, jax_steps):
+    """Two steps of the port's train step from the same weights, held
+    against the JAX steps (module docstring)."""
+    steps, jbefore = jax_steps
+    s.tmodel.load_state_dict(jax_params_to_state_dict(s.params))
     optimizer = make_optimizer(s.cfg, s.tmodel, lr_drop_steps=LR_DROP_STEP)
     state = TrainState.create(s.tmodel, optimizer)
     step = make_train_step(s.tmodel, s.tcrit, optimizer, s.ttrack,
@@ -229,12 +251,12 @@ def test_two_train_steps_match_jax(setup, monkeypatch):
     start = {k: v.detach().clone()
              for k, v in train_tensors(s.tmodel).items()}
     before = start
-    jbefore = jax_params_to_state_dict(s.params)
 
-    for it in range(2):
-        jstate, jmetrics = jstep(jstate, s.jpack, jax.random.PRNGKey(it))
+    for it, jax_step in enumerate(steps):
+        jmetrics, jgrads, jafter = (jax_step["metrics"], jax_step["grads"],
+                                    jax_step["after"])
         state, metrics = step(state, s.tpack, None, forced=FORCED)
-        assert state.step == it + 1 == int(jstate.step)
+        assert state.step == it + 1 == jax_step["step"]
 
         assert set(metrics) - {"_grads"} == set(jmetrics)
         assert set(s.tcrit.weight_dict) <= set(metrics)
@@ -243,8 +265,6 @@ def test_two_train_steps_match_jax(setup, monkeypatch):
                 float(metrics[key]), float(want), rtol=1e-4, atol=1e-4,
                 err_msg=f"step {it} {key}")
 
-        jgrads = jax_params_to_state_dict(
-            jax.tree.map(np.asarray, jstate.opt_state[0]))
         grads = metrics["_grads"]
         assert set(grads) == set(jgrads)
         for name, want in jgrads.items():
@@ -252,8 +272,6 @@ def test_two_train_steps_match_jax(setup, monkeypatch):
                 grads[name].numpy(), want.numpy(), rtol=1e-3, atol=1e-4,
                 err_msg=f"step {it} gradient {name}")
 
-        jafter = jax_params_to_state_dict(
-            jax.tree.map(np.asarray, jstate.params))
         after = {k: v.detach().clone()
                  for k, v in train_tensors(s.tmodel).items()}
         for name, lab in optimizer.labels.items():
@@ -277,6 +295,39 @@ def test_two_train_steps_match_jax(setup, monkeypatch):
     # the learning rate dropped between the steps
     assert optimizer.lr_scale(0) == 1.0
     assert optimizer.lr_scale(1) == pytest.approx(0.1)
+
+
+def test_two_train_steps_match_jax(setup, jax_two_steps):
+    port_two_steps_match(setup, jax_two_steps)
+
+
+@pytest.mark.parametrize("route", ["v4", "dec_skip"])
+def test_two_train_steps_match_jax_on_route(setup, jax_two_steps, route,
+                                            monkeypatch):
+    """The same two steps with the port's MSDA calls on route "v4" (the
+    encoder's 128 tokens on 4 levels; the decoder's calls stay on the
+    default route) or under `MSDA_DEC_SKIP` (calls with few queries: the
+    decoder's on 8 levels and, at this size, the encoder's), forward and
+    backward: same tolerances, the JAX steps on their own route."""
+    from trackformer_tpu_torch.ops import msda, msda_dense
+    monkeypatch.setattr(msda, "DENSE_CELL_BUDGET", 0)
+    if route == "v4":
+        monkeypatch.setattr(msda, "PALLAS_SKIP_IMPL", "v4")
+        monkeypatch.setattr(msda, "PALLAS_V2_MIN_QUERIES", 100)
+    else:
+        monkeypatch.setattr(msda, "MSDA_DEC_SKIP", True)
+        monkeypatch.setattr(msda, "PALLAS_DENSE_MAX_CELLS", 0)
+    queries = []
+    real = msda_dense.dense_level_pallas_v4p
+
+    def noting(*a):
+        queries.append(a[1].shape[1])
+        return real(*a)
+    monkeypatch.setattr(msda_dense, "dense_level_pallas_v4p", noting)
+    port_two_steps_match(setup, jax_two_steps)
+    # per step two forwards of 1 encoder layer x 2 frames x 4 levels
+    assert queries.count(128) == 2 * 2 * 2 * 4
+    assert (set(queries) == {128}) == (route == "v4")
 
 
 def test_detection_step_and_bf16_master_weights(setup):

@@ -49,13 +49,14 @@ __device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float v) {
 }
 
 // value (N, S, M*D); loc (N, Lq, M, L, P, 2) f32 in [0, 1] as (x, y);
-// attn (N, Lq, M, L, P) f32; out (N, Lq, M*D) in the value type.
+// attn (N, Lq, M, L, P) f32; out (N, Lq, M*D) in O: the value type, or f32
+// for a caller that adds the result to other levels' sums before it rounds.
 // blockDim.x == M*D, gridDim = (ceil(Lq / q_per_block), N).
-template <typename T>
+template <typename T, typename O>
 __global__ void msda_fwd_kernel(const T* __restrict__ value,
                                 const float* __restrict__ loc,
                                 const float* __restrict__ attn,
-                                T* __restrict__ out, LevelMeta meta, int s,
+                                O* __restrict__ out, LevelMeta meta, int s,
                                 int lq, int m, int l, int p, int d,
                                 int q_per_block) {
   const int md = m * d;
@@ -116,11 +117,12 @@ __global__ void msda_fwd_kernel(const T* __restrict__ value,
 
 // Plain C entry point, loaded with ctypes. shapes_hw is a host array of
 // 2*l ints ((H_0, W_0), ...); the levels lie back to back along S. Launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// on `stream` and returns cudaGetLastError() (0 on success). `out_is_f32`
+// asks for the f32 sums of bf16 values unrounded (f32 values always give f32).
 extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
                         void* out, int n, int s, int lq, int m, int l, int p,
                         int d, const int* shapes_hw, int value_is_bf16,
-                        int q_per_block, void* stream) {
+                        int out_is_f32, int q_per_block, void* stream) {
   if (l < 1 || l > MSDA_MAX_LEVELS || m < 1 || d < 1 || m * d > 1024 ||
       p < 1 || q_per_block < 1 || n < 1 || n > 65535 || lq < 0)
     return (int)cudaErrorInvalidValue;
@@ -137,14 +139,19 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* attn,
   const dim3 grid((lq + q_per_block - 1) / q_per_block, n);
   const dim3 block(m * d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (value_is_bf16) {
-    msda_fwd_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+  if (value_is_bf16 && out_is_f32) {
+    msda_fwd_kernel<__nv_bfloat16, float><<<grid, block, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(value),
+        static_cast<const float*>(loc), static_cast<const float*>(attn),
+        static_cast<float*>(out), meta, s, lq, m, l, p, d, q_per_block);
+  } else if (value_is_bf16) {
+    msda_fwd_kernel<__nv_bfloat16, __nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(value),
         static_cast<const float*>(loc), static_cast<const float*>(attn),
         static_cast<__nv_bfloat16*>(out), meta, s, lq, m, l, p, d,
         q_per_block);
   } else {
-    msda_fwd_kernel<float><<<grid, block, 0, st>>>(
+    msda_fwd_kernel<float, float><<<grid, block, 0, st>>>(
         static_cast<const float*>(value), static_cast<const float*>(loc),
         static_cast<const float*>(attn), static_cast<float*>(out), meta, s,
         lq, m, l, p, d, q_per_block);

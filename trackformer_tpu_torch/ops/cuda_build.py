@@ -2,8 +2,8 @@
 
 Each kernel is one source under `csrc/` with a plain C interface. At first
 use it is compiled with nvcc for `sm_90a` into `_build/` beside this
-package, under a name keyed by a hash of the source and the flags, and
-loaded with ctypes. Nothing builds at import. `build_all` starts one nvcc
+package, under a name keyed by a hash of the source, of the `csrc/` headers
+it includes and of the flags, and loaded with ctypes. Nothing builds at import. `build_all` starts one nvcc
 per source that is not built yet, all at once, and waits for them all.
 """
 from __future__ import annotations
@@ -21,6 +21,8 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# device helpers shared by the MSDA forward kernels
+MSDA_COMMON = "msda_common.cuh"
 
 # ctypes signature of one C entry point: (restype, argtypes)
 Signature = Tuple[type, Sequence[type]]
@@ -34,10 +36,13 @@ def _nvcc() -> str:
 
 
 class CudaLib:
-    """One `csrc/` source, its build and its loaded library."""
+    """One `csrc/` source, the `csrc/` headers it includes, its build and
+    its loaded library."""
 
-    def __init__(self, source: str, signatures: Dict[str, Signature]):
+    def __init__(self, source: str, signatures: Dict[str, Signature],
+                 headers: Sequence[str] = ()):
         self.source = CSRC_DIR / source
+        self.headers = [CSRC_DIR / h for h in headers]
         self.signatures = signatures
         self.lib: Optional[ctypes.CDLL] = None
         self.path: Optional[Path] = None
@@ -45,8 +50,11 @@ class CudaLib:
         self.build_log = ""
 
     def so_path(self) -> Path:
-        key = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        # a header that changes without its source changing is another
+        # library, so the headers are in the key
+        key = hashlib.sha256(
+            b"".join(f.read_bytes() for f in [self.source, *self.headers])
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return BUILD_DIR / f"{self.source.stem}_{key[:16]}.so"
 
     def load(self) -> ctypes.CDLL:
@@ -88,7 +96,8 @@ def build_all(libs: Sequence[CudaLib]) -> None:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         log = tmp.with_suffix(".log")
         with open(log, "w") as fh:
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I",
+                                     str(CSRC_DIR), "-o", str(tmp),
                                      str(lib.source)], stdout=fh,
                                     stderr=subprocess.STDOUT)
         running.append((lib, so, tmp, log, proc))

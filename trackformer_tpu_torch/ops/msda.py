@@ -22,13 +22,20 @@ that exists there only for the TPU's missing gather. On a CPU tensor the
 op runs the plain version `ms_deform_attn_plain`. Nothing falls back from
 a kernel to the plain version.
 
-The route switch is the JAX package's: the module global
+The route switches are the JAX package's. The module global
 `PALLAS_SKIP_IMPL`, read from the environment variable of that name, default
-"v5". With "v2" the levels that the JAX routing sends to its block-skipping
+"v5": with "v2" the levels that the JAX routing sends to its block-skipping
 kernel (`v2_levels`) go through `dense_level_pallas_v2`
-(`ops/msda_dense.py`, `csrc/msda_dense_v2_fwd.cu`), one launch per level,
-and the other levels of the call through one launch of the gather kernel;
-a call with no such level takes the default route. "v4" is not ported.
+(`ops/msda_dense.py`, `csrc/msda_dense_v2_fwd.cu`); with "v4" the same
+levels go through the range-walking kernel (`csrc/msda_dense_v4_fwd.cu`):
+`dense_level_pallas_v4p` in column chunks of `PALLAS_V4_CW` with ONE
+spatial sort of the queries per call while `PALLAS_V4_SORT` is on, else
+`dense_level_pallas_v4`. The module global `MSDA_DEC_SKIP` (environment
+variable, default off) sends the fine levels of a call with few queries, the
+decoder's (`dec_skip_levels`), through `dense_level_pallas_v4p` likewise.
+Either way it is one launch per such level, and the other levels of the
+call go through one launch of the gather kernel; a call with no such level
+takes the default route.
 
 The op is differentiable: on the card `MSDAFunction` pairs the forward
 launch with the backward kernel in `csrc/msda_bwd.cu`, which returns the
@@ -41,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -50,11 +57,21 @@ from .cuda_build import CudaLib
 # which kernel serves the levels of a call (module docstring); read at every
 # call, so a caller may set it between calls
 PALLAS_SKIP_IMPL = os.environ.get("PALLAS_SKIP_IMPL", "v5")
+# route "v4": columns per chunk of the walk, and whether the queries of a
+# call are sorted spatially first (one permutation for all its levels)
+PALLAS_V4_CW = 64
+PALLAS_V4_SORT = True
+# the decoder's fine levels through the range-walking kernel (off: the
+# gather kernel serves all levels of a decoder call in one launch)
+MSDA_DEC_SKIP = os.environ.get("MSDA_DEC_SKIP", "0") == "1"
 # the JAX routing's constants (`trackformer_tpu/ops/msda.py`): a level whose
 # N*Lq*M*H*W is within the budget runs there as a dense XLA product; a level
 # over it, of at most PALLAS_V2_MAX_CELLS cells and queried by at least
-# PALLAS_V2_MIN_QUERIES queries, is a "v2 level"
+# PALLAS_V2_MIN_QUERIES queries, is a "v2 level"; with fewer queries, a
+# level over the budget of more than PALLAS_DENSE_MAX_CELLS (the JAX v1
+# kernel's limit) and at most PALLAS_V2_MAX_CELLS cells is a "dec-skip level"
 DENSE_CELL_BUDGET = 8_000_000
+PALLAS_DENSE_MAX_CELLS = 8192
 PALLAS_V2_MAX_CELLS = 32768
 PALLAS_V2_MIN_QUERIES = 4096
 # queries per block: enough work per block to amortize its start, small
@@ -67,7 +84,10 @@ Q_PER_BLOCK = 4
 # launches and nowhere else.
 LAUNCHES: Dict[str, int] = {"ms_deform_attn": 0, "msda_patch": 0,
                             "dense_level_pallas": 0,
-                            "dense_level_pallas_v2": 0, "msda_bwd": 0}
+                            "dense_level_pallas_v2": 0, "msda_bwd": 0,
+                            "dense_level_pallas_v4": 0,
+                            "dense_level_pallas_v3": 0,
+                            "ms_deform_attn_pallas": 0, "msda_patch_v6": 0}
 # The same launches by shape, (count name, items, queries per item, levels):
 # they show which shapes a run gave each kernel, the backward's split over
 # the encoder's and the decoder's calls included.
@@ -155,7 +175,7 @@ LIB = CudaLib("msda_fwd.cu", {"msda_fwd": (
     ctypes.c_int,
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
     + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p])})
+       ctypes.c_int, ctypes.c_void_p])})
 
 
 def _check_inputs(value, spatial_shapes, loc, attn):
@@ -185,15 +205,17 @@ def msda_fwd_cuda(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   sampling_locations: torch.Tensor,
                   attention_weights: torch.Tensor,
-                  wrapper: str) -> torch.Tensor:
+                  wrapper: str, out_f32: bool = False) -> torch.Tensor:
     """One launch of the CUDA kernel over the given levels -> (N, Lq, M, D)
-    in the value dtype. Counts the launch for `wrapper`."""
+    in the value dtype, or with `out_f32` the kernel's float32 sums
+    unrounded. Counts the launch for `wrapper`."""
     _check_inputs(value, spatial_shapes, sampling_locations,
                   attention_weights)
     lib = LIB.load()
     n, s, m, d = value.shape
     _, lq, _, l, p, _ = sampling_locations.shape
-    out = torch.empty(n, lq, m, d, dtype=value.dtype, device=value.device)
+    out = torch.empty(n, lq, m, d, device=value.device,
+                      dtype=torch.float32 if out_f32 else value.dtype)
     shapes = (ctypes.c_int * (2 * l))(*[int(v) for hw in spatial_shapes
                                         for v in hw])
     with torch.cuda.device(value.device):
@@ -201,8 +223,8 @@ def msda_fwd_cuda(value: torch.Tensor,
         rc = lib.msda_fwd(value.data_ptr(), sampling_locations.data_ptr(),
                           attention_weights.data_ptr(), out.data_ptr(),
                           n, s, lq, m, l, p, d, shapes,
-                          int(value.dtype == torch.bfloat16), Q_PER_BLOCK,
-                          stream)
+                          int(value.dtype == torch.bfloat16), int(out_f32),
+                          Q_PER_BLOCK, stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd launch failed: cudaError {rc}")
     count_launch(wrapper, n, lq, spatial_shapes)
@@ -261,13 +283,14 @@ def msda_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
 
 class MSDAFunction(torch.autograd.Function):
     """The gather kernel's forward launch with the backward kernel as its
-    gradient. `wrapper` names the count the forward launch adds to."""
+    gradient. `wrapper` names the count the forward launch adds to;
+    `out_f32` as in `msda_fwd_cuda`."""
 
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights,
-                spatial_shapes, wrapper):
+                spatial_shapes, wrapper, out_f32):
         out = msda_fwd_cuda(value, spatial_shapes, sampling_locations,
-                            attention_weights, wrapper)
+                            attention_weights, wrapper, out_f32)
         ctx.save_for_backward(value, sampling_locations, attention_weights)
         ctx.spatial_shapes = spatial_shapes
         return out
@@ -276,20 +299,21 @@ class MSDAFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         value, loc, attn = ctx.saved_tensors
         grads = msda_bwd_cuda(grad_out, value, ctx.spatial_shapes, loc, attn)
-        return (*grads, None, None)
+        return (*grads, None, None, None)
 
 
 def msda_cuda(value: torch.Tensor,
               spatial_shapes: Sequence[Tuple[int, int]],
               sampling_locations: torch.Tensor,
-              attention_weights: torch.Tensor, wrapper: str) -> torch.Tensor:
+              attention_weights: torch.Tensor, wrapper: str,
+              out_f32: bool = False) -> torch.Tensor:
     """Differentiable launch of the gather kernel -> (N, Lq, M, D) in the
-    value dtype."""
+    value dtype, or float32 with `out_f32`."""
     return MSDAFunction.apply(value.contiguous(),
                               sampling_locations.contiguous(),
                               attention_weights.contiguous(),
                               tuple(tuple(hw) for hw in spatial_shapes),
-                              wrapper)
+                              wrapper, out_f32)
 
 
 def v2_levels(n: int, lq: int, m: int,
@@ -303,22 +327,65 @@ def v2_levels(n: int, lq: int, m: int,
             and h * w <= PALLAS_V2_MAX_CELLS]
 
 
-def _ms_deform_attn_v2(value, spatial_shapes, loc, attn, skip):
-    """Route "v2" of a call with v2 levels `skip`: (N, Lq, M, D) float32
-    sum of those levels, one launch each, and of the remaining levels
-    through one launch of the gather kernel (CPU tensors: the plain
-    versions)."""
-    from .msda_dense import dense_level_pallas_v2
+def dec_skip_levels(n: int, lq: int, m: int,
+                    spatial_shapes: Sequence[Tuple[int, int]]) -> List[int]:
+    """The levels of a call that `MSDA_DEC_SKIP` sends to the range-walking
+    kernel, as the JAX routing picks them: fewer than PALLAS_V2_MIN_QUERIES
+    queries, over the dense budget, too many cells for the JAX v1 kernel
+    (PALLAS_DENSE_MAX_CELLS), at most PALLAS_V2_MAX_CELLS."""
+    if not MSDA_DEC_SKIP or lq >= PALLAS_V2_MIN_QUERIES:
+        return []
+    return [i for i, (h, w) in enumerate(spatial_shapes)
+            if n * lq * m * h * w > DENSE_CELL_BUDGET
+            and PALLAS_DENSE_MAX_CELLS < h * w <= PALLAS_V2_MAX_CELLS]
+
+
+def _level_routes(impl: str, n: int, lq: int, m: int, spatial_shapes,
+                  loc) -> Dict[int, Callable]:
+    """Which levels of a call leave the default route, each with its
+    per-level function (value_l, loc_l, attn_l, h, w) -> (N, Lq, M, D)
+    float32. Mirrors the JAX routing: the v2 levels under routes "v2" and
+    "v4" (queries >= PALLAS_V2_MIN_QUERIES), the dec-skip levels under
+    `MSDA_DEC_SKIP` (fewer queries), never both in one call. The sort of a
+    call is taken once: from level 0 on route "v4", from the first dec-skip
+    level under `MSDA_DEC_SKIP`."""
+    from . import msda_dense
+    skip = v2_levels(n, lq, m, spatial_shapes) if impl != "v5" else []
+    dec = dec_skip_levels(n, lq, m, spatial_shapes)
+    if skip and impl == "v2":
+        return {i: msda_dense.dense_level_pallas_v2 for i in skip}
+    if skip and not PALLAS_V4_SORT:
+        return {i: msda_dense.dense_level_pallas_v4 for i in skip}
+    if not (skip or dec):
+        return {}
+    first = 0 if skip else dec[0]
+    perm = msda_dense.spatial_sort_perm(loc[:, :, :, first],
+                                        *spatial_shapes[first])
+
+    def sorted_level(value_l, loc_l, attn_l, h, w):
+        return msda_dense.dense_level_pallas_v4p(value_l, loc_l, attn_l, perm,
+                                                 h, w, PALLAS_V4_CW)
+
+    return {i: sorted_level for i in skip or dec}
+
+
+def _ms_deform_attn_levels(value, spatial_shapes, loc, attn,
+                           routes: Dict[int, Callable]):
+    """A call whose levels `routes` go each through their own per-level
+    function, one launch each: (N, Lq, M, D) float32 sum of those levels and
+    of the remaining levels through one launch of the gather kernel, which
+    hands over its float32 sums unrounded, so that the call rounds once
+    (CPU tensors: the plain versions)."""
     starts = [0]
     for h, w in spatial_shapes:
         starts.append(starts[-1] + h * w)
     out = None
-    for i in skip:
+    for i, fn in routes.items():
         h, w = spatial_shapes[i]
-        part = dense_level_pallas_v2(value[:, starts[i]:starts[i + 1]],
-                                     loc[:, :, :, i], attn[:, :, :, i], h, w)
+        part = fn(value[:, starts[i]:starts[i + 1]], loc[:, :, :, i],
+                  attn[:, :, :, i], h, w)
         out = part if out is None else out + part
-    rest = [i for i in range(len(spatial_shapes)) if i not in skip]
+    rest = [i for i in range(len(spatial_shapes)) if i not in routes]
     if rest:
         shapes = tuple(spatial_shapes[i] for i in rest)
         a, b = rest[0], rest[-1] + 1
@@ -332,7 +399,8 @@ def _ms_deform_attn_v2(value, spatial_shapes, loc, attn, skip):
         if value.device.type == "cpu":
             part = ms_deform_attn_plain(v, shapes, lo, at)
         else:
-            part = msda_cuda(v, shapes, lo, at, "ms_deform_attn").float()
+            part = msda_cuda(v, shapes, lo, at, "ms_deform_attn",
+                             out_f32=True)
         out = part if out is None else out + part
     return out
 
@@ -346,17 +414,15 @@ def ms_deform_attn(value: torch.Tensor,
     n, s, m, d = value.shape
     lq = sampling_locations.shape[1]
     impl = PALLAS_SKIP_IMPL
-    if impl == "v4":
-        raise NotImplementedError(
-            'PALLAS_SKIP_IMPL="v4": the compacted-grid kernel is not ported '
-            "yet (ROADMAP.md queue 2 #5)")
-    if impl not in ("v5", "v2"):
+    if impl not in ("v5", "v2", "v4"):
         raise ValueError(f"PALLAS_SKIP_IMPL={impl!r}: want v5, v2 or v4")
-    # a call without v2 levels (every decoder call) takes the default route
-    skip = v2_levels(n, lq, m, spatial_shapes) if impl == "v2" else []
-    if skip:
-        out = _ms_deform_attn_v2(value, spatial_shapes, sampling_locations,
-                                 attention_weights, skip).to(value.dtype)
+    # a call none of whose levels is re-routed takes the default route
+    routes = _level_routes(impl, n, lq, m, spatial_shapes,
+                           sampling_locations)
+    if routes:
+        out = _ms_deform_attn_levels(value, spatial_shapes,
+                                     sampling_locations, attention_weights,
+                                     routes).to(value.dtype)
     elif value.device.type == "cpu":
         out = ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                                    attention_weights).to(value.dtype)

@@ -1,8 +1,10 @@
-"""One level's MSDA contribution: the plain-tiling and the block-skipping
-function of the JAX package.
+"""One level's MSDA contribution: the per-level functions of the JAX
+package.
 
-Counterpart of `dense_level_pallas` and `dense_level_pallas_v2` in
-`trackformer_tpu/ops/msda_dense.py`.
+Counterpart of `dense_level_pallas`, `dense_level_pallas_v2`,
+`dense_level_pallas_v3`, `dense_level_pallas_v4` and
+`dense_level_pallas_v4p` in `trackformer_tpu/ops/msda_dense.py`. All compute
+one function (`ops/msda.py:level_plain`); they differ in what they read.
 
 `dense_level_pallas`: the TPU's v1 kernel `_kernel` builds the level's
 bilinear hat weights as a dense (query, cell) tile and multiplies it with
@@ -20,24 +22,46 @@ queries, item) stages only the tile's band of value rows (`v2_row_band`)
 into shared memory and samples from there. Route "v2" of `ms_deform_attn`
 reaches it for every level of the flagship encoder call.
 
-Both are differentiable: the backward of either is the backward kernel of
+`dense_level_pallas_v4` / `dense_level_pallas_v4p`: the TPU's `_kernel_v4`
+walks, per query tile, the tile's own row range and range of column chunks
+(`v4_ranges`) with double-buffered copies; `v4p` tiles the queries in the
+order of a caller's permutation (`spatial_sort_perm`). On the card: one
+launch of `csrc/msda_dense_v4_fwd.cu`. Route "v4" of `ms_deform_attn`
+reaches it for every level of the encoder call, `MSDA_DEC_SKIP` for the
+decoder's fine levels.
+
+`dense_level_pallas_v3`: the TPU's `_kernel_v3` sorts the queries, keeps
+v2's row band and computes a tile on one window of `cw` columns when its
+occupied columns fit (`v3_windows`), else on the full width. On the card:
+one launch of `csrc/msda_dense_v3_fwd.cu`. No route calls it, as in the JAX
+package.
+
+All are differentiable: the backward of each is the backward kernel of
 `ops/msda.py` launched for the single level, as the JAX package shares one
-`_bwd`. On a CPU tensor both are the plain version `level_plain`.
+`_bwd`. On a CPU tensor all are the plain version `level_plain`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
-from .cuda_build import CudaLib
+from .cuda_build import MSDA_COMMON, CudaLib
 from .msda import count_launch, level_plain, msda_bwd_cuda, msda_cuda
 
-# queries per tile of the block-skipping kernel (the JAX package's V2_TQ)
+# queries per tile of the tile-walking kernels (the JAX package's V2_TQ);
+# read at every call that leaves `tq` unset
 V2_TQ = 256
 # shared memory for staged value rows per block, and threads per block
 V2_CHUNK_BYTES = 48 * 1024
 V2_THREADS = 256
+# kernel v4: shared memory for each of its two stages. 18 KB is four rows of
+# a 64-column chunk of one head in bfloat16, and keeps two blocks on an SM
+V4_STAGE_BYTES = 18 * 1024
+# kernel v3: columns of a tile's window (the JAX function's default)
+V3_CW = 64
 
 
 def dense_level_pallas(value_l: torch.Tensor, loc_l: torch.Tensor,
@@ -74,6 +98,40 @@ def v2_row_band(loc_l: torch.Tensor, h: int, tq: int = V2_TQ) -> torch.Tensor:
     return torch.stack([lo, hi], -1).long()
 
 
+def _check_level_inputs(name: str, value_l, loc_l, attn_l, h: int, w: int):
+    """What every per-level kernel takes: CUDA tensors on one device,
+    value float32 or bfloat16, locations and weights float32, shapes of one
+    (h, w) level, contiguous. -> (n, lq, m, p, d)."""
+    if not (value_l.is_cuda and loc_l.is_cuda and attn_l.is_cuda):
+        raise ValueError(f"{name}: all inputs must be CUDA tensors")
+    if not (value_l.device == loc_l.device == attn_l.device):
+        raise ValueError(f"{name}: inputs on different devices")
+    if value_l.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: value dtype {value_l.dtype}")
+    if loc_l.dtype != torch.float32 or attn_l.dtype != torch.float32:
+        raise TypeError(f"{name}: locations and weights must be float32")
+    n, cells, m, d = value_l.shape
+    if cells != h * w:
+        raise ValueError(f"{name}: {cells} cells for a {h}x{w} level")
+    lq, p = loc_l.shape[1], loc_l.shape[3]
+    if tuple(loc_l.shape) != (n, lq, m, p, 2) \
+            or tuple(attn_l.shape) != (n, lq, m, p):
+        raise ValueError(f"{name}: loc {tuple(loc_l.shape)}, "
+                         f"attn {tuple(attn_l.shape)}")
+    if not (value_l.is_contiguous() and loc_l.is_contiguous()
+            and attn_l.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return n, lq, m, p, d
+
+
+def _check_perm(name: str, perm, ref: torch.Tensor) -> None:
+    n, lq = ref.shape[:2]
+    if perm.dtype != torch.int64 or tuple(perm.shape) != (n, lq) \
+            or perm.device != ref.device or not perm.is_contiguous():
+        raise ValueError(f"{name}: perm must be a contiguous int64 "
+                         f"({n}, {lq}) tensor on {ref.device}")
+
+
 V2_LIB = CudaLib("msda_dense_v2_fwd.cu", {"msda_dense_v2_fwd": (
     ctypes.c_int,
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])})
@@ -86,26 +144,8 @@ def dense_level_v2_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
     with `return_band` also the kernel's own (N, ceil(Lq / tq), 2) int32
     row bands clipped to the level (lo > hi: empty). Counts the launch as
     "dense_level_pallas_v2"."""
-    if not (value_l.is_cuda and loc_l.is_cuda and attn_l.is_cuda):
-        raise ValueError("msda_dense_v2_fwd: all inputs must be CUDA tensors")
-    if not (value_l.device == loc_l.device == attn_l.device):
-        raise ValueError("msda_dense_v2_fwd: inputs on different devices")
-    if value_l.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"msda_dense_v2_fwd: value dtype {value_l.dtype}")
-    if loc_l.dtype != torch.float32 or attn_l.dtype != torch.float32:
-        raise TypeError("msda_dense_v2_fwd: locations and weights must be "
-                        "float32")
-    n, cells, m, d = value_l.shape
-    if cells != h * w:
-        raise ValueError(f"{cells} cells for a {h}x{w} level")
-    lq, p = loc_l.shape[1], loc_l.shape[3]
-    if tuple(loc_l.shape) != (n, lq, m, p, 2) \
-            or tuple(attn_l.shape) != (n, lq, m, p):
-        raise ValueError(f"msda_dense_v2_fwd: loc {tuple(loc_l.shape)}, "
-                         f"attn {tuple(attn_l.shape)}")
-    if not (value_l.is_contiguous() and loc_l.is_contiguous()
-            and attn_l.is_contiguous()):
-        raise ValueError("msda_dense_v2_fwd: inputs must be contiguous")
+    n, lq, m, p, d = _check_level_inputs("msda_dense_v2_fwd", value_l, loc_l,
+                                         attn_l, h, w)
     lib = V2_LIB.load()
     out = torch.empty(n, lq, m, d, dtype=torch.float32,
                       device=value_l.device)
@@ -124,13 +164,14 @@ def dense_level_v2_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
     return (out, band) if return_band else out
 
 
-class DenseLevelV2Function(torch.autograd.Function):
-    """The block-skipping forward with the shared MSDA backward kernel,
-    launched for the single level, as its gradient."""
+class DenseLevelFunction(torch.autograd.Function):
+    """A per-level forward launcher `launch(value_l, loc_l, attn_l, h, w)`
+    with the shared MSDA backward kernel, launched for the single level, as
+    its gradient."""
 
     @staticmethod
-    def forward(ctx, value_l, loc_l, attn_l, h, w):
-        out = dense_level_v2_fwd_cuda(value_l, loc_l, attn_l, h, w)
+    def forward(ctx, value_l, loc_l, attn_l, h, w, launch):
+        out = launch(value_l, loc_l, attn_l, h, w)
         ctx.save_for_backward(value_l, loc_l, attn_l)
         ctx.hw = (h, w)
         return out
@@ -140,7 +181,18 @@ class DenseLevelV2Function(torch.autograd.Function):
         value_l, loc_l, attn_l = ctx.saved_tensors
         gv, gl, ga = msda_bwd_cuda(grad_out, value_l, (ctx.hw,),
                                    loc_l.unsqueeze(3), attn_l.unsqueeze(3))
-        return gv, gl.squeeze(3), ga.squeeze(3), None, None
+        return gv, gl.squeeze(3), ga.squeeze(3), None, None, None
+
+
+def _level_op(launch, value_l, loc_l, attn_l, h: int, w: int) -> torch.Tensor:
+    """A per-level op: the plain version on CPU tensors, else `launch` with
+    its gradient -> (N, Lq, M, D) float32."""
+    if value_l.shape[1] != h * w:
+        raise ValueError(f"{value_l.shape[1]} cells for a {h}x{w} level")
+    if value_l.device.type == "cpu":
+        return level_plain(value_l, loc_l, attn_l, h, w)
+    return DenseLevelFunction.apply(value_l.contiguous(), loc_l.contiguous(),
+                                    attn_l.contiguous(), h, w, launch)
 
 
 def dense_level_pallas_v2(value_l: torch.Tensor, loc_l: torch.Tensor,
@@ -149,10 +201,215 @@ def dense_level_pallas_v2(value_l: torch.Tensor, loc_l: torch.Tensor,
     """Block-skipping variant of `dense_level_pallas`, same semantics:
     value_l (N, H*W, M, D); loc_l (N, Lq, M, P, 2); attn_l (N, Lq, M, P)
     -> (N, Lq, M, D) float32, as the TPU kernel returns it."""
-    if value_l.shape[1] != h * w:
-        raise ValueError(f"{value_l.shape[1]} cells for a {h}x{w} level")
-    if value_l.device.type == "cpu":
-        return level_plain(value_l, loc_l, attn_l, h, w)
-    return DenseLevelV2Function.apply(value_l.contiguous(),
-                                      loc_l.contiguous(),
-                                      attn_l.contiguous(), h, w)
+    return _level_op(dense_level_v2_fwd_cuda, value_l, loc_l, attn_l, h, w)
+
+
+# --------------------------------------------------------------------------
+# range-walking level (TPU kernel v4) and its sorted variant (v4p)
+# --------------------------------------------------------------------------
+
+def spatial_sort_perm(loc_all: torch.Tensor, h: int, w: int,
+                      bucket: int = 8) -> torch.Tensor:
+    """Permutation (N, Lq) int64 that sorts the queries by their mean sample
+    position on a raster of `bucket` x `bucket`-cell tiles of an (h, w)
+    level. loc_all (N, Lq, M, P, 2) in [0, 1] at any level: locality in the
+    image is the same at every level. The sort is stable, as the JAX
+    package's is, so ties keep the queries' order."""
+    xm = (loc_all[..., 0].float().mean((2, 3)) * w).clamp(0, w - 1)
+    ym = (loc_all[..., 1].float().mean((2, 3)) * h).clamp(0, h - 1)
+    ntx = -(-w // bucket)
+    key = (ym.to(torch.int32) // bucket) * ntx + xm.to(torch.int32) // bucket
+    return torch.argsort(key, dim=1, stable=True)
+
+
+def _tile_min_max(loc_l: torch.Tensor, h: int, w: int, tq: int,
+                  perm: Optional[torch.Tensor]):
+    """Per tile of `tq` queries (in `perm` order) the min and max of the
+    samples' cell coordinates over queries, heads and points:
+    (xmin, xmax, ymin, ymax), each (N, ceil(Lq / tq)). Queries past Lq are
+    left out, not padded."""
+    n, lq = loc_l.shape[:2]
+    if perm is not None:
+        loc_l = torch.take_along_dim(
+            loc_l, perm.long()[:, :, None, None, None], 1)
+    n_q = -(-lq // tq)
+    pad = (0, 0, 0, n_q * tq - lq)
+    out = []
+    for axis, size in ((0, w), (1, h)):
+        c = (loc_l[..., axis].float() * size - 0.5).reshape(n, lq, -1)
+        lo = torch.nn.functional.pad(c, pad, value=float("inf"))
+        hi = torch.nn.functional.pad(c, pad, value=-float("inf"))
+        out += [lo.reshape(n, n_q, -1).amin(-1),
+                hi.reshape(n, n_q, -1).amax(-1)]
+    return out
+
+
+def v4_ranges(loc_l: torch.Tensor, h: int, w: int, tq: Optional[int] = None,
+              cw: Optional[int] = None,
+              perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of kernel v4's walk bounds: loc_l (N, Lq, M, P, 2) ->
+    (N, ceil(Lq / tq), 4) int64, each tile's inclusive [row lo, row hi,
+    column lo, column hi] in cells, clipped as the JAX ranges are: rows
+    `floor(min y) - 1 .. floor(max y) + 1` into [0, h - 1] (hi down to -1:
+    a tile wholly above the level walks nothing, lo > hi), columns
+    `floor(min x) .. floor(max x) + 1` into [0, w - 1]. A tile wholly below
+    or beside the level walks one clipped row or column that carries no
+    weight. With `cw` None the walk takes every row at full width, so the
+    columns are (0, w - 1). Chunk c of a walk owns the columns
+    [c * cw, (c + 1) * cw)."""
+    tq = V2_TQ if tq is None else tq
+    xmin, xmax, ymin, ymax = _tile_min_max(loc_l, h, w, tq, perm)
+    r_lo = (torch.floor(ymin) - 1).clamp(0, h - 1)
+    r_hi = (torch.floor(ymax) + 1).clamp(-1, h - 1)
+    c_lo = torch.floor(xmin).clamp(0, w - 1)
+    c_hi = (torch.floor(xmax) + 1).clamp(0, w - 1)
+    if cw is None:
+        c_lo, c_hi = torch.zeros_like(c_lo), torch.full_like(c_hi, w - 1)
+    return torch.stack([r_lo, r_hi, c_lo, c_hi], -1).long()
+
+
+V4_LIB = CudaLib("msda_dense_v4_fwd.cu", {"msda_dense_v4_fwd": (
+    ctypes.c_int,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p])},
+    headers=[MSDA_COMMON])
+
+
+def dense_level_v4_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
+                            attn_l: torch.Tensor, h: int, w: int,
+                            perm: Optional[torch.Tensor] = None,
+                            cw: Optional[int] = None,
+                            tq: Optional[int] = None,
+                            return_ranges: bool = False):
+    """One launch of the range-walking kernel -> (N, Lq, M, D) float32; with
+    `return_ranges` also the kernel's own (N, ceil(Lq / tq), 4) int32 walk
+    bounds (`v4_ranges`). `perm` (N, Lq) int64 tiles the queries in its
+    order; `cw` None walks every row at full width. Counts the launch as
+    "dense_level_pallas_v4"."""
+    name = "msda_dense_v4_fwd"
+    n, lq, m, p, d = _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
+    if perm is not None:
+        _check_perm(name, perm, loc_l)
+    if cw is not None and cw < 1:
+        raise ValueError(f"{name}: cw {cw}")
+    tq = V2_TQ if tq is None else tq
+    lib = V4_LIB.load()
+    out = torch.empty(n, lq, m, d, dtype=torch.float32,
+                      device=value_l.device)
+    ranges = (torch.empty(n, -(-lq // tq), 4, dtype=torch.int32,
+                          device=value_l.device) if return_ranges else None)
+    with torch.cuda.device(value_l.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msda_dense_v4_fwd(
+            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
+            None if perm is None else perm.data_ptr(), out.data_ptr(),
+            None if ranges is None else ranges.data_ptr(),
+            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), tq,
+            cw or 0, V4_STAGE_BYTES, V2_THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    count_launch("dense_level_pallas_v4", n, lq, ((h, w),))
+    return (out, ranges) if return_ranges else out
+
+
+def dense_level_pallas_v4(value_l: torch.Tensor, loc_l: torch.Tensor,
+                          attn_l: torch.Tensor, h: int, w: int
+                          ) -> torch.Tensor:
+    """Range-walking variant of `dense_level_pallas_v2`, same semantics and
+    shapes: tiles of consecutive queries, each walking its own row range at
+    full width -> (N, Lq, M, D) float32."""
+    return _level_op(dense_level_v4_fwd_cuda, value_l, loc_l, attn_l, h, w)
+
+
+def dense_level_pallas_v4p(value_l: torch.Tensor, loc_l: torch.Tensor,
+                           attn_l: torch.Tensor, perm: torch.Tensor, h: int,
+                           w: int, cw: Optional[int]) -> torch.Tensor:
+    """`dense_level_pallas_v4` with the caller's sort permutation `perm`
+    (N, Lq) int64 and chunk width `cw` in columns: lets `ms_deform_attn`
+    take one spatial sort per call for all its levels. `perm` is integer
+    data and gets no gradient."""
+    if tuple(perm.shape) != tuple(loc_l.shape[:2]):
+        raise ValueError(f"perm {tuple(perm.shape)} for queries "
+                         f"{tuple(loc_l.shape[:2])}")
+    return _level_op(functools.partial(dense_level_v4_fwd_cuda,
+                                       perm=perm.contiguous(), cw=cw),
+                     value_l, loc_l, attn_l, h, w)
+
+
+# --------------------------------------------------------------------------
+# sorted, x-windowed level (TPU kernel v3)
+# --------------------------------------------------------------------------
+
+def v3_windows(loc_l: torch.Tensor, h: int, w: int, perm: torch.Tensor,
+               tq: Optional[int] = None, cw: int = V3_CW) -> torch.Tensor:
+    """Plain version of kernel v3's bounds: loc_l (N, Lq, M, P, 2), tiled in
+    `perm` order -> (N, ceil(Lq / tq), 4) int64, each tile's [row lo, row
+    hi, xstart, fits]: the row band `floor(min y) - 1 .. floor(max y) + 1`
+    clipped to the level (lo > hi: empty); `fits` when the occupied columns
+    `max(0, floor(min x)) .. min(w - 1, floor(max x) + 1)` span at most
+    `cw` (clipped to w) columns, and then the window starts at
+    `xstart = min(left, w - cw)`; else the tile takes the full width and
+    xstart is 0."""
+    tq = V2_TQ if tq is None else tq
+    cw = min(cw, w)
+    xmin, xmax, ymin, ymax = _tile_min_max(loc_l, h, w, tq, perm)
+    r_lo = (torch.floor(ymin) - 1).clamp(0, h)
+    r_hi = (torch.floor(ymax) + 1).clamp(-1, h - 1)
+    left = torch.floor(xmin).clamp(0, w + 1)
+    right = (torch.floor(xmax) + 1).clamp(-1, w - 1)
+    fits = right - left + 1 <= cw
+    xstart = torch.where(fits, left.clamp(max=w - cw), torch.zeros_like(left))
+    return torch.stack([r_lo, r_hi, xstart, fits.to(r_lo.dtype)], -1).long()
+
+
+V3_LIB = CudaLib("msda_dense_v3_fwd.cu", {"msda_dense_v3_fwd": (
+    ctypes.c_int,
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p])},
+    headers=[MSDA_COMMON])
+
+
+def dense_level_v3_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
+                            attn_l: torch.Tensor, h: int, w: int,
+                            perm: Optional[torch.Tensor] = None,
+                            cw: int = V3_CW, tq: Optional[int] = None,
+                            return_windows: bool = False):
+    """One launch of the sorted, x-windowed kernel -> (N, Lq, M, D) float32;
+    with `return_windows` also the kernel's own (N, ceil(Lq / tq), 4) int32
+    bounds (`v3_windows`). `perm` None: the queries' own spatial sort.
+    Counts the launch as "dense_level_pallas_v3"."""
+    name = "msda_dense_v3_fwd"
+    n, lq, m, p, d = _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
+    if perm is None:
+        perm = spatial_sort_perm(loc_l, h, w)
+    _check_perm(name, perm, loc_l)
+    if cw < 1:
+        raise ValueError(f"{name}: cw {cw}")
+    tq = V2_TQ if tq is None else tq
+    lib = V3_LIB.load()
+    out = torch.empty(n, lq, m, d, dtype=torch.float32,
+                      device=value_l.device)
+    windows = (torch.empty(n, -(-lq // tq), 4, dtype=torch.int32,
+                           device=value_l.device) if return_windows else None)
+    with torch.cuda.device(value_l.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msda_dense_v3_fwd(
+            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
+            perm.data_ptr(), out.data_ptr(),
+            None if windows is None else windows.data_ptr(),
+            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), tq,
+            cw, V2_CHUNK_BYTES, V2_THREADS, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    count_launch("dense_level_pallas_v3", n, lq, ((h, w),))
+    return (out, windows) if return_windows else out
+
+
+def dense_level_pallas_v3(value_l: torch.Tensor, loc_l: torch.Tensor,
+                          attn_l: torch.Tensor, h: int, w: int,
+                          perm: Optional[torch.Tensor] = None,
+                          cw: int = V3_CW) -> torch.Tensor:
+    """Sorted and x-windowed variant of `dense_level_pallas_v2`, same
+    semantics and shapes -> (N, Lq, M, D) float32. `perm` (N, Lq) int64
+    replaces the queries' own spatial sort."""
+    return _level_op(functools.partial(dense_level_v3_fwd_cuda, perm=perm,
+                                       cw=cw),
+                     value_l, loc_l, attn_l, h, w)
