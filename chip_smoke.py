@@ -28,7 +28,12 @@ last line marked "partial"; the kernels line needs all of them):
      through the plain version at the training step's encoder call (N = 2,
      Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
      levels) and route v2's four single-level encoder calls, float32 and
-     bfloat16, with samples outside [0, 1];
+     bfloat16, with samples outside [0, 1]; then at two small calls that
+     hold the scalar path (D = 6) and a plan with one level in shared
+     memory and one not; prints each call's plan (`msda.bwd_plan`) and the
+     reductions each design issues there; with `--old-msda-bwd PATH` (an
+     earlier `csrc/msda_bwd.cu`, copied outside the package) times that
+     design beside this one, in turns (`old_ms`);
   dense_v2: holds the block-skipping level kernel against the plain level
      on each of the four encoder levels, float32 and bfloat16, N = 1 and 2,
      with the initial offsets and with offsets six times as large, and its
@@ -568,30 +573,150 @@ def msda_bwd_bound(value, loc, attn, grad_es):
     return bound(n_bytes, n * lq * m * l * p * (32 * d + 18), FP32_FLOPS)
 
 
+# the parent design of the backward kernel, for an A/B beside the kernel
+# (`--old-msda-bwd`): its library, built with the others, or None
+OLD_BWD_LIB = None
+
+
+def old_bwd_lib(path: str):
+    """A `CudaLib` of an earlier `csrc/msda_bwd.cu` (a copy outside the
+    package, for an A/B), with that design's C entry point: a warp per
+    (query, head), its warps per block the last int."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    return CudaLib(str(Path(path).resolve()), {"msda_bwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_void_p])})
+
+
+def raw_msda_bwd(fn, plan_args, grad_out, value, shapes, loc, attn):
+    """`msda.msda_bwd_cuda`'s work through the C entry point `fn` of a
+    backward library: the same zeroed float32 value gradient, launch and
+    cast. `plan_args` are the entry point's arguments between the two
+    dtype flags and the stream."""
+    import ctypes
+    n, s, m, d = value.shape
+    lq, l = loc.shape[1], loc.shape[3]
+    gv = torch.zeros(n, s, m, d, dtype=torch.float32, device=value.device)
+    gl, ga = torch.empty_like(loc), torch.empty_like(attn)
+    hw = (ctypes.c_int * (2 * l))(*[int(v) for pair in shapes for v in pair])
+    rc = fn(grad_out.data_ptr(), value.data_ptr(), loc.data_ptr(),
+            attn.data_ptr(), gv.data_ptr(), gl.data_ptr(), ga.data_ptr(), n, s,
+            lq, m, l, loc.shape[4], d, hw, int(value.dtype == torch.bfloat16),
+            int(grad_out.dtype == torch.bfloat16), *plan_args,
+            torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"msda_bwd launch failed: cudaError {rc}")
+    return gv.to(value.dtype), gl, ga
+
+
+def old_msda_bwd(*args):
+    """The earlier design (`--old-msda-bwd`), 8 warps a block as its
+    wrapper launched it."""
+    return raw_msda_bwd(OLD_BWD_LIB.load().msda_bwd, (8,), *args)
+
+
+def direct_msda_bwd(grad_out, value, shapes, loc, attn):
+    """`msda.msda_bwd_cuda` with no level summed in shared memory, every
+    corner sent straight to global memory, in the blocks that a plan with
+    no such level takes (the kernel's other half, timed beside its
+    plan)."""
+    from trackformer_tpu_torch.ops import msda
+    n, _, m, d = value.shape
+    lq, p = loc.shape[1], loc.shape[4]
+    vector = msda.bwd_plan(n, lq, m, p, d, shapes).vector
+    return raw_msda_bwd(
+        msda.BWD_LIB.load().msda_bwd,
+        (0, msda.bwd_queries(n, lq, m, msda.BWD_WAVES), 0, int(vector),
+         msda.BWD_THREADS), grad_out, value, shapes, loc, attn)
+
+
+def bwd_reductions(loc, shapes, plan, d):
+    """Reductions into the value gradient at these samples, counted from
+    the data as each design issues them: the earlier design one scalar
+    atomic per in-range corner and channel; this one, per in-range corner
+    of a level outside the plan, D / 4 vector (or D scalar) reductions, and
+    per (block, cell) that a block's samples touched on a planned level the
+    same at the flush (a piece that summed to zero is skipped there, so
+    this is its upper bound), beside D shared-memory atomics per corner."""
+    n, lq, m, _, p, _ = loc.shape
+    per_row = d // 4 if plan.vector else d
+    old = direct = flushed = shared = 0
+    block = (torch.arange(n, device=loc.device)[:, None, None, None] * m
+             + torch.arange(m, device=loc.device)[None, None, :, None]) \
+        * (-(-lq // plan.queries)) \
+        + (torch.arange(lq, device=loc.device) // plan.queries)[
+            None, :, None, None]
+    for lv, (h, w) in enumerate(shapes):
+        x = (loc[:, :, :, lv, :, 0] * w - 0.5).floor().long()
+        y = (loc[:, :, :, lv, :, 1] * h - 0.5).floor().long()
+        keys = []                  # (block, cell) of each planned corner
+        for cx, cy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            ok = (x + cx >= 0) & (x + cx < w) & (y + cy >= 0) & (y + cy < h)
+            hits = int(ok.sum())
+            old += hits * d
+            if lv not in plan.levels:
+                direct += hits * per_row
+                continue
+            shared += hits * d
+            cell = (y + cy) * w + (x + cx)
+            keys.append(block.expand_as(cell)[ok] * (h * w) + cell[ok])
+        if keys:
+            flushed += int(torch.unique(torch.cat(keys)).numel()) * per_row
+    return dict(old_scalar=old, direct=direct, flushed_at_most=flushed,
+                shared_atomics=shared)
+
+
 def kernel_phase_msda_bwd(seed: int):
     """The backward kernel's three gradients against autograd through
     `ms_deform_attn_plain`, at the training step's encoder call (N = 2,
     Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
     levels) and the four single-level calls that route v2 makes per encoder
     layer (N = 2, all 22,323 tokens query one level), float32 and bfloat16,
-    with samples outside [0, 1]."""
+    with samples outside [0, 1]; then two small calls: D = 6, whose head
+    rows are not 16-byte aligned (the scalar path), and two levels of
+    which one fits the shared-memory budget and one does not. Each case
+    line shows the host's plan, the reductions each design issues at its
+    samples and, with `--old-msda-bwd`, the earlier design's time beside
+    this one's (`old_ms`), timed in turns."""
     from trackformer_tpu_torch.ops import msda
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 11)
     s_enc = sum(h * w for h, w in LEVELS)
-    cases = [("encoder", LEVELS, s_enc, True),
-             ("decoder", LEVELS * 2, TRAIN_DEC_QUERIES, False)]
-    cases += [(f"encoder_l{i}", (hw,), s_enc, True)
+    # (name, levels, queries, encoder-like, heads, channels, the plan's
+    # levels and vector path where the case is there to hold them)
+    cases = [("encoder", LEVELS, s_enc, True, M, D, None),
+             ("decoder", LEVELS * 2, TRAIN_DEC_QUERIES, False, M, D, None)]
+    cases += [(f"encoder_l{i}", (hw,), s_enc, True, M, D, None)
               for i, hw in enumerate(LEVELS)]
+    cases += [("unaligned_d6", ((30, 40), (5, 7)), 3000, False, 2, 6,
+               ((1,), False)),
+              ("mixed_budget", ((120, 180), (20, 30)), 4000, False, M, D,
+               ((1,), True))]
     results = {}
-    for name, shapes, lq, encoder in cases:
-        value, loc, attn = msda_inputs(shapes, lq, encoder, gen, TRAIN_BATCH,
-                                       ref_shapes=LEVELS)
+    for name, shapes, lq, encoder, m, d, want_plan in cases:
+        if (m, d) == (M, D):
+            value, loc, attn = msda_inputs(shapes, lq, encoder, gen,
+                                           TRAIN_BATCH, ref_shapes=LEVELS)
+        else:
+            value = torch.randn(TRAIN_BATCH, sum(h * w for h, w in shapes),
+                                m, d, device="cuda", generator=gen)
+            loc = torch.rand(TRAIN_BATCH, lq, m, len(shapes), P, 2,
+                             device="cuda", generator=gen) * 1.2 - 0.1
+            attn = torch.rand(TRAIN_BATCH, lq, m, len(shapes), P,
+                              device="cuda", generator=gen)
         if encoder:
             # push every 16th query's samples across the border
             loc[:, ::16] = loc[:, ::16] * 1.2 - 0.1
         outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
-        g32 = torch.randn(TRAIN_BATCH, lq, M, D, device="cuda", generator=gen)
+        plan = msda.bwd_plan(TRAIN_BATCH, lq, m, P, d, shapes)
+        if want_plan is not None:
+            check((plan.levels, plan.vector) == want_plan,
+                  f"msda_bwd {name}: plan {plan}, want levels and vector "
+                  f"{want_plan}")
+        counts = bwd_reductions(loc, shapes, plan, d)
+        g32 = torch.randn(TRAIN_BATCH, lq, m, d, device="cuda", generator=gen)
         for dtype in (torch.float32, torch.bfloat16):
             v = value.to(dtype).requires_grad_(True)
             lo = loc.clone().requires_grad_(True)
@@ -611,22 +736,47 @@ def kernel_phase_msda_bwd(seed: int):
                 tol = grad_tol(dtype, b.float(), key == "value")
                 errs[key] = (err.max().item(), (err / tol).max().item())
                 ok = ok and bool((err <= tol).all())
-            ms = time_ms(lambda: msda.msda_bwd_cuda(
-                g, v.detach(), shapes, lo.detach(), at.detach()), 10, INNER)
+            args = (g, v.detach(), shapes, lo.detach(), at.detach())
+            new_t, old_t, direct_t = [], [], []
+            for _ in range(2):             # in turns: new, old, new, old
+                new_t.append(time_ms(lambda: msda.msda_bwd_cuda(*args), 10,
+                                     INNER))
+                if OLD_BWD_LIB is not None:
+                    old_t.append(time_ms(lambda: old_msda_bwd(*args), 10,
+                                         INNER))
+                if plan.levels:
+                    direct_t.append(time_ms(lambda: direct_msda_bwd(*args),
+                                            10, INNER))
+            if plan.levels:
+                gd = direct_msda_bwd(*args)
+                for a, b in zip(gd, want):
+                    check(bool((((a.float() - b.float()).abs()) <= grad_tol(
+                        dtype, b.float(), a is gd[0])).all()),
+                        f"msda_bwd {name} {dtype}: the direct launch is out "
+                        f"of tolerance")
+            ms = statistics.mean(new_t)
+            old_ms = statistics.mean(old_t) if old_t else None
+            direct_ms = statistics.mean(direct_t) if direct_t else ms
             plain_ms = time_ms(lambda: torch.autograd.grad(
                 out, (v, lo, at), g, retain_graph=True), 3, 1)
             bound_ms, bound_by = msda_bwd_bound(v, lo, at, g.element_size())
             max_abs = max(e[0] for e in errs.values())
             phase("kernel", case=f"msda_bwd_{name}",
                   dtype=str(dtype).split(".")[-1], items=TRAIN_BATCH, lq=lq,
-                  levels=len(shapes), samples_outside=f"{outside:.3f}",
+                  levels=len(shapes), heads=m, channels=d,
+                  samples_outside=f"{outside:.3f}",
+                  plan=json.dumps(plan._asdict(), separators=(",", ":")),
+                  reductions=json.dumps(counts, separators=(",", ":")),
                   **{f"grad_{k}_max_abs_err": f"{e[0]:.3e}"
                      for k, e in errs.items()},
                   **{f"grad_{k}_err_over_tol": f"{e[1]:.3f}"
                      for k, e in errs.items()},
                   tol="1e-5*max(1,max|ref|)+1e-5*|ref| (bf16 grad_value: "
                       "2^-7*|ref|)",
-                  ms=f"{ms:.4f}", plain_backward_ms=f"{plain_ms:.4f}",
+                  ms=f"{ms:.4f}",
+                  old_ms="not measured" if old_ms is None else
+                  f"{old_ms:.4f}", direct_ms=f"{direct_ms:.4f}",
+                  plain_backward_ms=f"{plain_ms:.4f}",
                   bound_ms=f"{bound_ms:.4f}", bound_by=bound_by, ok=ok)
             check(ok, f"kernel msda_bwd {name} {dtype} out of tolerance: "
                       f"{errs}")
@@ -2009,12 +2159,16 @@ ROUTE_FRAMES = 3
 
 
 def main() -> int:
+    global OLD_BWD_LIB
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=6,
                     help="frames of each tracker run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of: " + ", ".join(PHASES))
+    ap.add_argument("--old-msda-bwd", default=None, metavar="PATH",
+                    help="an earlier csrc/msda_bwd.cu (a copy outside the "
+                         "package) to time beside the backward kernel")
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2044,6 +2198,9 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = all_libs()
+    if args.old_msda_bwd:
+        OLD_BWD_LIB = old_bwd_lib(args.old_msda_bwd)
+        libs.append(OLD_BWD_LIB)
     build_all(libs)
     for lib in libs:
         info = lib.info()

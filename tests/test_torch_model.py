@@ -205,3 +205,49 @@ def test_forward_matches_jax(models, case):
         close(tout[key], jout[key])
     assert np.array_equal(tout["query_valid"].numpy(),
                           np.asarray(jout["query_valid"]))
+
+
+def test_bf16_forward_matches_jax_bf16(models):
+    """The port's bfloat16 forward against the JAX package's bfloat16
+    forward on the same weights. The two round at different points (the
+    port stores every parameter in bfloat16, flax keeps them in float32 and
+    applies the norms' affines in float32), so they cannot agree to
+    float32's 1e-4. The bound of each output is derived from each side's
+    own distance to its float32 forward (max abs): rounding noise of the
+    two sides, independent, adds in quadrature, so the two bfloat16
+    outputs may differ by the root of the sum of the squares of those
+    distances; a bias of the port beyond its rounding noise would add
+    linearly and pass it. The norms' scales and biases are moved off
+    bfloat16-exact values first, so that the rounding of their affines
+    shows."""
+    _, params, japply, _ = models
+    noise = np.random.RandomState(2)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, x: x + 0.05 * noise.randn(*x.shape).astype(x.dtype)
+        if any("norm" in str(getattr(k, "key", "")) for k in p) else x,
+        params)
+    args16 = nested_namespace(load_config(
+        "train.yaml", NAMED, {**TINY, "tpu.compute_dtype": "bfloat16"}))
+    jmodel16 = jax_build_model(args16)[0]
+    jb, tb = make_batch(3)
+    outs = {"jax_f32": japply(params, jb, None, None)[0],
+            "jax_bf16": jmodel16.apply(params, jb, None, None,
+                                       deterministic=True)[0]}
+    state = jax_params_to_state_dict(params)
+    for name, dtype in (("port_f32", "float32"), ("port_bf16", "bfloat16")):
+        tmodel, _ = build_model(tiny_cfg().replace(compute_dtype=dtype),
+                                "cpu")
+        tmodel.load_state_dict(state)
+        with torch.no_grad():
+            outs[name] = {k: v.float().numpy()
+                          for k, v in tmodel(tb)[0].items()
+                          if k in ("pred_logits", "pred_boxes", "hs_embed")}
+    for key in ("pred_logits", "pred_boxes", "hs_embed"):
+        o = {k: np.asarray(v[key], np.float32) for k, v in outs.items()}
+        np.testing.assert_allclose(o["port_f32"], o["jax_f32"], atol=ATOL,
+                                   rtol=1e-4, err_msg=key)
+        e_jax = np.abs(o["jax_bf16"] - o["jax_f32"]).max()
+        e_port = np.abs(o["port_bf16"] - o["port_f32"]).max()
+        apart = np.abs(o["port_bf16"] - o["jax_bf16"]).max()
+        assert e_jax > 0 and e_port > 0, key       # both really rounded
+        assert apart <= np.hypot(e_jax, e_port), (key, apart, e_jax, e_port)

@@ -633,7 +633,7 @@ def test_build_key_covers_the_included_headers(tmp_path, monkeypatch):
     assert without.so_path() != alone
     # every kernel that includes the shared header names it
     for lib in (msda_dense.V4_LIB, msda_dense.V3_LIB, msda_patch.V6_LIB,
-                msda_pallas.LIB):
+                msda_pallas.LIB, msda.BWD_LIB):
         assert [h.name for h in lib.headers] == [cuda_build.MSDA_COMMON]
         assert f'#include "{cuda_build.MSDA_COMMON}"' in lib.source.read_text()
         assert all(h.is_file() for h in lib.headers)

@@ -1,6 +1,7 @@
 // Device helpers shared by the tile-walking MSDA forward kernels
 // (msda_dense_v4_fwd.cu, msda_dense_v3_fwd.cu, msda_patch_v6_fwd.cu,
-// msda_gather_rows_fwd.cu). Only __device__ code and small host helpers; the
+// msda_gather_rows_fwd.cu) and the MSDA backward (msda_bwd.cu: to_f32,
+// cell_coord). Only __device__ code and small host helpers; the
 // build key of a source that includes this header hashes it too
 // (ops/cuda_build.py).
 #pragma once

@@ -21,7 +21,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# device helpers shared by the MSDA forward kernels
+# device helpers shared by the MSDA kernels
 MSDA_COMMON = "msda_common.cuh"
 
 # ctypes signature of one C entry point: (restype, argtypes)
@@ -74,7 +74,7 @@ class CudaLib:
     def info(self) -> dict:
         """Where the library is, how long its build took (seconds, None
         before the first load), and what ptxas reported."""
-        return {"source": str(self.source.relative_to(_PKG.parent)),
+        return {"source": os.path.relpath(self.source, _PKG.parent),
                 "path": None if self.path is None else str(self.path),
                 "seconds": self.build_seconds, "log": self.build_log}
 

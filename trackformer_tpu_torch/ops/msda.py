@@ -39,20 +39,22 @@ takes the default route.
 
 The op is differentiable: on the card `MSDAFunction` pairs the forward
 launch with the backward kernel in `csrc/msda_bwd.cu`, which returns the
-gradients of value, locations and weights in one launch over all levels;
-its float32 atomics make the value gradient differ in its last bits from
-run to run. On a CPU tensor autograd differentiates the plain version.
+gradients of value, locations and weights in one launch over all levels,
+split as the host's plan `bwd_plan` says (which levels each block sums in
+shared memory, queries per block); its float32 atomics make the value
+gradient differ in its last bits from run to run. On a CPU tensor
+autograd differentiates the plain version.
 Kernels are built at first use (`cuda_build.py`).
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
-from .cuda_build import CudaLib
+from .cuda_build import MSDA_COMMON, CudaLib
 
 # which kernel serves the levels of a call (module docstring); read at every
 # call, so a caller may set it between calls
@@ -234,20 +236,71 @@ def msda_fwd_cuda(value: torch.Tensor,
 BWD_LIB = CudaLib("msda_bwd.cu", {"msda_bwd": (
     ctypes.c_int,
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p])})
-# warps per block of the backward kernel: one warp per (query, head)
-BWD_WARPS = 8
+    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7
+    + [ctypes.c_void_p])}, headers=[MSDA_COMMON])
+# the backward kernel's plan (`bwd_plan`): the dynamic shared memory a
+# block may use on Hopper (227 KB), the H100's SMs, the blocks per SM a call
+# is cut into, the corner terms per cell that a block must expect on a level
+# for it to sum the level in shared memory; and the threads of its blocks
+BWD_SMEM_BYTES = 232_448
+BWD_SMS = 132
+BWD_WAVES = 4
+BWD_MIN_HITS = 2
+BWD_THREADS = 1024
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel splits one call: `levels` summed in shared
+    memory, `queries` per block, `smem_bytes` of their float32 head slices
+    laid end to end, `vector` 16-byte reductions (D % 4 == 0)."""
+    levels: Tuple[int, ...]
+    queries: int
+    smem_bytes: int
+    vector: bool
+
+
+def bwd_queries(n: int, lq: int, m: int, waves: int) -> int:
+    """Queries per block of the backward kernel for about `waves` blocks
+    per SM over a call of n * m (item, head) pairs."""
+    return max(1, -(-lq // max(1, round(waves * BWD_SMS / (n * m)))))
+
+
+def bwd_plan(n: int, lq: int, m: int, p: int, d: int,
+             spatial_shapes: Sequence[Tuple[int, int]]) -> BwdPlan:
+    """The plan of the backward kernel for a call (`csrc/msda_bwd.cu`). A
+    block serves one (item, head) and a run of queries, the runs cut for
+    about BWD_WAVES blocks per SM over the call: the blocks in flight at a
+    time then cover a few heads, whose value-gradient rows stay in the L2
+    cache while the blocks reduce into them. From the smallest level up, a
+    level is summed in the block's shared memory while its head slice
+    (H*W*D float32) still fits the budget and the block's samples put at
+    least BWD_MIN_HITS corner terms on each of its cells on average. A call
+    whose every level is summed there reduces nothing else into global
+    memory and takes one wave of larger blocks, each with more hits per
+    cell."""
+    q = bwd_queries(n, lq, m, BWD_WAVES)
+    levels, used = [], 0
+    for i in sorted(range(len(spatial_shapes)),
+                    key=lambda i: spatial_shapes[i][0] * spatial_shapes[i][1]):
+        cells = spatial_shapes[i][0] * spatial_shapes[i][1]
+        size = cells * d * 4
+        if used + size > BWD_SMEM_BYTES or q * p * 4 < BWD_MIN_HITS * cells:
+            break           # every later level is larger
+        levels.append(i)
+        used += size
+    if len(levels) == len(spatial_shapes):
+        q = bwd_queries(n, lq, m, 1)
+    return BwdPlan(tuple(sorted(levels)), q, used, d % 4 == 0)
 
 
 def msda_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   sampling_locations: torch.Tensor,
                   attention_weights: torch.Tensor):
-    """One launch of the backward kernel over the given levels. grad_out
-    (N, Lq, M, D) float32 or bfloat16 -> (grad_value in the value dtype,
-    grad_locations, grad_weights float32). Counts the launch as
-    "msda_bwd"."""
+    """One launch of the backward kernel over the given levels, split as
+    `bwd_plan` says. grad_out (N, Lq, M, D) float32 or bfloat16 ->
+    (grad_value in the value dtype, grad_locations, grad_weights float32).
+    Counts the launch as "msda_bwd"."""
     _check_inputs(value, spatial_shapes, sampling_locations,
                   attention_weights)
     n, s, m, d = value.shape
@@ -259,6 +312,10 @@ def msda_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
                          f"{grad_out.device}")
     grad_out = grad_out.contiguous()
     lib = BWD_LIB.load()
+    plan = bwd_plan(n, lq, m, p, d, spatial_shapes)
+    # the 16-byte path loads 4 channels at a time from value and grad_out
+    vector = plan.vector and all(t.data_ptr() % (4 * t.element_size()) == 0
+                                 for t in (value, grad_out))
     grad_value = torch.zeros(n, s, m, d, dtype=torch.float32,
                              device=value.device)
     grad_loc = torch.empty_like(sampling_locations)
@@ -273,8 +330,9 @@ def msda_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
                           grad_loc.data_ptr(), grad_attn.data_ptr(),
                           n, s, lq, m, l, p, d, shapes,
                           int(value.dtype == torch.bfloat16),
-                          int(grad_out.dtype == torch.bfloat16), BWD_WARPS,
-                          stream)
+                          int(grad_out.dtype == torch.bfloat16),
+                          sum(1 << i for i in plan.levels), plan.queries,
+                          plan.smem_bytes, int(vector), BWD_THREADS, stream)
     if rc != 0:
         raise RuntimeError(f"msda_bwd launch failed: cudaError {rc}")
     count_launch("msda_bwd", n, lq, spatial_shapes)
