@@ -20,8 +20,9 @@ synthetic 800x1344 frames of `chip_smoke.py`:
     same static shapes): device time per step, the device's busy share of
     the traced steps' wall time (`device_busy_share`; the tracer slows the
     host) and of the untraced steady step above
-    (`device_share_of_untraced_step`), kernel launches per step, and the
-    device time by operator (top 12).
+    (`device_share_of_untraced_step`), kernel launches per step, the
+    device time by operator (top 12) and that of each of the port's main
+    kernels (`PORT_KERNELS`).
 
 `exact_v4` and `exact_decskip` are the exact B = 1 path with
 `PALLAS_SKIP_IMPL=v4` (the encoder's levels through the range-walking
@@ -56,9 +57,15 @@ import torch
 REPO = Path(__file__).resolve().parent
 
 
+# the port's kernels, by a part of their CUDA function's name
+PORT_KERNELS = ("msda_fwd_kernel", "msda_bwd_kernel", "window_layer_",
+                "msda_dense_v2_fwd_kernel", "msda_dense_v4_fwd_kernel")
+
+
 def profile_steps(step, n: int):
-    """(device ms per step, wall ms per step, launches per step, top ops)
-    over n steps under torch.profiler."""
+    """(device ms per step, wall ms per step, launches per step, top ops,
+    device ms per step of each of PORT_KERNELS) over n steps under
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -78,9 +85,11 @@ def profile_steps(step, n: int):
         if t > 0:
             by_op[e.key] = (t / 1e3 / n, e.count / n)
     top = sorted(by_op.items(), key=lambda kv: -kv[1][0])[:12]
+    port = {k: sum(e.device_time for e in kernels if k in e.name) / 1e3 / n
+            for k in PORT_KERNELS}
     return dev, wall, len(kernels) / n, [
         {"op": k[:80], "ms_per_step": round(v[0], 4),
-         "calls_per_step": round(v[1], 2)} for k, v in top]
+         "calls_per_step": round(v[1], 2)} for k, v in top], port
 
 
 def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
@@ -142,9 +151,10 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
     model_ms = time_ms(lambda: model(fb, targets, prev), 10)
     backbone_ms = time_ms(lambda: model.backbone[0](fb), 10)
 
-    dev_ms, wall_ms, launches, top = profile_steps(profiled, n_prof)
+    dev_ms, wall_ms, launches, top, port = profile_steps(profiled, n_prof)
     if batch > 1:  # one run of 4 lockstep steps
         dev_ms, wall_ms, launches = dev_ms / 4, wall_ms / 4, launches / 4
+        port = {k: v / 4 for k, v in port.items()}
         top = [dict(t, ms_per_step=round(t["ms_per_step"] / 4, 4),
                     calls_per_step=round(t["calls_per_step"] / 4, 2))
                for t in top]
@@ -157,7 +167,8 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
             "profiled_wall_ms_per_step": wall_ms,
             "device_busy_share": dev_ms / wall_ms,
             "device_share_of_untraced_step": dev_ms / steady_ms,
-            "kernel_launches_per_step": launches, "top_device_ops": top}
+            "kernel_launches_per_step": launches,
+            "port_kernel_device_ms_per_step": port, "top_device_ops": top}
     print(json.dumps(line), flush=True)
     if out_dir is not None:
         (out_dir / f"profile_{tag}.json").write_text(json.dumps(line,
@@ -209,7 +220,7 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
         def profiled():
             timings.last = time.perf_counter()
             step_fn(state, pack, gen)
-        dev_ms, wall_ms, launches, top = profile_steps(profiled, 1)
+        dev_ms, wall_ms, launches, top, port = profile_steps(profiled, 1)
         counts = launch_counts()
     finally:
         msda.PALLAS_SKIP_IMPL = saved_impl
@@ -227,7 +238,7 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
             "device_share_of_untraced_step": dev_ms / steady_ms,
             "kernel_launches_per_step": launches,
             "msda_launches_per_step": {k: v for k, v in counts.items() if v},
-            "top_device_ops": top}
+            "port_kernel_device_ms_per_step": port, "top_device_ops": top}
     print(json.dumps(line), flush=True)
     if out_dir is not None:
         (out_dir / f"profile_{tag}.json").write_text(json.dumps(line,

@@ -16,7 +16,13 @@ last line marked "partial"; the kernels line needs all of them):
      lockstep step's B = 8 and at the training step's 611 and 500 queries,
      B = 2; the six levels that `MSDA_DEC_SKIP` leaves to the gather kernel;
      one decoder level), in float32 with TF32 off and in bfloat16, and
-     times both;
+     times both; then three small calls for the kernel's other paths (D =
+     6, a value one element off its alignment, 16-byte words with samples
+     outside [0, 1] on every level); each case line shows the host's plan
+     (`msda.fwd_plan`: word and warps per block); with `--old-msda-fwd
+     PATH` (an earlier `csrc/msda_fwd.cu`, copied outside the package)
+     times that design and this one through their C entry points, in turns
+     (`old_ms`, `entry_ms`), beside `ms`, the wrapper's time;
   window: holds the fused window-layer kernel against its plain version at
      the fast mode's B = 1 and B = 8 shapes (380 and 3,040 windows of 64
      tokens, C = 288), both shift parities, with the key padding of the
@@ -280,7 +286,56 @@ def msda_bound(value, loc, attn, out_es=None):
     return bound(n_bytes, n * lq * m * l * p * d * 10, FP32_FLOPS)
 
 
+# the parent design of the forward kernel, for an A/B beside the kernel
+# (`--old-msda-fwd`): its library, built with the others, or None
+OLD_FWD_LIB = None
+
+
+def old_fwd_lib(path: str):
+    """A `CudaLib` of an earlier `csrc/msda_fwd.cu` (a copy outside the
+    package, for an A/B), with that design's C entry point: a thread per
+    channel of the M * D row, queries per block the last int."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    return CudaLib(str(Path(path).resolve()), {"msda_fwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+           ctypes.c_int, ctypes.c_void_p])})
+
+
+def raw_msda_fwd(fn, plan_args, value, shapes, loc, attn, out_f32):
+    """`msda.msda_fwd_cuda`'s launch through the C entry point `fn` of a
+    forward library, without the wrapper's checks and count, into the same
+    kind of output. `plan_args` are the entry point's arguments between the
+    output flag and the stream."""
+    import ctypes
+    n, s, m, d = value.shape
+    lq, l, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    out = torch.empty(n, lq, m, d, device=value.device,
+                      dtype=torch.float32 if out_f32 else value.dtype)
+    hw = (ctypes.c_int * (2 * l))(*[int(v) for pair in shapes for v in pair])
+    rc = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            n, s, lq, m, l, p, d, hw, int(value.dtype == torch.bfloat16),
+            int(out_f32), *plan_args, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"msda_fwd launch failed: cudaError {rc}")
+    return out
+
+
 def kernel_phase_msda(seed: int):
+    """Every call shape of the gather kernel on the main paths, float32 and
+    bfloat16, against the plain version within `TOL`, with the host's plan
+    in each case line; times the kernel through the wrapper that the paths
+    call (`ms`, as every kernel phase times it) and the plain version. With
+    `--old-msda-fwd` it also times, through the C entry points, this
+    design (`entry_ms`) and the earlier one (`old_ms`) in turns, this one
+    at 2, 4 and 8 warps a block (`ms_by_warps`) and with every sample on
+    one cell (`ms_one_cell`: every row read an L1 hit). Then three small
+    calls for the kernel's other paths: D = 6 (bfloat16 one
+    channel a lane, float32 8-byte words), a value tensor one element off
+    its alignment (one channel a lane in both, two passes of 32 channels),
+    and 16-byte words with 36 samples a head (two passes of 32 samples),
+    samples outside [0, 1] on every level and levels one cell wide."""
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.msda_dense import dense_level_pallas
     from trackformer_tpu_torch.ops.msda_patch import msda_patch
@@ -291,78 +346,156 @@ def kernel_phase_msda(seed: int):
     rest_levels = LEVELS[1:] * 2
     mid = LEVELS[1]
     s_enc = sum(h * w for h, w in LEVELS)
+    f32, bf16 = torch.float32, torch.bfloat16
 
     def enc_kernel(v, lo, a):
         return msda_patch(v, LEVELS, lo, a)
 
-    def enc_plain(v, lo, a):
-        return msda.ms_deform_attn_plain(v, LEVELS, lo, a)
-
     def dec_kernel(v, lo, a):
         return msda.ms_deform_attn(v, dec_levels, lo, a)
 
-    def dec_plain(v, lo, a):
-        return msda.ms_deform_attn_plain(v, dec_levels, lo, a)
+    def levels_kernel(shapes, out_f32=False):
+        return lambda v, lo, a: msda.msda_cuda(v, shapes, lo, a,
+                                               "ms_deform_attn", out_f32)
 
-    # (name, levels, queries per item, encoder-like sampling, items,
-    # kernel, plain); decoder_b8 is the lockstep step's decoder call,
-    # decoder_rest the six coarser levels of a decoder call, launched as
-    # that route launches them: the float32 sums handed over unrounded,
-    # encoder_train and decoder_train the training step's (two frame pairs,
-    # 500 object queries + 111 track-query slots), decoder_train_prev that
-    # of its previous-frame forward (the object queries alone)
+    def plain_of(shapes):
+        return lambda v, lo, a: msda.ms_deform_attn_plain(v, shapes, lo, a)
+
+    # (name, levels, queries per item, items, kernel, plain); decoder_b8 is
+    # the lockstep step's decoder call, decoder_rest the six coarser levels
+    # of a decoder call, launched as that route launches them: the float32
+    # sums handed over unrounded, encoder_train and decoder_train the
+    # training step's (two frame pairs, 500 object queries + 111
+    # track-query slots), decoder_train_prev that of its previous-frame
+    # forward (the object queries alone)
     cases = [
-        ("encoder", LEVELS, s_enc, True, 1, enc_kernel, enc_plain),
-        ("decoder", dec_levels, DEC_QUERIES, False, 1, dec_kernel, dec_plain),
-        ("decoder_b8", dec_levels, DEC_QUERIES, False, 8, dec_kernel,
-         dec_plain),
-        ("decoder_rest", rest_levels, DEC_QUERIES, False, 1,
-         lambda v, lo, a: msda.msda_cuda(v, rest_levels, lo, a,
-                                         "ms_deform_attn", out_f32=True),
-         lambda v, lo, a: msda.ms_deform_attn_plain(v, rest_levels, lo, a)),
-        ("encoder_train", LEVELS, s_enc, True, TRAIN_BATCH, enc_kernel,
-         enc_plain),
-        ("decoder_train", dec_levels, TRAIN_DEC_QUERIES, False, TRAIN_BATCH,
-         dec_kernel, dec_plain),
-        ("decoder_train_prev", dec_levels, TRAIN_PREV_QUERIES, False,
-         TRAIN_BATCH, dec_kernel, dec_plain),
-        ("single_level", (mid,), DEC_QUERIES, False, 1,
+        ("encoder", LEVELS, s_enc, 1, enc_kernel, plain_of(LEVELS)),
+        ("decoder", dec_levels, DEC_QUERIES, 1, dec_kernel,
+         plain_of(dec_levels)),
+        ("decoder_b8", dec_levels, DEC_QUERIES, 8, dec_kernel,
+         plain_of(dec_levels)),
+        ("decoder_rest", rest_levels, DEC_QUERIES, 1,
+         levels_kernel(rest_levels, True), plain_of(rest_levels)),
+        ("encoder_train", LEVELS, s_enc, TRAIN_BATCH, enc_kernel,
+         plain_of(LEVELS)),
+        ("decoder_train", dec_levels, TRAIN_DEC_QUERIES, TRAIN_BATCH,
+         dec_kernel, plain_of(dec_levels)),
+        ("decoder_train_prev", dec_levels, TRAIN_PREV_QUERIES, TRAIN_BATCH,
+         dec_kernel, plain_of(dec_levels)),
+        ("single_level", (mid,), DEC_QUERIES, 1,
          lambda v, lo, a: dense_level_pallas(v, lo[:, :, :, 0],
                                              a[:, :, :, 0], *mid),
          lambda v, lo, a: msda.level_plain(v, lo[:, :, :, 0],
                                             a[:, :, :, 0], *mid)),
     ]
+    inputs = {}
+    for name, shapes, lq, n, _, _ in cases:
+        inputs[name] = msda_inputs(shapes, lq, name.startswith("encoder"),
+                                   gen, n) + (0,)
+    # (name, levels, queries, items, heads, channels, points, elements the
+    # value lies off its buffer's start, sample range)
+    small = [("d6", ((30, 40), (5, 7)), 3000, 2, 2, 6, 4, 0, (-0.1, 1.1)),
+             ("d36_offset", ((30, 40), (5, 7)), 3000, 2, M, D, 4, 1,
+              (-0.1, 1.1)),
+             ("outside", ((30, 40), (15, 20), (1, 7), (3, 1)), 3000, 2, 4,
+              32, 9, 0, (-0.3, 1.3))]
+    for name, shapes, lq, n, m, d, p, offset, (lo, hi) in small:
+        s = sum(h * w for h, w in shapes)
+        value = torch.randn(n, s, m, d, device="cuda", generator=gen)
+        loc = torch.rand(n, lq, m, len(shapes), p, 2, device="cuda",
+                         generator=gen) * (hi - lo) + lo
+        attn = torch.rand(n, lq, m, len(shapes), p, device="cuda",
+                          generator=gen)
+        outside = ((loc < 0) | (loc > 1)).any(-1).movedim(3, 0)
+        check(bool(outside.flatten(1).any(1).all()),
+              f"kernel {name}: a level without a sample outside [0, 1]")
+        inputs[name] = (value, loc, attn, offset)
+        cases.append((name, shapes, lq, n, levels_kernel(shapes),
+                      plain_of(shapes)))
+    # the word each case must take, float32 and bfloat16
+    want_words = {"d6": (8, 0), "d36_offset": (0, 0), "outside": (16, 16)}
+    fwd = msda.LIB.load().msda_fwd
     results = {}
-    for name, shapes, lq, encoder, n, kern, plain in cases:
-        value, loc, attn = msda_inputs(shapes, lq, encoder, gen, n)
-        for dtype in (torch.float32, torch.bfloat16):
+    for name, shapes, lq, n, kern, plain in cases:
+        value, loc, attn, offset = inputs.pop(name)
+        m, d = value.shape[2:]
+        out_f32 = name == "decoder_rest"
+        for dtype in (f32, bf16):
             v = value.to(dtype)
+            if offset:
+                v = torch.cat([v.flatten()[:offset], v.flatten()])[offset:] \
+                    .view(v.shape)
+            # the wrapper's plan, and the same at 2, 4 and 8 warps a block
+            plans = {w: msda.fwd_plan(n, lq, m, d, v.element_size(),
+                                      v.data_ptr(), w) for w in (2, 4, 8)}
+            plan = msda.fwd_plan(n, lq, m, d, v.element_size(), v.data_ptr())
+            check(plan.word == want_words.get(
+                name, (16, 8))[dtype == bf16],
+                f"kernel {name} {dtype}: plan {plan}")
+
+            def new_kernel(warps=plan.warps, lo=loc):
+                pl = plans[warps]
+                return raw_msda_fwd(fwd, (pl.word, pl.warps, *pl.grid), v,
+                                    shapes, lo, attn, out_f32)
+
+            def old_kernel():
+                return raw_msda_fwd(OLD_FWD_LIB.load().msda_fwd, (4,), v,
+                                    shapes, loc, attn, out_f32)
+            atol, rtol = TOL[dtype]
             with torch.no_grad():
                 got = kern(v, loc, attn)
-                check(got.dtype == (torch.float32 if name == "decoder_rest"
-                                    else dtype),
+                check(got.dtype == (f32 if out_f32 else dtype),
                       f"kernel {name} {dtype}: output in {got.dtype}")
-                got = got.float().reshape(n, lq, M * D)
+                got = got.float().reshape(n, lq, m * d)
                 torch.cuda.synchronize()
-                want = plain(v, loc, attn).reshape(n, lq, M * D)
+                want = plain(v, loc, attn).reshape(n, lq, m * d)
                 err = (got - want).abs()
-                atol, rtol = TOL[dtype]
                 ok = bool((err <= atol + rtol * want.abs()).all())
                 max_abs = err.max().item()
                 max_rel = (err / want.abs().clamp(min=1e-3)).max().item()
+                raw_ok = bool(torch.equal(new_kernel().float().reshape(
+                    n, lq, m * d), got))
                 ms = time_ms(lambda: kern(v, loc, attn), 20, INNER)
                 plain_ms = time_ms(lambda: plain(v, loc, attn), 5, INNER)
-            bound_ms, bound_by = msda_bound(
-                v, loc, attn, 4 if name == "decoder_rest" else None)
+                ab = dict(entry_ms="not measured", old_ms="not measured")
+                if OLD_FWD_LIB is not None:
+                    old_err = (old_kernel().float().reshape(n, lq, m * d)
+                               - want).abs()
+                    check(bool((old_err <= atol + rtol * want.abs()).all()),
+                          f"kernel {name} {dtype}: the earlier design is out "
+                          f"of tolerance")
+                    new_t, old_t = [], []
+                    for _ in range(2):     # in turns: new, old, new, old
+                        new_t.append(time_ms(new_kernel, 10, INNER))
+                        old_t.append(time_ms(old_kernel, 10, INNER))
+                    # this design at other block sizes (what FWD_WARPS rests
+                    # on), and with every sample on one cell, so that every
+                    # row read is an L1 hit (what the value reads cost)
+                    by_warps = {w: round(time_ms(lambda: new_kernel(w), 10,
+                                                 INNER), 4)
+                                for w in (2, 4, 8) if name not in want_words}
+                    one_cell = torch.full_like(loc, 0.5)
+                    one_cell_ms = time_ms(lambda: new_kernel(lo=one_cell),
+                                          10, INNER)
+                    ab = dict(entry_ms=f"{statistics.mean(new_t):.4f}",
+                              old_ms=f"{statistics.mean(old_t):.4f}",
+                              ms_by_warps=json.dumps(by_warps,
+                                                     separators=(",", ":")),
+                              ms_one_cell=f"{one_cell_ms:.4f}")
+            bound_ms, bound_by = msda_bound(v, loc, attn,
+                                            4 if out_f32 else None)
             phase("kernel", case=name, dtype=str(dtype).split(".")[-1],
-                  items=n, lq=lq, levels=len(shapes),
+                  items=n, lq=lq, levels=len(shapes), heads=m, channels=d,
+                  points=loc.shape[4], word=plan.word, warps=plan.warps,
                   max_abs_err=f"{max_abs:.3e}",
                   max_rel_err=f"{max_rel:.3e}",
-                  tol=f"{atol:g}+{rtol:g}*|ref|", ms=f"{ms:.4f}",
+                  tol=f"{atol:g}+{rtol:g}*|ref|", ms=f"{ms:.4f}", **ab,
                   plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
-                  bound_by=bound_by, ok=ok)
+                  bound_by=bound_by, ok=ok and raw_ok)
             check(ok, f"kernel {name} {dtype} out of tolerance: "
                       f"max abs err {max_abs}")
+            check(raw_ok, f"kernel {name} {dtype}: the C entry point's "
+                          f"output differs from the wrapper's")
             results[(name, dtype)] = dict(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -2159,7 +2292,7 @@ ROUTE_FRAMES = 3
 
 
 def main() -> int:
-    global OLD_BWD_LIB
+    global OLD_BWD_LIB, OLD_FWD_LIB
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=6,
                     help="frames of each tracker run")
@@ -2169,6 +2302,9 @@ def main() -> int:
     ap.add_argument("--old-msda-bwd", default=None, metavar="PATH",
                     help="an earlier csrc/msda_bwd.cu (a copy outside the "
                          "package) to time beside the backward kernel")
+    ap.add_argument("--old-msda-fwd", default=None, metavar="PATH",
+                    help="an earlier csrc/msda_fwd.cu (a copy outside the "
+                         "package) to time beside the forward kernel")
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2201,6 +2337,9 @@ def main() -> int:
     if args.old_msda_bwd:
         OLD_BWD_LIB = old_bwd_lib(args.old_msda_bwd)
         libs.append(OLD_BWD_LIB)
+    if args.old_msda_fwd:
+        OLD_FWD_LIB = old_fwd_lib(args.old_msda_fwd)
+        libs.append(OLD_FWD_LIB)
     build_all(libs)
     for lib in libs:
         info = lib.info()

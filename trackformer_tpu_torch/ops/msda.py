@@ -14,13 +14,15 @@ Every level is sampled bilinearly with grid_sample semantics
 (align_corners=False, zero padding) and reduced with the attention weights.
 
 On a CUDA tensor, with the default route, the op is ONE launch of the
-kernel in `csrc/msda_fwd.cu` over all levels of the call: the encoder's
-self-pattern (Lq == S) goes through `msda_patch`, every other call through
-the launch here. That covers what the TPU package splits over its v5 patch
-kernel, its v1 dense kernel and its XLA dense and gather paths, a routing
-that exists there only for the TPU's missing gather. On a CPU tensor the
-op runs the plain version `ms_deform_attn_plain`. Nothing falls back from
-a kernel to the plain version.
+kernel in `csrc/msda_fwd.cu` over all levels of the call, a warp per (item,
+query, head) with the row word and block size of the host's plan
+`fwd_plan`: the encoder's self-pattern (Lq == S) goes through `msda_patch`,
+every other call through the launch here. That covers what the TPU
+package splits over its v5 patch kernel, its v1 dense kernel and its XLA
+dense and gather paths, a routing that exists there only for the TPU's
+missing gather. On a CPU tensor the op runs the plain version
+`ms_deform_attn_plain`. Nothing falls back from a kernel to the plain
+version.
 
 The route switches are the JAX package's. The module global
 `PALLAS_SKIP_IMPL`, read from the environment variable of that name, default
@@ -76,9 +78,6 @@ DENSE_CELL_BUDGET = 8_000_000
 PALLAS_DENSE_MAX_CELLS = 8192
 PALLAS_V2_MAX_CELLS = 32768
 PALLAS_V2_MIN_QUERIES = 4096
-# queries per block: enough work per block to amortize its start, small
-# enough that the encoder call still spreads over every SM several times
-Q_PER_BLOCK = 4
 
 
 # Launches of the kernel by wrapper: the port's only global state. They
@@ -176,8 +175,37 @@ def ms_deform_attn_plain(value: torch.Tensor,
 LIB = CudaLib("msda_fwd.cu", {"msda_fwd": (
     ctypes.c_int,
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_void_p])})
+    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7
+    + [ctypes.c_void_p])}, headers=[MSDA_COMMON])
+# the forward kernel's warps a block (`fwd_plan`), each on one (item,
+# query, head): 2 and 4 ran within 4 % of each other on every flagship
+# call, 8 up to 12 % slower (`chip_smoke.py --phases msda --old-msda-fwd`,
+# `ms_by_warps`); the decoder call at B = 1 is then 1,304 blocks for the
+# H100's 132 SMs
+FWD_WARPS = 4
+
+
+class FwdPlan(NamedTuple):
+    """How the forward kernel serves one call: `word`, the bytes a lane
+    loads of a head's row at a time (16 or 8; 0: one channel a lane), and
+    `warps` per block, each on one (item, query, head); the launch grid
+    as (query tiles, heads, items) in `grid`: warp w of block (x, head,
+    item) serves query x * warps + w. The kernel is launched on `grid`,
+    and its entry point refuses a grid that misses a query."""
+    word: int
+    warps: int
+    grid: Tuple[int, int, int]
+
+
+def fwd_plan(n: int, lq: int, m: int, d: int, es: int, value_ptr: int,
+             warps: int = FWD_WARPS) -> FwdPlan:
+    """The plan of the forward kernel for a call (`csrc/msda_fwd.cu`) with
+    head rows of d elements of es bytes at `value_ptr`: the widest word of
+    16 or 8 bytes that divides a head's row and the pointer's alignment,
+    else one channel a lane; `warps` warps a block."""
+    word = next((w for w in (16, 8)
+                 if (d * es) % w == 0 and value_ptr % w == 0), 0)
+    return FwdPlan(word, warps, (-(-lq // warps), m, n))
 
 
 def _check_inputs(value, spatial_shapes, loc, attn):
@@ -208,14 +236,16 @@ def msda_fwd_cuda(value: torch.Tensor,
                   sampling_locations: torch.Tensor,
                   attention_weights: torch.Tensor,
                   wrapper: str, out_f32: bool = False) -> torch.Tensor:
-    """One launch of the CUDA kernel over the given levels -> (N, Lq, M, D)
-    in the value dtype, or with `out_f32` the kernel's float32 sums
-    unrounded. Counts the launch for `wrapper`."""
+    """One launch of the CUDA kernel over the given levels, served as
+    `fwd_plan` says -> (N, Lq, M, D) in the value dtype, or with `out_f32`
+    the kernel's float32 sums unrounded. Counts the launch for
+    `wrapper`."""
     _check_inputs(value, spatial_shapes, sampling_locations,
                   attention_weights)
     lib = LIB.load()
     n, s, m, d = value.shape
     _, lq, _, l, p, _ = sampling_locations.shape
+    plan = fwd_plan(n, lq, m, d, value.element_size(), value.data_ptr())
     out = torch.empty(n, lq, m, d, device=value.device,
                       dtype=torch.float32 if out_f32 else value.dtype)
     shapes = (ctypes.c_int * (2 * l))(*[int(v) for hw in spatial_shapes
@@ -226,7 +256,7 @@ def msda_fwd_cuda(value: torch.Tensor,
                           attention_weights.data_ptr(), out.data_ptr(),
                           n, s, lq, m, l, p, d, shapes,
                           int(value.dtype == torch.bfloat16), int(out_f32),
-                          Q_PER_BLOCK, stream)
+                          plan.word, plan.warps, *plan.grid, stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd launch failed: cudaError {rc}")
     count_launch(wrapper, n, lq, spatial_shapes)
