@@ -15,14 +15,17 @@ synthetic 800x1344 frames of `chip_smoke.py`:
     median over the steady steps (the first two excluded);
   * model ms: the model's forward alone on a steady step's inputs, and the
     backbone's alone (CUDA events, median of 10);
+  * peak device memory over the tracker's run (`peak_memory_gib`);
   * a `torch.profiler` trace of 4 steps (B = 1: steady steps of the run
     above; B = 8: one lockstep run of 4 frames, whose steps all have the
     same static shapes): device time per step, the device's busy share of
     the traced steps' wall time (`device_busy_share`; the tracer slows the
     host) and of the untraced steady step above
-    (`device_share_of_untraced_step`), kernel launches per step, the
-    device time by operator (top 12) and that of each of the port's main
-    kernels (`PORT_KERNELS`).
+    (`device_share_of_untraced_step`), kernel launches per step, the port
+    wrappers' launches per step (`port_launches_per_step`, as
+    `chip_smoke.py` counts and checks them), the device time by operator
+    (top 12) and that of each of the port's main kernels
+    (`PORT_KERNELS`).
 
 `exact_v4` and `exact_decskip` are the exact B = 1 path with
 `PALLAS_SKIP_IMPL=v4` (the encoder's levels through the range-walking
@@ -58,8 +61,12 @@ REPO = Path(__file__).resolve().parent
 
 
 # the port's kernels, by a part of their CUDA function's name
+# ("window_layer_" sums the window layer's kernels, the stages name each)
 PORT_KERNELS = ("msda_fwd_kernel", "msda_bwd_kernel", "window_layer_",
-                "msda_dense_v2_fwd_kernel", "msda_dense_v4_fwd_kernel")
+                "window_layer_qkv", "window_layer_attn",
+                "window_layer_proj_ln", "window_layer_ffn1",
+                "window_layer_ffn2_ln", "msda_dense_v2_fwd_kernel",
+                "msda_dense_v4_fwd_kernel")
 
 
 def profile_steps(step, n: int):
@@ -94,7 +101,8 @@ def profile_steps(step, n: int):
 
 def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
              out_dir: Optional[Path]):
-    from chip_smoke import frame_blobs, smoke_model, time_ms
+    from chip_smoke import (frame_blobs, launch_counts, reset_launch_counts,
+                            smoke_model, time_ms)
     from trackformer_tpu_torch.structures import FrameBatch, empty_targets
     from trackformer_tpu_torch.tracking import BatchedTracker, Tracker
 
@@ -103,6 +111,7 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
     seqs = [frame_blobs(n_frames, seed + 100 * (i + 1))
             for i in range(batch)]
     step_ms = []
+    torch.cuda.reset_peak_memory_stats()
     if batch == 1:
         tracker = Tracker(model, post, tracker_cfg, cfg.hidden_dim,
                           cfg.num_queries, overflow_boxes=cfg.overflow_boxes)
@@ -136,6 +145,7 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
             tracker.run([s[:4] for s in seqs])
         n_prof = 1
 
+    peak = torch.cuda.max_memory_allocated()
     # the model alone on a steady step's inputs: full track-query slots and
     # the previous step's features
     dev = torch.device("cuda")
@@ -151,7 +161,10 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
     model_ms = time_ms(lambda: model(fb, targets, prev), 10)
     backbone_ms = time_ms(lambda: model.backbone[0](fb), 10)
 
+    reset_launch_counts()
     dev_ms, wall_ms, launches, top, port = profile_steps(profiled, n_prof)
+    # the port's wrappers' launches over the 4 profiled steps
+    counts = {k: v / 4 for k, v in launch_counts().items() if v}
     if batch > 1:  # one run of 4 lockstep steps
         dev_ms, wall_ms, launches = dev_ms / 4, wall_ms / 4, launches / 4
         port = {k: v / 4 for k, v in port.items()}
@@ -163,11 +176,13 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
             "steady_step_ms": steady_ms,
             "step_ms": [round(t, 2) for t in step_ms],
             "model_forward_ms": model_ms, "backbone_ms": backbone_ms,
+            "peak_memory_gib": peak / 2 ** 30,
             "profiled_device_ms_per_step": dev_ms,
             "profiled_wall_ms_per_step": wall_ms,
             "device_busy_share": dev_ms / wall_ms,
             "device_share_of_untraced_step": dev_ms / steady_ms,
             "kernel_launches_per_step": launches,
+            "port_launches_per_step": counts,
             "port_kernel_device_ms_per_step": port, "top_device_ops": top}
     print(json.dumps(line), flush=True)
     if out_dir is not None:

@@ -23,13 +23,18 @@ last line marked "partial"; the kernels line needs all of them):
      PATH` (an earlier `csrc/msda_fwd.cu`, copied outside the package)
      times that design and this one through their C entry points, in turns
      (`old_ms`, `entry_ms`), beside `ms`, the wrapper's time;
-  window: holds the fused window-layer kernel against its plain version at
-     the fast mode's B = 1 and B = 8 shapes (380 and 3,040 windows of 64
-     tokens, C = 288), both shift parities, with the key padding of the
-     750x1333 region in the 800x1344 bucket (fully-padded windows
-     present), in float32 and bfloat16; times it, the plain version, a
-     library composition (cuBLAS linears + scaled_dot_product_attention +
-     layer_norm) and the weight packing;
+  window: holds the window layer's kernels (bfloat16: five stage kernels
+     over all tokens; float32: a block per window) against its plain
+     version at the fast mode's B = 1 and B = 8 shapes (380 and 3,040
+     windows of 64 tokens, C = 288), both shift parities, with the key
+     padding of the 750x1333 region in the 800x1344 bucket (fully-padded
+     windows present), in float32 and bfloat16; at B = 8 each stage kernel
+     against its plain stage, with its time, bound and the blocks per SM
+     the card grants it; times the layer, the plain version, a library
+     composition (cuBLAS linears + scaled_dot_product_attention +
+     layer_norm) and the weight packing; with `--old-window-layer PATH`
+     (an earlier `csrc/window_layer_fwd.cu`, copied outside the package)
+     times that design beside this one, in turns (`old_ms`);
   msda_bwd: holds the backward kernel's three gradients against autograd
      through the plain version at the training step's encoder call (N = 2,
      Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
@@ -84,10 +89,11 @@ last line marked "partial"; the kernels line needs all of them):
      (12 `msda_patch`, 12 of kernel v4 on the decoder's two 100x168 levels
      and 6 gather launches of the other six levels per frame);
   fast: the same in the TPU-fast mode (windowed encoder, cached memory):
-     `Tracker` over the frames, 6 window-layer and 6 decoder MSDA launches
-     per frame; then `BatchedTracker` over 8 sequences in lockstep; then
-     the float32 forward, card against CPU, over two frames (the second
-     reuses the first's cached memory);
+     `Tracker` over the frames, per frame 6 window-layer calls (each
+     launching the five stage kernels) and 6 decoder MSDA launches; then
+     `BatchedTracker` over 8 sequences in lockstep; then the float32
+     forward, card against CPU, over two frames (the second reuses the
+     first's cached memory);
   train: two-frame track-query training of the full-width exact-MSDA
      flagship in bfloat16, B = 2 frame pairs at 800x1344 with seeded
      synthetic boxes and track ids: 3 optimizer steps with the encoder on
@@ -593,20 +599,129 @@ def window_bound(xw, kp, layer):
     return bound(n_bytes, flops, BF16_FLOPS)
 
 
+# the parent design of the window layer, for an A/B beside the kernels
+# (`--old-window-layer`): its library, built with the others, or None
+OLD_WINDOW_LIB = None
+
+
+def old_window_lib(path: str):
+    """A `CudaLib` of an earlier `csrc/window_layer_fwd.cu` (a copy outside
+    the package, for an A/B) with that design's C entry point: a block per
+    window, the q|k|v weights in the per-head layout padded to 48."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    return CudaLib(str(Path(path).resolve()), {"window_layer_fwd": (
+        ctypes.c_int, [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])})
+
+
+def old_window_layer(xw, pw, kp, layer):
+    """The earlier design (`--old-window-layer`) in bfloat16, through its C
+    entry point, on the weights packed as it takes them."""
+    from trackformer_tpu_torch.ops.window_attn import (N_HEADS, WS,
+                                                       packed_weights)
+    weights = packed_weights(layer, xw.dtype, padded=True)
+    out = torch.empty_like(xw)
+    rc = OLD_WINDOW_LIB.load().window_layer_fwd(
+        xw.data_ptr(), pw.data_ptr(), kp.data_ptr(),
+        *[w.data_ptr() for w in weights], out.data_ptr(), xw.shape[0], WS,
+        C, N_HEADS, FF, 1, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"old window_layer_fwd launch failed: cudaError {rc}")
+    return out
+
+
+def stage_cases(xw, pw, kp, weights):
+    """Each stage kernel of the bfloat16 layer with its inputs, its plain
+    version and the plain output on those inputs: (name, kernel call,
+    plain call, plain output, elementwise tolerance text, tolerance,
+    (bytes, flops) of its bound). Every stage gets the plain chain's
+    inputs, so each is held alone. Tolerances: a product rounded, its bias
+    added and rounded, can differ by one bfloat16 ulp (<= 2^-7 relative)
+    at each of the two roundings where the float32 sums, taken in other
+    orders, straddle a rounding point: 2^-7 (2 |ref| + |b|). Attention:
+    each probability can differ by an ulp, so the sum over the keys by
+    2^-7 max |v| of the window's head, and the rounded output by 2^-7
+    |ref|. The stages ending in a LayerNorm: the whole layer's bound
+    (`window_tol`), whose last step they are."""
+    from trackformer_tpu_torch.ops import window_attn as wa
+
+    nw, ws, c = xw.shape
+    r = nw * ws
+    wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2 = weights
+    ff = w1.shape[1]
+    x, p = xw.reshape(r, c), pw.reshape(r, c)
+    qkv = wa.qkv_plain(x, p, wqkv, bqkv)
+    a = wa.attn_plain(qkv, kp)
+    x1 = wa.proj_ln_plain(a, wo, bo, x, g1, be1)
+    h = wa.ffn1_plain(x1, w1, b1)
+    out = wa.ffn2_ln_plain(h, w2, b2, x1, g2, be2)
+    u = 2.0 ** -7
+
+    def product_tol(ref, bias):
+        return "2^-7*(2|ref|+|b|)", u * (2 * ref.float().abs()
+                                         + bias.float().abs())
+
+    vmax = qkv[:, 2 * c:].float().abs().view(nw, ws, M, D).amax(
+        (1, 3), keepdim=True).expand(nw, ws, M, D).reshape(r, c)
+    es = 2
+    return [
+        ("window_layer_qkv", lambda: wa.qkv_cuda(x, p, wqkv, bqkv),
+         lambda: wa.qkv_plain(x, p, wqkv, bqkv), qkv,
+         *product_tol(qkv, bqkv),
+         ((2 * r * c + c * 3 * c + 3 * c + r * 3 * c) * es,
+          2 * r * c * 3 * c)),
+        ("window_layer_attn", lambda: wa.attn_cuda(qkv, kp),
+         lambda: wa.attn_plain(qkv, kp), a, "2^-7*(|ref|+max|v| of the "
+         "window's head)", u * (a.float().abs() + vmax),
+         ((r * 3 * c + r * c) * es + kp.numel(), 2 * 2 * r * ws * c)),
+        ("window_layer_proj_ln",
+         lambda: wa.proj_ln_cuda(a, wo, bo, x, g1, be1),
+         lambda: wa.proj_ln_plain(a, wo, bo, x, g1, be1), x1,
+         *window_tol(torch.bfloat16, x1.float()),
+         ((3 * r * c + c * c + 3 * c) * es, 2 * r * c * c)),
+        ("window_layer_ffn1", lambda: wa.ffn1_cuda(x1, w1, b1),
+         lambda: wa.ffn1_plain(x1, w1, b1), h, *product_tol(h, b1),
+         ((r * c + c * ff + ff + r * ff) * es, 2 * r * c * ff)),
+        ("window_layer_ffn2_ln",
+         lambda: wa.ffn2_ln_cuda(h, w2, b2, x1, g2, be2),
+         lambda: wa.ffn2_ln_plain(h, w2, b2, x1, g2, be2), out,
+         *window_tol(torch.bfloat16, out.float()),
+         ((r * ff + 2 * r * c + ff * c + 3 * c) * es, 2 * r * ff * c)),
+    ]
+
+
+def stage_library(name, qkv, kp):
+    """One PyTorch call that computes the stage's function, where there is
+    one (attention: `scaled_dot_product_attention` with a float mask, per
+    window and head), else None; a yardstick of time only."""
+    if name != "window_layer_attn":
+        return None
+    from torch.nn import functional as F
+    nw = kp.shape[0]
+    q, k, v = qkv.view(nw, 64, 3, M, D).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = torch.zeros(nw, 1, 1, 64, dtype=qkv.dtype, device=qkv.device)
+    mask = mask.masked_fill(kp[:, None, None, :], torch.finfo(qkv.dtype).min)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
 def kernel_phase_window(seed: int):
-    """The kernel against its plain version at the shapes of both fast
-    paths (B = 1: 380 windows, B = 8: 3,040), float32 and bfloat16, both
-    shift parities; times of the kernel, the plain version and the library
-    composition in bfloat16 at shift 0. The wrapper packs a layer's weights
-    once per dtype (`packed_weights`), so after the first call the kernel's
-    time is that of one launch; the packing is timed apart."""
+    """The layer's kernels against its plain version at the shapes of both
+    fast paths (B = 1: 380 windows, B = 8: 3,040), float32 and bfloat16,
+    both shift parities; each of the five bfloat16 stage kernels against
+    its plain stage at B = 8 (`stage_cases`), with its time, bound and the
+    blocks per SM the card grants it; times of the layer through the
+    wrapper, the plain version, the library composition and, with
+    `--old-window-layer`, the earlier design, in bfloat16 at shift 0. The
+    wrapper packs a layer's weights once per dtype (`packed_weights`), so
+    after the first call the time is that of the launches; the packing is
+    timed apart."""
     from trackformer_tpu_torch.ops.window_attn import (
         fused_window_layer, pack_weights, window_layer_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
     reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     # the plain version's bf16 products summed in float32 throughout, as
-    # the kernel sums them
+    # the kernels sum them
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     bf16 = torch.bfloat16
     errs, results = {}, {}
@@ -642,36 +757,104 @@ def kernel_phase_window(seed: int):
                     errs[(dtype, batch, shift)] = max_abs
                     if dtype != bf16 or shift:
                         continue
+                    if batch == 8:
+                        results.update(window_stage_phase(xw, pw, kp, layer))
                     with torch.no_grad():
-                        ms = time_ms(
-                            lambda: fused_window_layer(xw, pw, kp, layer), 20,
-                            INNER)
-                        plain_ms = time_ms(
-                            lambda: window_layer_plain(xw, pw, kp, layer), 10,
-                            INNER)
-                        lib_ms = time_ms(
-                            lambda: window_layer_library(xw, pw, kp, layer),
-                            10, INNER)
-                        pack_ms = time_ms(lambda: pack_weights(layer, bf16),
-                                          10, INNER)
+                        results[batch] = window_times(xw, pw, kp, layer)
+                        results[batch]["weight_packing_ms"] = time_ms(
+                            lambda: pack_weights(layer, bf16), 10, INNER)
                     bound_ms, bound_by = window_bound(xw, kp, layer)
+                    results[batch].update(bound_ms=bound_ms,
+                                          bound_by=bound_by,
+                                          library_ms=None)
                     phase("kernel", case="window_layer", dtype="bfloat16",
-                          batch=batch, windows=xw.shape[0], ms=f"{ms:.4f}",
-                          plain_ms=f"{plain_ms:.4f}",
-                          library_composition_ms=f"{lib_ms:.4f}",
-                          weight_packing_ms=f"{pack_ms:.4f}",
-                          bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
-                    results[batch] = dict(
-                        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, library_ms=None,
-                        library_composition_ms=lib_ms)
-        for batch in results:
+                          batch=batch, windows=xw.shape[0],
+                          **{k: (f"{v:.4f}" if isinstance(v, float) else v)
+                             for k, v in results[batch].items()})
+        for batch in (1, 8):
             results[batch]["max_abs_err"] = max(errs[(bf16, batch, False)],
                                                 errs[(bf16, batch, True)])
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             reduced
     return results
+
+
+def window_times(xw, pw, kp, layer) -> dict:
+    """bf16 ms of the layer through the wrapper (`ms`), the plain version,
+    the library composition and, with `--old-window-layer`, the earlier
+    design (`old_ms`), that one and this in turns: new, old, new, old."""
+    from trackformer_tpu_torch.ops.window_attn import (fused_window_layer,
+                                                       window_layer_plain)
+    new = lambda: fused_window_layer(xw, pw, kp, layer)  # noqa: E731
+    times = {"ms": time_ms(new, 20, INNER)}
+    if OLD_WINDOW_LIB is not None:
+        old = lambda: old_window_layer(xw, pw, kp, layer)  # noqa: E731
+        got = old().float()
+        want = new().float()
+        err = (got - want).abs()
+        _, tol = window_tol(torch.bfloat16, want)
+        check(bool((err <= 2 * tol).all()), "the earlier window layer "
+              "design differs from this one")
+        turns = [time_ms(old, 20, INNER), time_ms(new, 20, INNER),
+                 time_ms(old, 20, INNER)]
+        times.update(old_ms=statistics.median([turns[0], turns[2]]),
+                     ms_turns="[" + ",".join(
+                         f"{t:.4f}" for t in [times["ms"], turns[0],
+                                              turns[1], turns[2]]) + "]")
+        times["ms"] = statistics.median([times["ms"], turns[1]])
+    else:
+        times["old_ms"] = "not measured"
+    times["plain_ms"] = time_ms(lambda: window_layer_plain(xw, pw, kp, layer),
+                                10, INNER)
+    times["library_composition_ms"] = time_ms(
+        lambda: window_layer_library(xw, pw, kp, layer), 10, INNER)
+    return times
+
+
+def window_stage_phase(xw, pw, kp, layer) -> dict:
+    """Each bfloat16 stage kernel against its plain stage at this call
+    (`stage_cases`): one case line each with its error, time, plain time,
+    library time where one call computes it, bound and blocks per SM; the
+    results by stage name."""
+    from trackformer_tpu_torch.ops import window_attn as wa
+
+    weights = wa.packed_weights(layer, xw.dtype)
+    occupancy = wa.stage_occupancy()
+    out = {}
+    with torch.no_grad():
+        cases = stage_cases(xw, pw, kp, weights)
+        qkv = cases[0][3]
+        for name, kernel, plain, want, tol_text, tol, (nb, nf) in cases:
+            got = kernel().float()
+            torch.cuda.synchronize()
+            err = (got - want.float()).abs()
+            finite = bool(torch.isfinite(got).all())
+            ok = bool((err <= tol).all()) and finite
+            ms = time_ms(kernel, 20, INNER)
+            plain_ms = time_ms(plain, 5, 1)
+            lib = stage_library(name, qkv, kp)
+            lib_ms = None if lib is None else time_ms(lib, 20, INNER)
+            bound_ms, bound_by = bound(nb, nf, BF16_FLOPS)
+            out[name] = dict(max_abs_err=err.max().item(), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms,
+                             blocks_per_sm=occupancy[name][0])
+            phase("kernel", case=name, dtype="bfloat16", batch=8,
+                  rows=want.shape[0], max_abs_err=f"{err.max().item():.3e}",
+                  err_over_tol=f"{(err / tol).max().item():.3f}",
+                  tol=json.dumps(tol_text), ms=f"{ms:.4f}",
+                  plain_ms=f"{plain_ms:.4f}",
+                  library_ms="null" if lib_ms is None else f"{lib_ms:.4f}",
+                  bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                  share_of_bound=f"{bound_ms / ms:.3f}",
+                  blocks_per_sm=occupancy[name][0],
+                  smem_bytes=occupancy[name][1], finite=finite, ok=ok)
+            check(ok, f"kernel {name} out of tolerance: max abs err "
+                      f"{err.max().item()}")
+            check(occupancy[name][0] >= 1,
+                  f"{name}: the card grants no block per SM")
+    return out
 
 
 def grad_tol(dtype, ref: torch.Tensor, value_grad: bool) -> torch.Tensor:
@@ -1858,10 +2041,19 @@ def tracker_run(tag: str, cfg, model, postprocess, n_frames: int,
     return counts
 
 
+# launches per frame (or lockstep step) of the fast paths: per encoder
+# layer one call of the window layer, its five stage kernels in bfloat16;
+# one decoder MSDA call per decoder layer
+FAST_PER_FRAME = {"fused_window_layer": 6, "window_layer_qkv": 6,
+                  "window_layer_attn": 6, "window_layer_proj_ln": 6,
+                  "window_layer_ffn1": 6, "window_layer_ffn2_ln": 6,
+                  "ms_deform_attn": 6}
+
+
 def batched_run(cfg, model, postprocess, n_seqs: int, n_frames: int,
                 seed: int):
     """`BatchedTracker` over `n_seqs` sequences in lockstep, each from its
-    own seed; 6 + 6 launches per lockstep step."""
+    own seed; the launches of `FAST_PER_FRAME` per lockstep step."""
     from trackformer_tpu_torch.tracking import BatchedTracker
 
     tracker = BatchedTracker(model, postprocess,
@@ -1897,9 +2089,8 @@ def batched_run(cfg, model, postprocess, n_seqs: int, n_frames: int,
           tracks_per_seq=[len(r) for r in results],
           live_at_last_frame=live,
           launches=json.dumps(counts, separators=(",", ":")), finite=finite)
-    per_step = {"fused_window_layer": 6, "ms_deform_attn": 6}
     for name, n in counts.items():
-        want = per_step.get(name, 0) * n_frames
+        want = FAST_PER_FRAME.get(name, 0) * n_frames
         check(n == want, f"fast_batched: {n} {name} launches, want {want}")
     check(finite, "fast_batched: non-finite results")
     check(all(live), f"fast_batched: a sequence holds no track: {live}")
@@ -2292,7 +2483,7 @@ ROUTE_FRAMES = 3
 
 
 def main() -> int:
-    global OLD_BWD_LIB, OLD_FWD_LIB
+    global OLD_BWD_LIB, OLD_FWD_LIB, OLD_WINDOW_LIB
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=6,
                     help="frames of each tracker run")
@@ -2305,6 +2496,10 @@ def main() -> int:
     ap.add_argument("--old-msda-fwd", default=None, metavar="PATH",
                     help="an earlier csrc/msda_fwd.cu (a copy outside the "
                          "package) to time beside the forward kernel")
+    ap.add_argument("--old-window-layer", default=None, metavar="PATH",
+                    help="an earlier csrc/window_layer_fwd.cu (a copy "
+                         "outside the package) to time beside the window "
+                         "layer's kernels")
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2321,6 +2516,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.cuda_build import NVCC_FLAGS, build_all
+    from trackformer_tpu_torch.ops.window_attn import STAGES
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
     smi = subprocess.run(
@@ -2340,6 +2536,9 @@ def main() -> int:
     if args.old_msda_fwd:
         OLD_FWD_LIB = old_fwd_lib(args.old_msda_fwd)
         libs.append(OLD_FWD_LIB)
+    if args.old_window_layer:
+        OLD_WINDOW_LIB = old_window_lib(args.old_window_layer)
+        libs.append(OLD_WINDOW_LIB)
     build_all(libs)
     for lib in libs:
         info = lib.info()
@@ -2406,9 +2605,7 @@ def main() -> int:
         if "fast" in phases:
             model, post = smoke_model(fast_cfg, args.seed, "fast")
             fast_counts = tracker_run("fast", fast_cfg, model, post,
-                                      args.frames, args.seed,
-                                      {"fused_window_layer": 6,
-                                       "ms_deform_attn": 6})
+                                      args.frames, args.seed, FAST_PER_FRAME)
             batched_counts = batched_run(fast_cfg, model, post, 8, 4,
                                          args.seed)
             reference_run("fast", model, 2)
@@ -2530,11 +2727,17 @@ def main() -> int:
         return 1
     kernels += [
         {"name": f"window_layer_fwd via fused_window_layer (fast encoder, "
-                 f"B = {batch})",
+                 f"B = {batch}: the five stage kernels)",
          "route": "cuda", "source": win_src,
          "replaces": "trackformer_tpu/ops/window_attn.py:56",
          "launches": counts["fused_window_layer"], **kwin[batch]}
         for batch, counts in ((1, fast_counts), (8, batched_counts))]
+    kernels += [
+        {"name": f"{stage} via fused_window_layer (fast encoder, B = 8)",
+         "route": "cuda", "source": win_src,
+         "replaces": "trackformer_tpu/ops/window_attn.py:56",
+         "launches": batched_counts[stage], **kwin[stage]}
+        for stage in STAGES]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         print(f"chip_smoke: FAILED: no main path launched {idle}",

@@ -24,7 +24,17 @@ ResNet-50 and the transformer):
     their start.
 The learning rate drops x0.1 before the second step, so the schedule is in
 the comparison too.
+
+The trunk's gradients jump where a ReLU input changes sign, and the two
+frameworks' float32 convolutions differ by ~2e-6: an input that close to
+0 can fall on either side. `trunk_sign_flips` finds such inputs; a test
+holds the fixture free of them at both steps, and
+
+    python tests/test_torch_train_step.py [pack seed]
+
+prints them for another draw of the pack.
 """
+import sys
 import types
 
 import jax
@@ -36,6 +46,7 @@ import torch
 
 from trackformer_tpu.engine import train_step as jtrain
 from trackformer_tpu.models import build_model as jax_build_model
+from trackformer_tpu.models.backbone import RESNET_LAYERS, ResNet
 from trackformer_tpu.models import tracking as jtracking
 from trackformer_tpu.structures import FrameBatch as JFrameBatch
 from trackformer_tpu.structures import Targets as JTargets
@@ -71,10 +82,24 @@ def tiny_cfg() -> FlagshipConfig:
     return FlagshipConfig().replace(compute_dtype="float32", **TINY)
 
 
-def make_pack():
+# the draw of the frames and boxes (`make_pack`)
+PACK_SEED = 1
+
+
+def make_pack(seed=PACK_SEED):
     """Two frames of B images with 3 and 2 objects; one object of image 0
-    leaves between the frames, so its track query is a false positive."""
-    rng = np.random.RandomState(0)
+    leaves between the frames, so its track query is a false positive.
+
+    The draw is seed 1. Seed 0's second step put one pre-activation of the
+    ReLU after `layer2.1.bn2` (frame 1, image 0, row 2, column 8, channel
+    56) at 4.8e-7 in JAX and -1.6e-7 in the port: within the two
+    frameworks' float32 convolution noise (2e-6 at that layer) of the
+    kink, where the ReLU passes its gradient on one side and not the
+    other, so every trunk gradient upstream of it parted. Any draw has
+    pre-activations that near 0; with seed 1 none of the trunk's changes
+    sign between the two frameworks at either step
+    (`test_trunk_relus_keep_their_sign`)."""
+    rng = np.random.RandomState(seed)
     valid_hw = np.array([[60, 90]] * B, np.int32)
     packs = []
     centre = rng.uniform(0.25, 0.75, (B, T, 2))
@@ -118,11 +143,10 @@ def torch_pack(packs):
     return out
 
 
-@pytest.fixture(scope="module")
-def setup():
+def make_setup(pack_seed=PACK_SEED):
     args = jax_args()
     jmodel, jcrit, _, jtrack = jax_build_model(args)
-    packs = make_pack()
+    packs = make_pack(pack_seed)
     jpack = jax_pack(packs)
     params = jmodel.init(jax.random.PRNGKey(0), jpack["batch"])
     params = jax.tree.map(np.asarray, params)
@@ -141,7 +165,12 @@ def setup():
     return types.SimpleNamespace(
         args=args, jmodel=jmodel, jcrit=jcrit, jtrack=jtrack, params=params,
         jpack=jpack, cfg=cfg, tmodel=tmodel, tcrit=tcrit, ttrack=ttrack,
-        tpack=torch_pack(packs))
+        packs=packs, tpack=torch_pack(packs))
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return make_setup()
 
 
 def test_train_configs_match_the_jax_factory(setup):
@@ -211,12 +240,10 @@ def recording_optimizer(optimizer):
     return optax.chain(record, optimizer)
 
 
-@pytest.fixture(scope="module")
-def jax_two_steps(setup):
+def jax_steps(s):
     """Two steps of the JAX train step with the pinned draws: per step its
-    metrics, gradients and weights (in the port's names), then the start
-    weights."""
-    s = setup
+    metrics, gradients and weights (in the port's names, and the JAX tree
+    under `params`), then the start weights."""
     real = jtracking.add_track_queries_to_targets
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtracking, "add_track_queries_to_targets",
@@ -235,8 +262,90 @@ def jax_two_steps(setup):
                 grads=jax_params_to_state_dict(
                     jax.tree.map(np.asarray, jstate.opt_state[0])),
                 after=jax_params_to_state_dict(
-                    jax.tree.map(np.asarray, jstate.params))))
+                    jax.tree.map(np.asarray, jstate.params)),
+                params=jax.tree.map(np.asarray, jstate.params)))
     return steps, jax_params_to_state_dict(s.params)
+
+
+@pytest.fixture(scope="module")
+def jax_two_steps(setup):
+    return jax_steps(setup)
+
+
+def trunk_relu_inputs_jax(trunk_params, img):
+    """Every ReLU input of the JAX ResNet-50 trunk on (B, H, W, 3) images,
+    by the port's module names, NHWC."""
+    inter = jax.jit(lambda p, x: ResNet(RESNET_LAYERS["resnet50"]).apply(
+        {"params": p}, x, capture_intermediates=True)[1])(
+            trunk_params, jnp.asarray(img))["intermediates"]
+    out = {"bn1": inter["bn1"]["__call__"][0]}
+    for stage, n in enumerate(RESNET_LAYERS["resnet50"], 1):
+        for i in range(n):
+            blk = inter[f"layer{stage}_{i}"]
+            res = (blk["downsample_bn"]["__call__"][0] if i == 0 else
+                   inter[f"layer{stage}_{i - 1}"]["__call__"][0])
+            out[f"layer{stage}.{i}.bn1"] = blk["bn1"]["__call__"][0]
+            out[f"layer{stage}.{i}.bn2"] = blk["bn2"]["__call__"][0]
+            out[f"layer{stage}.{i}.bn3+residual"] = (
+                blk["bn3"]["__call__"][0] + res)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def trunk_relu_inputs_port(body, img):
+    """The same for the port's trunk (`backbone.0.body`), NHWC."""
+    got, hooks = {}, []
+
+    def keep(name):
+        return lambda mod, args, out: got.__setitem__(name, out)
+
+    for name, mod in body.named_modules():
+        if name.endswith(("bn1", "bn2", "bn3", "downsample")) or (
+                name.count(".") == 1 and name.startswith("layer")):
+            hooks.append(mod.register_forward_hook(keep(name)))
+    with torch.no_grad():
+        body(torch.from_numpy(img).permute(0, 3, 1, 2).contiguous())
+    for h in hooks:
+        h.remove()
+    out = {"bn1": got["bn1"]}
+    for stage, n in enumerate(RESNET_LAYERS["resnet50"], 1):
+        for i in range(n):
+            blk = f"layer{stage}.{i}"
+            res = got[f"{blk}.downsample"] if i == 0 else \
+                got[f"layer{stage}.{i - 1}"]
+            out[f"{blk}.bn1"] = got[f"{blk}.bn1"]
+            out[f"{blk}.bn2"] = got[f"{blk}.bn2"]
+            out[f"{blk}.bn3+residual"] = got[f"{blk}.bn3"] + res
+    return {k: v.permute(0, 2, 3, 1).numpy() for k, v in out.items()}
+
+
+def trunk_sign_flips(s, steps):
+    """Each ReLU input of the trunk whose sign differs between the two
+    frameworks, on both frames, with the weights each step starts from
+    (the start, then JAX's weights after step 0): (step, frame, ReLU after,
+    (image, row, column, channel), JAX value, port value)."""
+    model = build_model(s.cfg, "cpu", train=True)[0]
+    body = model.backbone[0].body
+    flips = []
+    for step, params in enumerate([s.params, steps[0]["params"]]):
+        model.load_state_dict(jax_params_to_state_dict(params))
+        trunk = params["params"]["backbone"]["trunk"]
+        for frame, (img, _, _) in enumerate(s.packs):
+            want = trunk_relu_inputs_jax(trunk, img)
+            got = trunk_relu_inputs_port(body, img)
+            for name, j in want.items():
+                t = got[name]
+                for idx in zip(*np.nonzero((j > 0) != (t > 0))):
+                    flips.append((step, frame, name,
+                                  tuple(int(v) for v in idx),
+                                  float(j[idx]), float(t[idx])))
+    return flips
+
+
+def test_trunk_relus_keep_their_sign(setup, jax_two_steps):
+    """The fixture's draw puts no ReLU input of the trunk on different
+    sides of 0 in the two frameworks at either step; where one did, every
+    trunk gradient upstream of it would part (module docstring)."""
+    assert trunk_sign_flips(setup, jax_two_steps[0]) == []
 
 
 def port_two_steps_match(s, jax_steps):
@@ -412,3 +521,14 @@ def test_train_one_epoch_meters_and_aborts(capsys):
         train_one_epoch(fake_step, 0, [{"x": 1.0}, {"x": float("nan")}],
                         lambda p: {**p, "put": True}, 0, None)
     assert stop.value.code == 1
+
+
+if __name__ == "__main__":
+    # the sign flips of the trunk's ReLU inputs for a draw of the pack
+    seed = int(sys.argv[1]) if len(sys.argv) > 1 else PACK_SEED
+    fixture = make_setup(seed)
+    found = trunk_sign_flips(fixture, jax_steps(fixture)[0])
+    print(f"pack seed {seed}: {len(found)} sign flip(s)")
+    for step, frame, name, idx, j, t in found:
+        print(f"step {step} frame {frame} ReLU after {name} at (image, "
+              f"row, column, channel) {idx}: JAX {j!r}, port {t!r}")

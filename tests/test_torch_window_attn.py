@@ -147,7 +147,9 @@ def test_window_layer_plain_matches_jax_module_path(layer_setup,
     for g, w in zip(got, want):
         close(g, w)
     # a CPU call runs the plain version and launches nothing
-    assert window_attn.launch_counts() == {"fused_window_layer": 0}
+    assert set(window_attn.launch_counts()) >= {"fused_window_layer",
+                                                *window_attn.STAGES}
+    assert not any(window_attn.launch_counts().values())
 
 
 def test_window_layer_plain_matches_jax_kernel_interpret(layer_setup):

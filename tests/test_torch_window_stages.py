@@ -1,0 +1,225 @@
+"""The window layer's five stages (`trackformer_tpu_torch/ops/window_attn.py`:
+`qkv_plain`, `attn_plain`, `proj_ln_plain`, `ffn1_plain`, `ffn2_ln_plain`,
+chained by `window_layer_staged_plain`: the plain versions of the bfloat16
+stage kernels, with their operands, layout and rounding) held on the CPU
+against the layer's module path (`window_layer_plain`) and against the JAX
+package's Pallas kernel in interpret mode, at the flagship's layer shape
+(C = 288, 8 heads, FFN 1024) over six windows: one fully padded (zero
+tokens, every key kept, as `window_context` un-masks such a window), one
+with no key excluded, the others with a random third of their keys
+excluded. Also the weight layouts against the parameters, and the stage
+kernels' wrappers refusing CPU tensors.
+
+Weights and inputs are drawn with numpy from a seed. Tolerances:
+  * float32: neither side rounds; the sums run in other orders, the
+    variance is E[y^2] - E[y]^2 here and the mean squared deviation in the
+    module path, the logits are scaled by a product here and a quotient
+    there: 2e-5 absolute and relative on outputs of order 1 (the largest
+    difference seen is ten times smaller);
+  * bfloat16: both sides round at the same points, but a float32 sum taken
+    in another order can land on the other side of a rounding point; a
+    flip upstream moves a LayerNorm row by about an ulp of its largest
+    element, so the bound is three bfloat16 ulps of max(1, |ref|)
+    (3 * 2^-7), the bound `chip_smoke.py` holds the kernels to.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.nn import functional as F
+
+from trackformer_tpu.ops.window_attn import fused_window_layer as jax_fused
+from trackformer_tpu_torch.models.windowed_encoder import WindowedEncoderLayer
+from trackformer_tpu_torch.ops import window_attn as wa
+
+torch.set_num_threads(1)
+
+C, HEADS, FF, WS, NW = 288, 8, 1024, 64, 6
+DTYPES = ["float32", "bfloat16"]
+
+
+def params(seed=0):
+    """The layer's float32 parameters by the port's names: lecun-normal
+    matrices, small random biases and norm affines."""
+    rng = np.random.RandomState(seed)
+
+    def mat(n_out, n_in):
+        return rng.randn(n_out, n_in).astype(np.float32) / np.sqrt(n_in)
+
+    def vec(n, mean=0.0):
+        return (mean + 0.1 * rng.randn(n)).astype(np.float32)
+
+    return {"self_attn.in_proj_weight": mat(3 * C, C),
+            "self_attn.in_proj_bias": vec(3 * C),
+            "self_attn.out_proj.weight": mat(C, C),
+            "self_attn.out_proj.bias": vec(C),
+            "norm1.weight": vec(C, 1.0), "norm1.bias": vec(C),
+            "linear1.weight": mat(FF, C), "linear1.bias": vec(FF),
+            "linear2.weight": mat(C, FF), "linear2.bias": vec(C),
+            "norm2.weight": vec(C, 1.0), "norm2.bias": vec(C)}
+
+
+def layer(dtype):
+    m = WindowedEncoderLayer(C, HEADS, FF, 8, shift=False)
+    m.load_state_dict({k: torch.from_numpy(v) for k, v in params().items()})
+    return m.to(getattr(torch, dtype)).eval()
+
+
+def inputs(seed=1):
+    rng = np.random.RandomState(seed)
+    xw = rng.randn(NW, WS, C).astype(np.float32)
+    pw = rng.randn(NW, WS, C).astype(np.float32)
+    kp = rng.rand(NW, WS) < 1 / 3
+    xw[2] = 0.0        # fully padded: zero tokens, every key kept
+    kp[2] = False
+    kp[4] = False
+    return xw, pw, kp
+
+
+def torch_inputs(dtype):
+    xw, pw, kp = inputs()
+    t = getattr(torch, dtype)
+    return (torch.from_numpy(xw).to(t), torch.from_numpy(pw).to(t),
+            torch.from_numpy(kp))
+
+
+def close(got, want, dtype):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        bound = 3 * 2.0 ** -7 * np.maximum(1.0, np.abs(want))
+        assert (np.abs(got - want) <= bound).all(), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pack_weights_layout_follows_the_parameters(dtype):
+    """`pack_weights`: in_proj as (C, 3C), q | k | v with head h at columns
+    36 h .. 36 h + 35 of each; every other matrix as (in, out); all in the
+    requested dtype and contiguous."""
+    m = layer(dtype)
+    t = getattr(torch, dtype)
+    (wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2,
+     be2) = wa.pack_weights(m, t)
+    w_in = m.self_attn.in_proj_weight
+    dh = C // HEADS
+    for part in range(3):
+        for h in range(HEADS):
+            col = part * C + h * dh
+            assert torch.equal(wqkv[:, col:col + dh],
+                               w_in[col:col + dh].t())
+            assert torch.equal(bqkv[col:col + dh],
+                               m.self_attn.in_proj_bias[col:col + dh])
+    assert torch.equal(wo, m.self_attn.out_proj.weight.t())
+    assert torch.equal(w1, m.linear1.weight.t())
+    assert torch.equal(w2, m.linear2.weight.t())
+    for got, want in ((bo, m.self_attn.out_proj.bias), (g1, m.norm1.weight),
+                      (be1, m.norm1.bias), (b1, m.linear1.bias),
+                      (b2, m.linear2.bias), (g2, m.norm2.weight),
+                      (be2, m.norm2.bias)):
+        assert torch.equal(got, want)
+    for w in wa.pack_weights(m, t):
+        assert w.dtype == t and w.is_contiguous()
+
+
+def test_padded_qkv_is_the_float32_kernels_layout():
+    """`padded_qkv` gives the float32 kernel's q|k|v: per head its q and k
+    columns side by side, then the v columns of all heads, each head
+    zero-padded from 36 to 48; the packs cached on the layer follow it."""
+    m = layer("float32")
+    wqkv, bqkv = wa.padded_qkv(*wa.pack_weights(m, torch.float32)[:2])
+    w = m.self_attn.in_proj_weight.view(3, HEADS, C // HEADS, C)
+    b = m.self_attn.in_proj_bias.view(3, HEADS, C // HEADS)
+    pad = wa.D_HEAD_PAD - C // HEADS
+    want_w = F.pad(w, (0, 0, 0, pad))
+    want_b = F.pad(b, (0, pad))
+    assert wqkv.shape == (C, 3 * HEADS * wa.D_HEAD_PAD)
+    for h in range(HEADS):
+        for part in range(2):
+            col = h * 2 * wa.D_HEAD_PAD + part * wa.D_HEAD_PAD
+            assert torch.equal(wqkv[:, col:col + wa.D_HEAD_PAD],
+                               want_w[part, h].t())
+            assert torch.equal(bqkv[col:col + wa.D_HEAD_PAD],
+                               want_b[part, h])
+        col = 2 * HEADS * wa.D_HEAD_PAD + h * wa.D_HEAD_PAD
+        assert torch.equal(wqkv[:, col:col + wa.D_HEAD_PAD],
+                           want_w[2, h].t())
+        assert torch.equal(bqkv[col:col + wa.D_HEAD_PAD], want_b[2, h])
+    padded = wa.packed_weights(m, torch.float32, padded=True)
+    assert torch.equal(padded[0], wqkv) and torch.equal(padded[1], bqkv)
+    assert wa.packed_weights(m, torch.float32, padded=True) is padded
+    assert wa.packed_weights(m, torch.float32) is not padded
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_plain_matches_the_module_path(dtype):
+    m = layer(dtype)
+    xw, pw, kp = torch_inputs(dtype)
+    with torch.no_grad():
+        want = wa.window_layer_plain(xw, pw, kp, m)
+        got = wa.window_layer_staged_plain(
+            xw, pw, kp, wa.pack_weights(m, getattr(torch, dtype)))
+    assert got.dtype == xw.dtype and got.shape == xw.shape
+    close(got, want.float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_plain_matches_jax_kernel_interpret(dtype):
+    """Against the Pallas kernel (interpret mode), which stacks 4 windows a
+    tile and masks across them; six windows are not a multiple of 4."""
+    p = params()
+    w_in, b_in = p["self_attn.in_proj_weight"], p["self_attn.in_proj_bias"]
+    weights = {f"{n}_kernel": w_in[i * C:(i + 1) * C].T
+               for i, n in enumerate("qkv")}
+    weights.update({f"{n}_bias": b_in[i * C:(i + 1) * C]
+                    for i, n in enumerate("qkv")})
+    weights.update(out_kernel=p["self_attn.out_proj.weight"].T,
+                   out_bias=p["self_attn.out_proj.bias"],
+                   linear1_kernel=p["linear1.weight"].T,
+                   linear1_bias=p["linear1.bias"],
+                   linear2_kernel=p["linear2.weight"].T,
+                   linear2_bias=p["linear2.bias"])
+    for mod in ("norm1", "norm2"):
+        weights[f"{mod}_scale"] = p[f"{mod}.weight"]
+        weights[f"{mod}_bias"] = p[f"{mod}.bias"]
+    xw, pw, kp = inputs()
+    jdtype = getattr(jnp, dtype)
+    want = jax_fused(jnp.asarray(xw, jdtype), jnp.asarray(pw, jdtype),
+                     jnp.asarray(kp),
+                     {k: jnp.asarray(v) for k, v in weights.items()}, HEADS,
+                     interpret=True)
+    m = layer(dtype)
+    txw, tpw, tkp = torch_inputs(dtype)
+    with torch.no_grad():
+        got = wa.window_layer_staged_plain(
+            txw, tpw, tkp, wa.pack_weights(m, getattr(torch, dtype)))
+    close(got, np.asarray(want.astype(jnp.float32)), dtype)
+
+
+STAGE_CALLS = {
+    "window_layer_qkv": lambda t, kp: wa.qkv_cuda(
+        t(WS, C), t(WS, C), t(C, 3 * C), t(3 * C)),
+    "window_layer_attn": lambda t, kp: wa.attn_cuda(t(WS, 3 * C), kp),
+    "window_layer_proj_ln": lambda t, kp: wa.proj_ln_cuda(
+        t(WS, C), t(C, C), t(C), t(WS, C), t(C), t(C)),
+    "window_layer_ffn1": lambda t, kp: wa.ffn1_cuda(t(WS, C), t(C, FF),
+                                                    t(FF)),
+    "window_layer_ffn2_ln": lambda t, kp: wa.ffn2_ln_cuda(
+        t(WS, FF), t(FF, C), t(C), t(WS, C), t(C), t(C)),
+}
+
+
+@pytest.mark.parametrize("stage", wa.STAGES)
+def test_stage_kernels_refuse_cpu_tensors(stage):
+    """A stage kernel's wrapper launches on CUDA tensors or raises: it
+    never falls back to the plain version, and counts nothing."""
+    wa.reset_launch_counts()
+
+    def t(*shape):
+        return torch.zeros(*shape, dtype=torch.bfloat16)
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        STAGE_CALLS[stage](t, torch.zeros(1, WS, dtype=torch.bool))
+    assert set(STAGE_CALLS) == set(wa.STAGES)
+    assert not any(wa.launch_counts().values())

@@ -1,4 +1,5 @@
-// One whole windowed-encoder layer, fused, for Hopper (sm_90a).
+// One windowed-encoder layer over every window of a call, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel trackformer_tpu/ops/window_attn.py::_kernel
 // (called through _fused_window_layer). For every 8x8 window of the call
@@ -11,48 +12,67 @@
 //
 // with the JAX package's rounding: every product accumulates in f32, is
 // rounded to the compute type T, and only then gets its bias added in T;
-// logits and softmax are f32, the probabilities are rounded to T before
-// they multiply v; LayerNorm takes f32 statistics as E[x^2] - E[x]^2 with
-// eps 1e-6. Which keys are excluded (slots past a level's edge, and the
-// un-masking of fully-padded windows) is decided by the caller.
+// x + pos is rounded to T; logits and softmax are f32, the probabilities
+// are rounded to T before they multiply v; residual sums are rounded to T;
+// LayerNorm takes f32 statistics as E[x^2] - E[x]^2 with eps 1e-6. Which
+// keys are excluded (slots past a level's edge, and the un-masking of
+// fully-padded windows) is decided by the caller.
 //
-// What bounds it on this card: arithmetic. At the flagship's B = 1 call
-// (NW = 380) the four projections and the FFN are ~45 GFLOP of bf16 matrix
-// products against ~44 MB of compulsory traffic, far above the H100's
-// ~295 FLOP/byte ridge.
+// What bounds it on this card: arithmetic. At the fast mode's B = 8 call
+// (NW = 3,040, R = NW * 64 = 194,560 tokens) the five products are 359
+// GFLOP of bf16 and the attention 14, against ~2.4 GB of traffic for the
+// intermediates below: above the H100's ~295 FLOP/byte ridge. Measured,
+// the product stages are bound neither by device memory nor by their
+// slabs' barriers: mma.sync fed through shared memory holds them near 200
+// TFLOP/s whatever the tile (PERF.md, the window layer's finding).
 //
-// Design. One block of 8 warps per window, the window's activations in
-// shared memory. The TPU kernel's two tricks for its MXU (head-masked
-// full-width products, several windows per tile with cross-window blocks
-// masked) do not carry over: attention is computed per window and per head,
-// with d_head 36 zero-padded to 48 so that it tiles by 16. The wrapper
-// (ops/window_attn.py) packs the weights as (in, out) matrices, the q|k
-// columns of each head side by side and then the v columns of all heads,
-// each head zero-padded to 48.
+// Design (bf16, the main path). Of the layer only the attention needs the
+// window; the four projections and the FFN are per token. So they run as
+// five kernels over all R tokens, and only `window_layer_attn` is per
+// window. The intermediates go through device memory (ops/window_attn.py
+// allocates them): q|k|v (R x 864), the attention output (R x 288), x1
+// (R x 288) and the FFN hidden (R x ff).
 //
-//   * bf16 (the main path): products on the tensor cores through WMMA
-//     16x16x16 fragments. The 1.84 MB of weights stream from global memory
-//     through shared memory in slabs of 32 rows, double-buffered with
-//     cp.async so that the next slab loads while the warps multiply the
-//     current one, and each slab serves all 8 warps; every warp keeps the
-//     f32 sums of its output tiles in registers across the slabs. v is
-//     computed once for all heads; the FFN's hidden width is walked in
-//     chunks of 128 with its output sums held in registers throughout.
-//   * f32 (the float32 reference path): the same steps with scalar FMAs
-//     and weights read through L1/L2; the attention output is staged in
-//     the output buffer, so that the f32 activations fit the 227 KB of
-//     shared memory a block may use.
+//   window_layer_qkv      R x 288 -> R x 864, tiles of 128 x 288 (q, k or
+//                         v); the q and k tiles take round(x + pos), formed
+//                         in shared memory as each slab lands (no x + pos
+//                         buffer), the v tiles take x.
+//   window_layer_attn     a block of 4 warps per (window, head): q, k, v
+//                         of the head in shared memory (d_head 36 padded to
+//                         40 with zeros), a warp per 16 query rows, the
+//                         logits, softmax and probabilities in registers
+//                         (the accumulator of q k^T is the A operand of
+//                         p v, as in FlashAttention-2).
+//   window_layer_proj_ln  a Wo, tiles of 64 whole rows; epilogue + bo, + x,
+//                         then LayerNorm 1 a warp per row -> x1.
+//   window_layer_ffn1     x1 W1, tiles of 128 x 128; relu(+ b1) -> h.
+//   window_layer_ffn2_ln  h W2 (K = ff), as proj_ln with + b2, + x1,
+//                         LayerNorm 2 -> out.
 //
-// wgmma, TMA and several windows per block are later work.
+// The four product stages share one GEMM core (`Gemm`, `gemm_main`): 8 or
+// 16 warps, each owning a register tile; K walked in slabs of 32 through a
+// 4-deep cp.async ring in dynamic shared memory with one __syncthreads per
+// slab; operands through ldmatrix (.trans for the row-major (in, out)
+// weights), products through mma.sync m16n8k16 bf16 -> f32. The epilogues
+// start from the accumulator registers and leave through a staging tile in
+// the drained ring, with 16-byte stores. Shared rows are padded by 16
+// bytes so that the 8 rows an ldmatrix phase reads fall in distinct banks.
+// `window_layer_occupancy` reports the blocks per SM the card grants.
+//
+// float32 (the reference path): one block per window, scalar FMAs, as
+// before (`window_layer_f32`); its q|k|v weights in the per-head layout
+// padded to 48 that ops/window_attn.py:padded_qkv makes.
+//
+// wgmma, TMA, a persistent tile scheduler and the FFN with h kept on chip
+// are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <float.h>
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <initializer_list>
 
 namespace {
 
@@ -60,7 +80,7 @@ constexpr int WS = 64;                   // tokens per window
 constexpr int C = 288;                   // d_model
 constexpr int NH = 8;                    // heads
 constexpr int DH = 36;                   // d_head
-constexpr int DHP = 48;                  // d_head padded to a multiple of 16
+constexpr int DHP = 48;                  // d_head padded (float32 path)
 constexpr int QK_LD = NH * 2 * DHP;      // packed q|k columns of all heads
 constexpr int V_LD = NH * DHP;           // packed v columns of all heads
 constexpr int PACK_LD = QK_LD + V_LD;    // columns of the packed q|k|v
@@ -70,6 +90,7 @@ constexpr int CT = C / 16;               // 16-wide column tiles of C
 constexpr float LN_EPS = 1e-6f;
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -149,28 +170,21 @@ __device__ __forceinline__ void softmax_rows(const float* sS, T* sPm,
 }
 
 // ===========================================================================
-// bfloat16: tensor cores
+// bfloat16: token-tiled tensor-core stages
 // ===========================================================================
 
-namespace wm = nvcuda::wmma;
-typedef wm::fragment<wm::accumulator, 16, 16, 16, float> Acc;
-typedef wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> FragA;
-
-constexpr int KS = 32;                   // rows of B per staged slab
-constexpr int FCB = 128;                 // FFN hidden chunk
-// Shared-memory row strides: each row padded by 8 elements (16 bytes), so
-// that the rows of a 16 x 16 fragment fall in distinct banks (an unpadded
-// stride that is a multiple of 128 bytes puts them all in the same ones)
-constexpr int PAD = 8;
-constexpr int LDX = C + PAD;             // x, x + pos, attention output
-constexpr int LDV = V_LD + PAD;          // v of all heads
-constexpr int LDQ = DHP + PAD;           // q, k of one head
-constexpr int LDP = WS + PAD;            // probabilities
-constexpr int LDH = FCB + PAD;           // FFN hidden chunk
-
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(smem)),
                "l"(gmem)
                : "memory");
 }
@@ -182,274 +196,548 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows row0 .. row0 + KS - 1 of B (global, row-major ldb), N columns, into
-// buf (KS x N, row stride N + PAD), 16 bytes per cp.async
-template <int N>
-__device__ __forceinline__ void load_slab(bf16* buf, const bf16* B, int ldb,
-                                          int row0) {
-  constexpr int CPR = N / 8;             // 16-byte chunks per row
-  for (int i = threadIdx.x; i < KS * CPR; i += THREADS) {
+// four 8x8 b16 matrices; lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and register i holds this lane's pair of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// d += a b for a 16 x 16 bf16 A (row), a 16 x 8 bf16 B (col), f32 d. The
+// fragments: lane = 4 g + t holds A rows g, g + 8 at columns 2t, 2t + 1
+// (registers 0, 1) and 2t + 8, 2t + 9 (registers 2, 3); B rows (k) 2t,
+// 2t + 1 (register 0) and 2t + 8, 2t + 9 (register 1) of column g; d rows
+// g (d[0], d[1]) and g + 8 (d[2], d[3]) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 values rounded to bf16, packed (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  const bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ void store_bf2(bf16* p, float lo, float hi) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ float2 load_bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const bf162*>(p));
+}
+
+constexpr int BK = 32;                   // depth of a slab
+constexpr int SPAD = 8;                  // 16 bytes of padding per row
+constexpr int LDAS = BK + SPAD;          // shared row stride of an A slab
+
+// A tile of BM x BN outputs, WM x WN warps, a STAGES-deep ring, at least
+// MINB blocks per SM (the register cap); with POS a second A buffer per
+// stage holds the slab of pos, added to x in place
+template <int BM_, int BN_, int WM_, int WN_, int STAGES_, int MINB_,
+          bool POS_>
+struct Gemm {
+  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
+  static constexpr int STAGES = STAGES_, MINB = MINB_;
+  static constexpr bool POS = POS_;
+  static constexpr int THREADS = WM * WN * 32;
+  static constexpr int WTM = BM / WM, WTN = BN / WN;   // a warp's tile
+  static constexpr int MT = WTM / 16, NT = WTN / 8;    // its mma tiles
+  static_assert(WTM % 16 == 0 && WTN % 8 == 0, "warp tile");
+  static constexpr int LDBS = BN + SPAD;
+  static constexpr int A_EL = BM * LDAS;
+  static constexpr int B_EL = BK * LDBS;
+  static constexpr int STAGE_EL = (POS ? 2 : 1) * A_EL + B_EL;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_EL * sizeof(bf16);
+};
+
+// slab k0 .. k0 + 31 of rows row0 .. row0 + BM - 1 of A (and P) and of the
+// BN columns of B into stage st. Rows past `rows` repeat the last row (the
+// epilogues store none of them). Thread i copies chunks i, i +
+// THREADS, ...
+template <class G>
+__device__ __forceinline__ void load_stage(bf16* st, const bf16* A,
+                                           const bf16* P, int lda, int row0,
+                                           int rows, const bf16* B, int ldb,
+                                           int k0) {
+  bf16* sa = st;
+  bf16* sp = st + G::A_EL;
+  bf16* sb = st + (G::POS ? 2 : 1) * G::A_EL;
+  for (int i = threadIdx.x; i < G::BM * (BK / 8); i += G::THREADS) {
+    const int r = i / (BK / 8);
+    const int c = (i % (BK / 8)) * 8;
+    const size_t off = (size_t)min(row0 + r, rows - 1) * lda + k0 + c;
+    cp_async16(sa + r * LDAS + c, A + off);
+    if (G::POS && P != nullptr) cp_async16(sp + r * LDAS + c, P + off);
+  }
+  constexpr int CPR = G::BN / 8;
+  for (int i = threadIdx.x; i < BK * CPR; i += G::THREADS) {
     const int r = i / CPR;
-    const int c8 = (i % CPR) * 8;
-    cp_async16(buf + r * (N + PAD) + c8, B + (size_t)(row0 + r) * ldb + c8);
+    const int c = (i % CPR) * 8;
+    cp_async16(sb + r * G::LDBS + c, B + (size_t)(k0 + r) * ldb + c);
   }
 }
 
-// acc += A (64 x k_len, shared, row-major lda) B (k_len x N, global,
-// row-major ldb) for this warp's output tiles t = warp + 8 i (i < N / 32),
-// tile t at rows 16 (t / (N / 16)), columns 16 (t % (N / 16)). B streams
-// through sB (2 x KS x (N + PAD)) in slabs of KS rows, double-buffered.
-// Ends with
-// every thread past its last read of sB and of A.
-template <int N>
-__device__ __forceinline__ void mma_staged(Acc* acc, const bf16* A, int lda,
-                                           const bf16* B, int ldb,
-                                           int k_len, bf16* sB) {
-  constexpr int NT = N / 32;
-  constexpr int NJ = N / 16;
-  const int warp = threadIdx.x / 32;
-  constexpr int SLAB = KS * (N + PAD);
-  const int n_slabs = k_len / KS;
-  load_slab<N>(sB, B, ldb, 0);
-  cp_async_commit();
-  for (int s = 0; s < n_slabs; ++s) {
-    const bf16* cur = sB + (s & 1) * SLAB;
-    // slab s has landed for every thread, and every warp is done with
-    // slab s - 1, whose buffer the next load refills
-    cp_async_wait<0>();
-    __syncthreads();
-    if (s + 1 < n_slabs) {
-      load_slab<N>(sB + ((s + 1) & 1) * SLAB, B, ldb, (s + 1) * KS);
-      cp_async_commit();
-    }
+// A := round(A + P) over this thread's own chunks of stage st (the ones it
+// copied, so its own wait_group is enough)
+template <class G>
+__device__ __forceinline__ void add_pos(bf16* st) {
+  bf16* sa = st;
+  const bf16* sp = st + G::A_EL;
+  for (int i = threadIdx.x; i < G::BM * (BK / 8); i += G::THREADS) {
+    const int at = (i / (BK / 8)) * LDAS + (i % (BK / 8)) * 8;
+    uint4 xa = *reinterpret_cast<const uint4*>(sa + at);
+    const uint4 pa = *reinterpret_cast<const uint4*>(sp + at);
+    bf16* xe = reinterpret_cast<bf16*>(&xa);
+    const bf16* pe = reinterpret_cast<const bf16*>(&pa);
 #pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int t = warp + WARPS * i;
-        FragA a;
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-        wm::load_matrix_sync(a, A + (t / NJ) * 16 * lda + s * KS + kk, lda);
-        wm::load_matrix_sync(b, cur + kk * (N + PAD) + (t % NJ) * 16,
-                             N + PAD);
-        wm::mma_sync(acc[i], a, b, acc[i]);
-      }
-    }
+    for (int j = 0; j < 8; ++j) xe[j] = to_bf(to_f(xe[j]) + to_f(pe[j]));
+    *reinterpret_cast<uint4*>(sa + at) = xa;
   }
+}
+
+template <class G>
+__device__ __forceinline__ void compute_slab(
+    float (&acc)[G::MT][G::NT][4], const bf16* st, int wm0, int wn0,
+    int lane) {
+  const bf16* sa = st;
+  const bf16* sb = st + (G::POS ? 2 : 1) * G::A_EL;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t a[G::MT][4];
+    uint32_t b[G::NT][2];
+#pragma unroll
+    for (int i = 0; i < G::MT; ++i)
+      ldsm_x4(a[i], sa + (wm0 + 16 * i + (lane & 15)) * LDAS + kk +
+                        (lane >> 4) * 8);
+    const bf16* brow = sb + (kk + (lane & 15)) * G::LDBS + wn0;
+#pragma unroll
+    for (int p = 0; p < G::NT / 2; ++p) {
+      uint32_t r[4];
+      ldsm_x4_t(r, brow + 16 * p + (lane >> 4) * 8);
+      b[2 * p][0] = r[0];
+      b[2 * p][1] = r[1];
+      b[2 * p + 1][0] = r[2];
+      b[2 * p + 1][1] = r[3];
+    }
+    if constexpr (G::NT % 2 == 1) {
+      uint32_t r[2];
+      ldsm_x2_t(r, brow + 16 * (G::NT / 2));
+      b[G::NT - 1][0] = r[0];
+      b[G::NT - 1][1] = r[1];
+    }
+#pragma unroll
+    for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < G::NT; ++j)
+        mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
+}
+
+// acc = A[row0 .. row0 + BM) (K columns, row-major lda; with P, round(A +
+// P)) B (K x BN, row-major ldb, already at the tile's first column), f32.
+// Ends with every copy landed and every thread past its last read of smem.
+template <class G>
+__device__ __forceinline__ void gemm_main(float (&acc)[G::MT][G::NT][4],
+                                          const bf16* A, const bf16* P,
+                                          int lda, int row0, int rows,
+                                          const bf16* B, int ldb, int K,
+                                          bf16* smem) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm0 = (warp / G::WN) * G::WTM;
+  const int wn0 = (warp % G::WN) * G::WTN;
+#pragma unroll
+  for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < G::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int nk = K / BK;
+#pragma unroll
+  for (int s = 0; s < G::STAGES - 1; ++s) {
+    if (s < nk)
+      load_stage<G>(smem + s * G::STAGE_EL, A, P, lda, row0, rows, B, ldb,
+                    s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // slab kt has landed for this thread's copies ...
+    cp_async_wait<G::STAGES - 2>();
+    bf16* st = smem + (kt % G::STAGES) * G::STAGE_EL;
+    if (G::POS && P != nullptr) add_pos<G>(st);
+    // ... and for every thread's; every warp is done with slab kt - 1,
+    // whose buffer the next copy refills
+    __syncthreads();
+    const int nxt = kt + G::STAGES - 1;
+    if (nxt < nk)
+      load_stage<G>(smem + (nxt % G::STAGES) * G::STAGE_EL, A, P, lda, row0,
+                    rows, B, ldb, nxt * BK);
+    cp_async_commit();
+    compute_slab<G>(acc, st, wm0, wn0, lane);
+  }
+  cp_async_wait<0>();
   __syncthreads();
 }
 
-// epi(row, col, sum) for every element of this warp's tiles (as in
-// mma_staged), through the warp's 16 x 16 f32 staging tile
-template <int N, typename Epi>
-__device__ __forceinline__ void store_acc(Acc* acc, float* stage, Epi epi) {
-  constexpr int NJ = N / 16;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* st = stage + warp * 256;
+// The tile's outputs epi(column, acc, acc') -> a pair, rounded to bf16 into
+// a staging tile (BM x (BN + 8)) over the drained ring, then written to out
+// (rows, ldo) at (row0, col0) with 16-byte stores, a row's BN columns by
+// neighbouring threads
+template <class G, typename Epi>
+__device__ __forceinline__ void store_tile(const float (&acc)[G::MT][G::NT][4],
+                                           bf16* smem, bf16* out, int ldo,
+                                           int row0, int col0, int rows,
+                                           Epi epi) {
+  constexpr int LD = G::BN + SPAD;
+  static_assert(G::BM * LD <= G::STAGES * G::STAGE_EL, "staging fits");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rbase = (warp / G::WN) * G::WTM + (lane >> 2);
+  const int cbase = (warp % G::WN) * G::WTN + 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < N / 32; ++i) {
-    const int t = warp + WARPS * i;
-    wm::store_matrix_sync(st, acc[i], 16, wm::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32)
-      epi((t / NJ) * 16 + e / 16, (t % NJ) * 16 + e % 16, st[e]);
-    __syncwarp();
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(Acc* acc) {
+  for (int j = 0; j < G::NT; ++j) {
+    const int c = cbase + 8 * j;
 #pragma unroll
-  for (int i = 0; i < N / 32; ++i) wm::fill_fragment(acc[i], 0.f);
-}
-
-// A (64 x k_len) B (k_len x 16 NJ) with both operands in shared memory (B
-// column-major when B_COL), the output tiles spread over the warps; epi
-// as in store_acc. For the small per-head products of attention.
-template <int NJ, bool B_COL, typename Epi>
-__device__ __forceinline__ void mma_shared(const bf16* A, int lda,
-                                           const bf16* B, int ldb, int k_len,
-                                           float* stage, Epi epi) {
-  typedef typename std::conditional<B_COL, wm::col_major,
-                                    wm::row_major>::type BLayout;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* st = stage + warp * 256;
-  for (int t = warp; t < 4 * NJ; t += WARPS) {
-    const int tm = t / NJ;
-    const int tn = t % NJ;
-    Acc acc;
-    wm::fill_fragment(acc, 0.f);
-    for (int k = 0; k < k_len; k += 16) {
-      FragA a;
-      wm::fragment<wm::matrix_b, 16, 16, 16, bf16, BLayout> b;
-      wm::load_matrix_sync(a, A + tm * 16 * lda + k, lda);
-      if constexpr (B_COL) {
-        wm::load_matrix_sync(b, B + tn * 16 * ldb + k, ldb);
-      } else {
-        wm::load_matrix_sync(b, B + k * ldb + tn * 16, ldb);
+    for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = epi(col0 + c, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        store_bf2(smem + (rbase + 16 * i + 8 * h) * LD + c, v.x, v.y);
       }
-      wm::mma_sync(acc, a, b, acc);
-    }
-    wm::store_matrix_sync(st, acc, 16, wm::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32)
-      epi(tm * 16 + e / 16, tn * 16 + e % 16, st[e]);
-    __syncwarp();
+  }
+  __syncthreads();
+  constexpr int CPR = G::BN / 8;
+  for (int i = threadIdx.x; i < G::BM * CPR; i += G::THREADS) {
+    const int r = i / CPR;
+    const int c = (i % CPR) * 8;
+    if (row0 + r < rows)
+      *reinterpret_cast<uint4*>(out + (size_t)(row0 + r) * ldo + col0 + c) =
+          *reinterpret_cast<const uint4*>(smem + r * LD + c);
   }
 }
 
-constexpr size_t bf16_smem_bytes() {
-  return (2 * WS * LDX + WS * LDV + 4 * WS * LDQ + WS * LDP + 2 * KS * LDX) *
-             sizeof(bf16)                        // sX sP sV sQ sK sPm sB
-         + WS * LDH * sizeof(bf16)               // sS (f32) / FFN chunk
-         + WARPS * 256 * sizeof(float);          // WMMA staging
+// ---- stage 1: q|k|v --------------------------------------------------------
+
+// 128 x 288: the three column tiles q, k, v; 16 warps of 32 x 72, one
+// block per SM
+typedef Gemm<128, C, 4, 4, 4, 1, true> GQkv;
+static_assert((2 * C) % GQkv::BN == 0, "no q|k tile straddles column 576");
+
+// x, pos: (rows, C); w: (C, 3C) = in_proj_weight^T, columns q | k | v of
+// all heads; b: (3C); out: (rows, 3C) = rnd(rnd(acc) + b). Grid
+// (3, ceil(rows / 128)): the column tiles of a row tile run side by side,
+// so that its rows are read from memory once and then from L2.
+__global__ void __launch_bounds__(GQkv::THREADS, GQkv::MINB)
+    window_layer_qkv_kernel(const bf16* __restrict__ x,
+                            const bf16* __restrict__ pos,
+                            const bf16* __restrict__ w,
+                            const bf16* __restrict__ b, bf16* __restrict__ out,
+                            int rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  typedef GQkv G;
+  const int row0 = blockIdx.y * G::BM;
+  const int col0 = blockIdx.x * G::BN;
+  float acc[G::MT][G::NT][4];
+  gemm_main<G>(acc, x, col0 < 2 * C ? pos : nullptr, C, row0, rows,
+               w + col0, 3 * C, C, smem);
+  store_tile<G>(acc, smem, out, 3 * C, row0, col0, rows,
+                [&](int c, float a0, float a1) {
+                  const float2 bias = load_bf2(b + c);
+                  return make_float2(rnd_bf(a0) + bias.x,
+                                     rnd_bf(a1) + bias.y);
+                });
 }
 
-// x, pos, out: (NW, WS, C); kp: (NW, WS) uint8, 1 = exclude the key;
-// wqkv (C, PACK_LD), bqkv (PACK_LD); wo (C, C); w1 (C, ff); w2 (ff, C):
-// row-major (in, out). One block per window. x and pos 16-byte aligned.
-__global__ void __launch_bounds__(THREADS, 1)
-    window_layer_bf16(const bf16* __restrict__ x, const bf16* __restrict__ pos,
-                      const uint8_t* __restrict__ kp,
-                      const bf16* __restrict__ wqkv,
-                      const bf16* __restrict__ bqkv,
-                      const bf16* __restrict__ wo, const bf16* __restrict__ bo,
-                      const bf16* __restrict__ g1, const bf16* __restrict__ be1,
-                      const bf16* __restrict__ w1, const bf16* __restrict__ b1,
-                      const bf16* __restrict__ w2, const bf16* __restrict__ b2,
-                      const bf16* __restrict__ g2, const bf16* __restrict__ be2,
-                      bf16* out, int ff) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// ---- stage 2: attention ---------------------------------------------------
+
+constexpr int AT_SEG = 40;               // d_head 36 padded to 40 (zeros)
+constexpr int AT_LD = 3 * AT_SEG + 16;   // q | k | v | 16: 272-byte rows
+constexpr int AT_THREADS = 128;          // a warp per 16 query rows
+
+// qkv: (NW * 64, 3C) from stage 1; kp: (NW, 64) uint8, 1 = exclude the
+// key; out: (NW * 64, C), head h at columns 36 h .. 36 h + 35. Block per
+// (window, head): blockIdx.x = window * 8 + head.
+__global__ void __launch_bounds__(AT_THREADS)
+    window_layer_attn_kernel(const bf16* __restrict__ qkv,
+                             const uint8_t* __restrict__ kp,
+                             bf16* __restrict__ out) {
+  __shared__ __align__(128) bf16 s[WS * AT_LD];
   __shared__ bool excluded[WS];
-  bf16* sX = reinterpret_cast<bf16*>(smem);  // x; later x1 + ffn
-  bf16* sP = sX + WS * LDX;               // x + pos; later x + attn, x1
-  bf16* sV = sP + WS * LDX;               // v of all heads; later attn
-  bf16* sQ = sV + WS * LDV;               // q, k of two heads (64 x DHP)
-  bf16* sK = sQ + 2 * WS * LDQ;
-  bf16* sPm = sK + 2 * WS * LDQ;          // probabilities (64 x 64)
-  bf16* sB = sPm + WS * LDP;              // weight slabs (2 x KS x <= LDX)
-  bf16* sH = sB + 2 * KS * LDX;           // FFN hidden chunk (64 x FCB)
-  float* sS = reinterpret_cast<float*>(sH);  // logits (64 x 64), before
-  float* stage = reinterpret_cast<float*>(sH + WS * LDH);
+  const int win = blockIdx.x / NH;
+  const int h = blockIdx.x % NH;
+  const int tid = threadIdx.x;
+  const bf16* src = qkv + (size_t)win * WS * 3 * C + h * DH;
+  // the padding of each head segment, 8 bytes at d_head 36 .. 39: zeros,
+  // which the logits' last k step reads (its A columns 36 .. 39 are q's)
+  for (int i = tid; i < WS * 3; i += AT_THREADS)
+    *reinterpret_cast<uint2*>(s + (i / 3) * AT_LD + (i % 3) * AT_SEG + DH) =
+        make_uint2(0u, 0u);
+  // q, k, v of the head: 64 rows x 3 segments x 9 words of 8 bytes (a head
+  // starts 72 bytes after the last: 8-byte aligned only)
+  for (int i = tid; i < WS * 27; i += AT_THREADS) {
+    const int r = i / 27;
+    const int seg = (i % 27) / 9;
+    const int w = i % 9;
+    cp_async8(s + r * AT_LD + seg * AT_SEG + 4 * w,
+              src + (size_t)r * 3 * C + seg * C + 4 * w);
+  }
+  cp_async_commit();
+  if (tid < WS) excluded[tid] = kp[(size_t)win * WS + tid] != 0;
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const size_t base = (size_t)blockIdx.x * WS * C;
-  // the attention output is staged in this window's rows of `out`
-  bf16* o_win = out + base;
-  {
-    const uint4* xv = reinterpret_cast<const uint4*>(x + base);
-    const uint4* pv = reinterpret_cast<const uint4*>(pos + base);
-    for (int i = threadIdx.x; i < WS * C / 8; i += THREADS) {
-      const uint4 xa = xv[i];
-      const uint4 pa = pv[i];
-      const int at = (i / (C / 8)) * LDX + (i % (C / 8)) * 8;
-      *reinterpret_cast<uint4*>(sX + at) = xa;
-      const bf16* xe = reinterpret_cast<const bf16*>(&xa);
-      const bf16* pe = reinterpret_cast<const bf16*>(&pa);
-      uint4 qa;
-      bf16* qe = reinterpret_cast<bf16*>(&qa);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int t = lane & 3;
+  const int q0 = 16 * warp;
+  // logits of rows q0 + g, q0 + g + 8 against the 64 keys, 8 tiles of 8
+  float sc[8][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) qe[j] = to_bf(to_f(xe[j]) + to_f(pe[j]));
-      *reinterpret_cast<uint4*>(sP + at) = qa;
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 3; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, s + (q0 + (lane & 15)) * AT_LD + 16 * ks + (lane >> 4) * 8);
+    if (ks == 2) {  // columns 40 .. 47 lie in the next segment
+      a[2] = 0u;
+      a[3] = 0u;
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      uint32_t kb[4];
+      ldsm_x4(kb, s + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * AT_LD +
+                      AT_SEG + 16 * ks + ((lane >> 3) & 1) * 8);
+      mma_bf16(sc[2 * p], a, kb[0], kb[1]);
+      mma_bf16(sc[2 * p + 1], a, kb[2], kb[3]);
     }
   }
-  if (threadIdx.x < WS)
-    excluded[threadIdx.x] = kp[(size_t)blockIdx.x * WS + threadIdx.x] != 0;
-
-  // v of all heads, in two halves of 4 heads
-  for (int half = 0; half < 2; ++half) {
-    constexpr int N = V_LD / 2;
-    Acc acc[N / 32];
-    zero<N>(acc);
-    mma_staged<N>(acc, sX, LDX, wqkv + QK_LD + half * N, PACK_LD, C, sB);
-    store_acc<N>(acc, stage, [&](int r, int c, float a) {
-      const int col = half * N + c;
-      sV[r * LDV + col] = to_bf(rnd_bf(a) + to_f(bqkv[QK_LD + col]));
-    });
+  const float scale = 1.f / sqrtf((float)DH);
+  float mx[2] = {-FLT_MAX, -FLT_MAX};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1);
+      sc[j][e] = excluded[key] ? -FLT_MAX : sc[j][e] * scale;
+      mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
   }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[j][e] = expf(sc[j][e] - mx[e >> 1]);
+      sum[e >> 1] += sc[j][e];
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+  }
+  // p v: the probabilities, rounded to bf16, are the A operand straight
+  // from the logits' registers (key tiles 2 ks and 2 ks + 1)
+  float o[5][4];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[4];
+    a[0] = pack_bf2(sc[2 * ks][0] / sum[0], sc[2 * ks][1] / sum[0]);
+    a[1] = pack_bf2(sc[2 * ks][2] / sum[1], sc[2 * ks][3] / sum[1]);
+    a[2] = pack_bf2(sc[2 * ks + 1][0] / sum[0], sc[2 * ks + 1][1] / sum[0]);
+    a[3] = pack_bf2(sc[2 * ks + 1][2] / sum[1], sc[2 * ks + 1][3] / sum[1]);
+    const bf16* vrow = s + (16 * ks + (lane & 15)) * AT_LD + 2 * AT_SEG;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, vrow + 16 * p + (lane >> 4) * 8);
+      mma_bf16(o[2 * p], a, vb[0], vb[1]);
+      mma_bf16(o[2 * p + 1], a, vb[2], vb[3]);
+    }
+    uint32_t vb[2];
+    ldsm_x2_t(vb, vrow + 32);
+    mma_bf16(o[4], a, vb[0], vb[1]);
+  }
+  const size_t row = (size_t)win * WS + q0 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (c < DH) {
+      bf16* dst = out + row * C + h * DH + c;
+      store_bf2(dst, o[j][0], o[j][1]);
+      store_bf2(dst + 8 * C, o[j][2], o[j][3]);
+    }
+  }
+}
 
-  const float inv_scale = 1.f / sqrtf((float)DH);
-  for (int h0 = 0; h0 < NH; h0 += 2) {
-    {  // q|k of heads h0 and h0 + 1: one product, 4 x 48 columns
-      constexpr int N = 4 * DHP;
-      Acc acc[N / 32];
-      zero<N>(acc);
-      mma_staged<N>(acc, sP, LDX, wqkv + h0 * 2 * DHP, PACK_LD, C, sB);
-      store_acc<N>(acc, stage, [&](int r, int c, float a) {
-        const bf16 v = to_bf(rnd_bf(a) + to_f(bqkv[h0 * 2 * DHP + c]));
-        const int hh = c / (2 * DHP);
-        const int cc = c % (2 * DHP);
-        if (cc < DHP) {
-          sQ[(hh * WS + r) * LDQ + cc] = v;
-        } else {
-          sK[(hh * WS + r) * LDQ + cc - DHP] = v;
+// ---- stages 3 and 5: a product of whole rows, residual, LayerNorm ---------
+
+// 64 whole rows; 8 warps of 32 x 72, two blocks per SM
+typedef Gemm<64, C, 2, 4, 4, 2, false> GRow;
+constexpr int LDST = C + SPAD;           // staging tile of the epilogue
+static_assert(GRow::BM * LDST <= GRow::STAGES * GRow::STAGE_EL,
+              "the staging tile fits the ring");
+
+// out = LayerNorm(res + rnd(rnd(A W) + b)) over the BM rows of this block:
+// A (rows, K), W (K, C), res and out (rows, C)
+__device__ __forceinline__ void row_product_ln(
+    const bf16* A, int K, const bf16* w, const bf16* b, const bf16* res,
+    const bf16* g, const bf16* be, bf16* out, int rows, bf16* smem) {
+  typedef GRow G;
+  const int row0 = blockIdx.x * G::BM;
+  float acc[G::MT][G::NT][4];
+  gemm_main<G>(acc, A, nullptr, K, row0, rows, w, C, K, smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  {  // y = rnd(res + rnd(rnd(acc) + b)) into the staging tile, over the
+     // drained ring; rows past `rows` read the last row
+    const int rbase = (warp / G::WN) * G::WTM + (lane >> 2);
+    const int cbase = (warp % G::WN) * G::WTN + 2 * (lane & 3);
+#pragma unroll
+    for (int i = 0; i < G::MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rbase + 16 * i + 8 * h;
+        const bf16* rrow = res + (size_t)min(row0 + r, rows - 1) * C;
+#pragma unroll
+        for (int j = 0; j < G::NT; ++j) {
+          const int c = cbase + 8 * j;
+          const float2 bias = load_bf2(b + c);
+          const float2 rv = load_bf2(rrow + c);
+          store_bf2(smem + r * LDST + c,
+                    rv.x + rnd_bf(rnd_bf(acc[i][j][2 * h]) + bias.x),
+                    rv.y + rnd_bf(rnd_bf(acc[i][j][2 * h + 1]) + bias.y));
         }
-      });
-    }
-    __syncthreads();
-    for (int hh = 0; hh < 2; ++hh) {
-      const int h = h0 + hh;
-      mma_shared<WS / 16, true>(sQ + hh * WS * LDQ, LDQ, sK + hh * WS * LDQ,
-                                LDQ, DHP, stage, [&](int r, int c, float a) {
-                                  sS[r * WS + c] =
-                                      excluded[c] ? -FLT_MAX : a * inv_scale;
-                                });
-      __syncthreads();
-      softmax_rows(sS, sPm, LDP);
-      __syncthreads();
-      mma_shared<DHP / 16, false>(sPm, LDP, sV + h * DHP, LDV, WS, stage,
-                                  [&](int r, int c, float a) {
-                                    if (c < DH)
-                                      o_win[r * C + h * DH + c] = to_bf(a);
-                                  });
-      __syncthreads();
-    }
-  }
-
-  // the attention output into shared memory, over v
-  bf16* sO = sV;
-  for (int i = threadIdx.x; i < WS * C / 8; i += THREADS)
-    *reinterpret_cast<uint4*>(sO + (i / (C / 8)) * LDX + (i % (C / 8)) * 8) =
-        reinterpret_cast<const uint4*>(o_win)[i];
-  __syncthreads();
-
-  // out projection, residual, LayerNorm 1 -> x1 in sP
-  {
-    Acc acc[C / 32];
-    zero<C>(acc);
-    mma_staged<C>(acc, sO, LDX, wo, C, C, sB);
-    store_acc<C>(acc, stage, [&](int r, int c, float a) {
-      const float v = rnd_bf(rnd_bf(a) + to_f(bo[c]));
-      sP[r * LDX + c] = to_bf(to_f(sX[r * LDX + c]) + v);
-    });
+      }
   }
   __syncthreads();
-  layer_norm_rows(sP, LDX, g1, be1, sP, LDX);
-  __syncthreads();
-
-  // FFN over hidden chunks; residual -> sX; LayerNorm 2 -> out
-  Acc acc2[C / 32];
-  zero<C>(acc2);
-  for (int chunk = 0; chunk < ff; chunk += FCB) {
-    {
-      Acc acc1[FCB / 32];
-      zero<FCB>(acc1);
-      mma_staged<FCB>(acc1, sP, LDX, w1 + chunk, ff, C, sB);
-      store_acc<FCB>(acc1, stage, [&](int r, int c, float a) {
-        const float hv = rnd_bf(rnd_bf(a) + to_f(b1[chunk + c]));
-        sH[r * LDH + c] = to_bf(fmaxf(hv, 0.f));
-      });
+  // LayerNorm a warp per row, 9 columns a lane, in place
+  for (int r = warp; r < G::BM; r += G::THREADS / 32) {
+    bf16* row = smem + r * LDST;
+    float v[C / 32];
+    float s = 0.f;
+    float s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < C / 32; ++i) {
+      v[i] = to_f(row[lane + 32 * i]);
+      s += v[i];
+      s2 += v[i] * v[i];
     }
-    __syncthreads();
-    mma_staged<C>(acc2, sH, LDH, w2 + (size_t)chunk * C, C, FCB, sB);
+    const float mean = warp_sum(s) / C;
+    const float var = warp_sum(s2) / C - mean * mean;
+    const float inv = rsqrtf(var + LN_EPS);
+#pragma unroll
+    for (int i = 0; i < C / 32; ++i) {
+      const int c = lane + 32 * i;
+      row[c] = to_bf((v[i] - mean) * inv * to_f(g[c]) + to_f(be[c]));
+    }
   }
-  store_acc<C>(acc2, stage, [&](int r, int c, float a) {
-    const float v = rnd_bf(rnd_bf(a) + to_f(b2[c]));
-    sX[r * LDX + c] = to_bf(to_f(sP[r * LDX + c]) + v);
-  });
   __syncthreads();
-  layer_norm_rows(sX, LDX, g2, be2, o_win, C);
+  // the tile's rows are contiguous in `out`: 16-byte stores
+  const int n_rows = min(G::BM, rows - row0);
+  uint4* dst = reinterpret_cast<uint4*>(out + (size_t)row0 * C);
+  for (int i = threadIdx.x; i < n_rows * (C / 8); i += G::THREADS)
+    dst[i] = *reinterpret_cast<const uint4*>(smem + (i / (C / 8)) * LDST +
+                                             (i % (C / 8)) * 8);
+}
+
+// x1 = LayerNorm1(x + rnd(rnd(a Wo) + bo)); a, x, x1: (rows, C). Grid
+// ceil(rows / 64).
+__global__ void __launch_bounds__(GRow::THREADS, GRow::MINB)
+    window_layer_proj_ln_kernel(const bf16* __restrict__ a,
+                                const bf16* __restrict__ wo,
+                                const bf16* __restrict__ bo,
+                                const bf16* __restrict__ x,
+                                const bf16* __restrict__ g1,
+                                const bf16* __restrict__ be1,
+                                bf16* __restrict__ x1, int rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  row_product_ln(a, C, wo, bo, x, g1, be1, x1, rows,
+                 reinterpret_cast<bf16*>(smem_raw));
+}
+
+// out = LayerNorm2(x1 + rnd(rnd(h W2) + b2)); h: (rows, ff). Grid
+// ceil(rows / 64).
+__global__ void __launch_bounds__(GRow::THREADS, GRow::MINB)
+    window_layer_ffn2_ln_kernel(const bf16* __restrict__ hid,
+                                const bf16* __restrict__ w2,
+                                const bf16* __restrict__ b2,
+                                const bf16* __restrict__ x1,
+                                const bf16* __restrict__ g2,
+                                const bf16* __restrict__ be2,
+                                bf16* __restrict__ out, int rows, int ff) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  row_product_ln(hid, ff, w2, b2, x1, g2, be2, out, rows,
+                 reinterpret_cast<bf16*>(smem_raw));
+}
+
+// ---- stage 4: FFN up-projection ------------------------------------------
+
+// 128 x 128; 8 warps of 64 x 32, two blocks per SM
+typedef Gemm<128, 128, 2, 4, 4, 2, false> GFfn;
+
+// h = relu(rnd(rnd(x1 W1) + b1)); x1: (rows, C), w1: (C, ff), h: (rows,
+// ff). Grid (ff / 128, ceil(rows / 128)), column tiles side by side.
+__global__ void __launch_bounds__(GFfn::THREADS, GFfn::MINB)
+    window_layer_ffn1_kernel(const bf16* __restrict__ x1,
+                             const bf16* __restrict__ w1,
+                             const bf16* __restrict__ b1,
+                             bf16* __restrict__ hid, int rows, int ff) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  typedef GFfn G;
+  const int row0 = blockIdx.y * G::BM;
+  const int col0 = blockIdx.x * G::BN;
+  float acc[G::MT][G::NT][4];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  gemm_main<G>(acc, x1, nullptr, C, row0, rows, w1 + col0, ff, C, smem);
+  store_tile<G>(acc, smem, hid, ff, row0, col0, rows,
+                [&](int c, float a0, float a1) {
+                  const float2 bias = load_bf2(b1 + c);
+                  return make_float2(
+                      fmaxf(rnd_bf(rnd_bf(a0) + bias.x), 0.f),
+                      fmaxf(rnd_bf(rnd_bf(a1) + bias.y), 0.f));
+                });
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+bool misaligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
+  return false;
 }
 
 // ===========================================================================
@@ -497,7 +785,11 @@ constexpr size_t f32_smem_bytes() {
   return (2 * WS * C + 3 * WS * DHP + 2 * WS * WS) * sizeof(float);
 }
 
-// as window_layer_bf16, in float32 (no rounding between the steps)
+// x, pos, out: (NW, WS, C); kp: (NW, WS) uint8, 1 = exclude the key;
+// wqkv (C, PACK_LD), bqkv (PACK_LD): the q and k columns of each head side
+// by side, then the v columns of all heads, each head padded to 48; wo
+// (C, C); w1 (C, ff); w2 (ff, C): row-major (in, out). One block per
+// window; no rounding between the steps.
 __global__ void __launch_bounds__(THREADS, 1)
     window_layer_f32(const float* __restrict__ x,
                      const float* __restrict__ pos,
@@ -613,54 +905,176 @@ __global__ void __launch_bounds__(THREADS, 1)
   layer_norm_rows(sX, C, g2, be2, o_win, C);
 }
 
-template <typename T, typename K>
-int launch(K kernel, size_t smem, const void* x, const void* pos,
-           const void* kp, const void* wqkv, const void* bqkv, const void* wo,
-           const void* bo, const void* g1, const void* be1, const void* w1,
-           const void* b1, const void* w2, const void* b2, const void* g2,
-           const void* be2, void* out, int nw, int ff, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<nw, THREADS, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(pos),
-      static_cast<const uint8_t*>(kp), static_cast<const T*>(wqkv),
-      static_cast<const T*>(bqkv), static_cast<const T*>(wo),
-      static_cast<const T*>(bo), static_cast<const T*>(g1),
-      static_cast<const T*>(be1), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<const T*>(g2),
-      static_cast<const T*>(be2), static_cast<T*>(out), ff);
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each launches on `stream` and
+// returns cudaGetLastError() (0 on success); shapes as in the kernels'
+// comments. Every bf16 operand is 16-byte aligned and row-major.
+
+extern "C" int window_layer_qkv(const void* x, const void* pos,
+                                const void* w, const void* b, void* out,
+                                int rows, void* stream) {
+  if (rows <= 0) return rows < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (misaligned16({x, pos, w, b, out}))
+    return (int)cudaErrorMisalignedAddress;
+  int err = set_smem(window_layer_qkv_kernel, GQkv::SMEM);
+  if (err) return err;
+  if ((rows + GQkv::BM - 1) / GQkv::BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(3 * C / GQkv::BN, (rows + GQkv::BM - 1) / GQkv::BM);
+  window_layer_qkv_kernel<<<grid, GQkv::THREADS, GQkv::SMEM,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(pos),
+      static_cast<const bf16*>(w), static_cast<const bf16*>(b),
+      static_cast<bf16*>(out), rows);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+extern "C" int window_layer_attn(const void* qkv, const void* kp, void* out,
+                                 int nw, void* stream) {
+  if (nw <= 0) return nw < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (misaligned16({qkv, out})) return (int)cudaErrorMisalignedAddress;
+  window_layer_attn_kernel<<<nw * NH, AT_THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(kp),
+      static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
+}
 
-// Plain C entry point, loaded with ctypes: shapes as in window_layer_bf16,
-// with the fixed sizes given for the kernel to check. Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
-extern "C" int window_layer_fwd(const void* x, const void* pos, const void* kp,
-                                const void* wqkv, const void* bqkv,
-                                const void* wo, const void* bo, const void* g1,
-                                const void* be1, const void* w1,
-                                const void* b1, const void* w2, const void* b2,
-                                const void* g2, const void* be2, void* out,
-                                int nw, int ws, int c, int n_heads, int ff,
-                                int is_bf16, void* stream) {
-  if (ws != WS || c != C || n_heads != NH || ff < FCB || ff % FCB != 0 ||
+extern "C" int window_layer_proj_ln(const void* a, const void* wo,
+                                    const void* bo, const void* x,
+                                    const void* g1, const void* be1,
+                                    void* x1, int rows, void* stream) {
+  if (rows <= 0) return rows < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (misaligned16({a, wo, bo, x, x1})) return (int)cudaErrorMisalignedAddress;
+  int err = set_smem(window_layer_proj_ln_kernel, GRow::SMEM);
+  if (err) return err;
+  window_layer_proj_ln_kernel<<<(rows + GRow::BM - 1) / GRow::BM,
+                                GRow::THREADS,
+                                GRow::SMEM,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(wo),
+      static_cast<const bf16*>(bo), static_cast<const bf16*>(x),
+      static_cast<const bf16*>(g1), static_cast<const bf16*>(be1),
+      static_cast<bf16*>(x1), rows);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int window_layer_ffn1(const void* x1, const void* w1,
+                                 const void* b1, void* hid, int rows, int ff,
+                                 void* stream) {
+  if (rows < 0 || ff <= 0 || ff % GFfn::BN) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  if (misaligned16({x1, w1, b1, hid})) return (int)cudaErrorMisalignedAddress;
+  int err = set_smem(window_layer_ffn1_kernel, GFfn::SMEM);
+  if (err) return err;
+  if ((rows + GFfn::BM - 1) / GFfn::BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(ff / GFfn::BN, (rows + GFfn::BM - 1) / GFfn::BM);
+  window_layer_ffn1_kernel<<<grid, GFfn::THREADS, GFfn::SMEM,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x1), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(b1), static_cast<bf16*>(hid), rows, ff);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int window_layer_ffn2_ln(const void* hid, const void* w2,
+                                    const void* b2, const void* x1,
+                                    const void* g2, const void* be2,
+                                    void* out, int rows, int ff,
+                                    void* stream) {
+  if (rows < 0 || ff <= 0 || ff % BK) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  if (misaligned16({hid, w2, b2, x1, out}))
+    return (int)cudaErrorMisalignedAddress;
+  int err = set_smem(window_layer_ffn2_ln_kernel, GRow::SMEM);
+  if (err) return err;
+  window_layer_ffn2_ln_kernel<<<(rows + GRow::BM - 1) / GRow::BM,
+                                GRow::THREADS,
+                                GRow::SMEM,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(hid), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(b2), static_cast<const bf16*>(x1),
+      static_cast<const bf16*>(g2), static_cast<const bf16*>(be2),
+      static_cast<bf16*>(out), rows, ff);
+  return (int)cudaGetLastError();
+}
+
+// blocks per SM that the card grants stage `stage` (0 qkv, 1 attn, 2
+// proj_ln, 3 ffn1, 4 ffn2_ln) into *blocks, and its dynamic shared bytes
+// into *smem_bytes
+extern "C" int window_layer_occupancy(int stage, int* blocks,
+                                      int* smem_bytes) {
+  int err = 0;
+  size_t smem = 0;
+  const void* fn = nullptr;
+  int threads = 0;
+  switch (stage) {
+    case 0:
+      threads = GQkv::THREADS;
+      smem = GQkv::SMEM;
+      err = set_smem(window_layer_qkv_kernel, smem);
+      fn = (const void*)window_layer_qkv_kernel;
+      break;
+    case 1:
+      threads = AT_THREADS;
+      fn = (const void*)window_layer_attn_kernel;
+      break;
+    case 2:
+      threads = GRow::THREADS;
+      smem = GRow::SMEM;
+      err = set_smem(window_layer_proj_ln_kernel, smem);
+      fn = (const void*)window_layer_proj_ln_kernel;
+      break;
+    case 3:
+      threads = GFfn::THREADS;
+      smem = GFfn::SMEM;
+      err = set_smem(window_layer_ffn1_kernel, smem);
+      fn = (const void*)window_layer_ffn1_kernel;
+      break;
+    case 4:
+      threads = GRow::THREADS;
+      smem = GRow::SMEM;
+      err = set_smem(window_layer_ffn2_ln_kernel, smem);
+      fn = (const void*)window_layer_ffn2_ln_kernel;
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  *smem_bytes = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                            threads, smem);
+}
+
+// The float32 layer, one block per window (window_layer_f32): x, pos, out
+// (nw, 64, 288), kp (nw, 64) uint8, the weights as in the kernel's
+// comment; the fixed sizes given for the kernel to check.
+extern "C" int window_layer_f32_fwd(const void* x, const void* pos,
+                                    const void* kp, const void* wqkv,
+                                    const void* bqkv, const void* wo,
+                                    const void* bo, const void* g1,
+                                    const void* be1, const void* w1,
+                                    const void* b1, const void* w2,
+                                    const void* b2, const void* g2,
+                                    const void* be2, void* out, int nw,
+                                    int ws, int c, int n_heads, int ff,
+                                    void* stream) {
+  if (ws != WS || c != C || n_heads != NH || ff < FC || ff % FC != 0 ||
       nw < 0)
     return (int)cudaErrorInvalidValue;
   if (nw == 0) return (int)cudaGetLastError();
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(pos) |
-         reinterpret_cast<uintptr_t>(out)) % 16)
-      return (int)cudaErrorMisalignedAddress;
-    return launch<bf16>(window_layer_bf16, bf16_smem_bytes(), x, pos, kp,
-                        wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2,
-                        out, nw, ff, st);
-  }
-  return launch<float>(window_layer_f32, f32_smem_bytes(), x, pos, kp, wqkv,
-                       bqkv, wo, bo, g1, be1, w1, b1, w2, b2, g2, be2, out,
-                       nw, ff, st);
+  int err = set_smem(window_layer_f32, f32_smem_bytes());
+  if (err) return err;
+  window_layer_f32<<<nw, THREADS, f32_smem_bytes(),
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(pos),
+      static_cast<const uint8_t*>(kp), static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(wo),
+      static_cast<const float*>(bo), static_cast<const float*>(g1),
+      static_cast<const float*>(be1), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(g2),
+      static_cast<const float*>(be2), static_cast<float*>(out), ff);
+  return (int)cudaGetLastError();
 }
