@@ -61,12 +61,15 @@ REPO = Path(__file__).resolve().parent
 
 
 # the port's kernels, by a part of their CUDA function's name
-# ("window_layer_" sums the window layer's kernels, the stages name each)
+# ("window_layer_" sums the window layer's kernels, the stages name each;
+# "walk_kernel" is the one kernel of both the block-skipping and the
+# range-walking level ops: a path that runs both, such as
+# PALLAS_SKIP_IMPL=v2 with MSDA_DEC_SKIP=1, gets their sum under it, and
+# `port_launches_per_step` still counts each op's launches apart)
 PORT_KERNELS = ("msda_fwd_kernel", "msda_bwd_kernel", "window_layer_",
                 "window_layer_qkv", "window_layer_attn",
                 "window_layer_proj_ln", "window_layer_ffn1",
-                "window_layer_ffn2_ln", "msda_dense_v2_fwd_kernel",
-                "msda_dense_v4_fwd_kernel")
+                "window_layer_ffn2_ln", "walk_kernel")
 
 
 def profile_steps(step, n: int):

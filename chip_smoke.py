@@ -48,8 +48,14 @@ last line marked "partial"; the kernels line needs all of them):
   dense_v2: holds the block-skipping level kernel against the plain level
      on each of the four encoder levels, float32 and bfloat16, N = 1 and 2,
      with the initial offsets and with offsets six times as large, and its
-     row bands against `v2_row_band`; times it, the plain version and the
-     gather kernel on the same level; then the differentiable wrapper
+     row bands against `v2_row_band` at the tile of its plan
+     (`walk_plan`, printed in each case line); times it, the plain version,
+     the gather kernel and the `grid_sample` composition on the same level,
+     and with `--old-dense-v2 PATH` (an earlier `csrc/msda_dense_v2_fwd.cu`,
+     copied outside the package) that design and this one through their C
+     entry points in turns (`old_ms`, `entry_ms`, `ms_turns`); then tiles
+     whose band holds rows with no sample, supports on window borders and
+     the odd staging words; then the differentiable wrapper
      `dense_level_pallas_v2` on a slice of the value table, and the whole
      encoder call through route "v2" of `ms_deform_attn`: output and the
      three gradients against autograd through the plain version;
@@ -58,10 +64,14 @@ last line marked "partial"; the kernels line needs all of them):
      and bfloat16, with the initial offsets and with offsets six times as
      large, sorted in 64-column chunks (the call's one permutation, as route
      "v4" does) and unsorted at full width; on the decoder's 100x168 level
-     with 650 (N = 1), 611 and 500 (N = 2) scattered queries; its walk
-     bounds against `v4_ranges`, with the share of the level each walk
-     reads; times beside the gather kernel's and the block-skipping
-     kernel's on the same level; the differentiable wrappers' gradients;
+     with 650 (N = 1), 611 and 500 (N = 2) scattered queries; tiles whose
+     range holds windows with no sample and supports that straddle chunk
+     and window borders; its walk bounds against `v4_ranges` at the tile
+     of its plan (`walk_plan`, printed in each case line); times beside the
+     gather kernel's, the block-skipping kernel's and the `grid_sample`
+     composition's on the same level, and with `--old-dense-v4 PATH` the
+     earlier design's through the C entry points in turns; the
+     differentiable wrappers' gradients;
      then the whole encoder call through route "v4" and the whole decoder
      call under `MSDA_DEC_SKIP`, output and gradients against the plain
      version, with their launch counts;
@@ -226,9 +236,8 @@ def all_libs():
     """Every kernel library of the port."""
     from trackformer_tpu_torch.ops import (msda, msda_dense, msda_pallas,
                                            msda_patch, window_attn)
-    return [msda.LIB, msda.BWD_LIB, msda_dense.V2_LIB, window_attn.LIB,
-            msda_dense.V4_LIB, msda_dense.V3_LIB, msda_pallas.LIB,
-            msda_patch.V6_LIB]
+    return [msda.LIB, msda.BWD_LIB, window_attn.LIB, msda_dense.V4_LIB,
+            msda_dense.V3_LIB, msda_pallas.LIB, msda_patch.V6_LIB]
 
 
 # MSDA launches of the main paths by shape, (count name, items, queries per
@@ -1161,14 +1170,130 @@ def grads_against_plain(tag: str, dtype, kernel_fn, plain_fn, inputs, g,
               f"tolerance: {errs}")
 
 
+# the earlier designs of the block-skipping and range-walking kernels
+# (`--old-dense-v2`, `--old-dense-v4`): their libraries, built with the
+# others, or None
+OLD_V2_LIB = None
+OLD_V4_LIB = None
+# the earlier designs' tile, and their shared memory for staged rows
+OLD_DENSE_TQ = 256
+OLD_V2_CHUNK_BYTES = 48 * 1024
+OLD_V4_STAGE_BYTES = 18 * 1024
+
+
+def old_dense_lib(path: str, kind: str):
+    """A `CudaLib` of an earlier `csrc/msda_dense_{kind}_fwd.cu` (a copy
+    outside the package, for an A/B) with that design's C entry point: the
+    first designs of both kernels, a thread per (query, channel), with the
+    tile, the staging budget and the threads as the last ints."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    ptrs, ints = (5, 11) if kind == "v2" else (6, 12)
+    return CudaLib(str(Path(path).resolve()), {f"msda_dense_{kind}_fwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p])})
+
+
+def raw_dense(kind: str, fn, v, loc, attn, h, w, perm=None, cw=None,
+              plan=None):
+    """One launch of kernel `kind` (v2 / v4) through the C entry point `fn`,
+    without the wrapper's checks, plan and count -> (N, Lq, M, D) float32.
+    `plan` (`walk_plan`) for this design's entry point, the walk's
+    `msda_dense_v4_fwd` for both kernels (v2: query order at the full
+    width); None for the earlier design's (`old_dense_lib`), one entry point
+    a kernel."""
+    n, lq, m, p = loc.shape[:4]
+    d = v.shape[-1]
+    out = torch.empty(n, lq, m, d, device=v.device, dtype=torch.float32)
+    shape = [n, h, w, lq, m, p, d, int(v.dtype == torch.bfloat16)]
+    ptrs = [v.data_ptr(), loc.data_ptr(), attn.data_ptr()]
+    if plan is not None:
+        ptrs += [None if perm is None else perm.data_ptr(), out.data_ptr(),
+                 None, None]
+        tail = [cw or 0, plan.tq, plan.wr, plan.wc, plan.wps, plan.kmax,
+                plan.word]
+    elif kind == "v2":
+        ptrs += [out.data_ptr(), None]
+        tail = [OLD_DENSE_TQ, OLD_V2_CHUNK_BYTES, 256]
+    else:
+        ptrs += [None if perm is None else perm.data_ptr(), out.data_ptr(),
+                 None]
+        tail = [OLD_DENSE_TQ, cw or 0, OLD_V4_STAGE_BYTES, 256]
+    rc = fn(*ptrs, *shape, *tail, torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"msda_dense_{kind}_fwd launch failed: cudaError {rc}")
+    return out
+
+
+def dense_entry_times(kind: str, v, loc, attn, h, w, want, perm=None,
+                      cw=None) -> dict:
+    """Kernel `kind` through its C entry point (`entry_ms`) and, with
+    `--old-dense-{kind}`, the earlier design through its own (`old_ms`),
+    timed in turns (new, old, new, old: `ms_turns`); the earlier design's
+    output held against `want` first."""
+    from trackformer_tpu_torch.ops import msda_dense
+    name = f"msda_dense_{kind}_fwd"
+    fn = msda_dense.V4_LIB.load().msda_dense_v4_fwd
+    n, lq, m, p = loc.shape[:4]
+    plan = msda_dense.walk_plan(n, lq, m, p, v.shape[-1], h, w,
+                                v.element_size(), v.data_ptr(), cw or 0)
+
+    def new():
+        return raw_dense(kind, fn, v, loc, attn, h, w, perm, cw, plan)
+    old_lib = OLD_V2_LIB if kind == "v2" else OLD_V4_LIB
+    if old_lib is None:
+        return dict(entry_ms=f"{time_ms(new, 20, INNER):.4f}",
+                    old_ms="not measured")
+    old_fn = getattr(old_lib.load(), name)
+
+    def old():
+        return raw_dense(kind, old_fn, v, loc, attn, h, w, perm, cw)
+    atol, rtol = TOL[v.dtype]
+    check(bool(((old() - want).abs() <= atol + rtol * want.abs()).all()),
+          f"{name}: the earlier design is out of tolerance")
+    turns = []
+    for _ in range(2):
+        turns += [time_ms(new, 10, INNER), time_ms(old, 10, INNER)]
+    return dict(entry_ms=f"{statistics.mean(turns[0::2]):.4f}",
+                old_ms=f"{statistics.mean(turns[1::2]):.4f}",
+                ms_turns=json.dumps([round(t, 4) for t in turns]))
+
+
+def grid_sample_level(value, loc, attn, h, w):
+    """The original Deformable DETR's per-level PyTorch formulation, a
+    library composition (two calls, not one): `F.grid_sample` of the level
+    (bilinear, zeros padding, align_corners=False), then the attention-
+    weighted sum over the points. value (N, H*W, M, D), loc (N, Lq, M, P,
+    2), attn (N, Lq, M, P) -> (N, Lq, M, D) float32."""
+    n, _, m, d = value.shape
+    lq, p = loc.shape[1], loc.shape[3]
+    v = value.permute(0, 2, 3, 1).reshape(n * m, d, h, w)
+    grid = (2 * loc - 1).transpose(1, 2).reshape(n * m, lq, p, 2)
+    s = torch.nn.functional.grid_sample(
+        v, grid.to(value.dtype), mode="bilinear", padding_mode="zeros",
+        align_corners=False)                                # (N*M, D, Lq, P)
+    out = (s.float() * attn.transpose(1, 2).reshape(n * m, 1, lq, p)).sum(-1)
+    return out.view(n, m, d, lq).permute(0, 3, 1, 2)
+
+
+def plan_fields(plan) -> dict:
+    """A `walk_plan` as case-line fields."""
+    return dict(tq=plan.tq, kmax=plan.kmax, word=plan.word,
+                window=f"{plan.wr}x{plan.wc}", windows_per_stage=plan.wps,
+                smem_bytes=plan.smem_bytes,
+                grid="x".join(map(str, plan.grid)))
+
+
 def kernel_phase_dense_v2(seed: int):
     """The block-skipping kernel on each level of the flagship encoder call
     (Lq = 22,323 queries per item) against `level_plain`, float32 and
     bfloat16, N = 1 and 2, with the initial offsets (scale 1) and with
     offsets six times as large, so that a tile's band spans many rows; the
-    kernel's own row bands against `v2_row_band`; times of the kernel, the
-    plain version and the gather kernel on the same level (bfloat16, N = 2,
-    scale 1). At N = 2 also the differentiable wrapper
+    kernel's own row bands against `v2_row_band` at the tile of its plan
+    (`walk_plan`, printed in every case line); times of the kernel, the
+    plain version, the gather kernel and the `grid_sample` composition on
+    the same level, and of the kernel through its C entry point beside the
+    earlier design (`--old-dense-v2`) in turns (bfloat16, N = 2, scale
+    1). At N = 2 also the differentiable wrapper
     `dense_level_pallas_v2` as the training step calls it (the level's
     slice of the whole value table): output and the three gradients
     against autograd through `level_plain`; and at the end the whole
@@ -1176,8 +1301,8 @@ def kernel_phase_dense_v2(seed: int):
     four backward launches) against `ms_deform_attn_plain`."""
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.msda_dense import (
-        V2_TQ, dense_level_pallas, dense_level_pallas_v2,
-        dense_level_v2_fwd_cuda, v2_row_band)
+        dense_level_pallas, dense_level_pallas_v2, dense_level_v2_fwd_cuda,
+        v2_row_band, walk_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 13)
     bf16 = torch.bfloat16
@@ -1189,12 +1314,14 @@ def kernel_phase_dense_v2(seed: int):
             for scale in (1.0, 6.0):
                 value, loc, attn = encoder_level_inputs(level, n, scale, gen)
                 lq = loc.shape[1]
-                plain_band = v2_row_band(loc, h, V2_TQ)
-                lo = plain_band[..., 0].clamp(min=0)
-                hi = plain_band[..., 1].clamp(max=h - 1)
-                rows = (hi - lo + 1).clamp(min=0).float()
                 for dtype in (torch.float32, bf16):
                     v = value.to(dtype)
+                    plan = walk_plan(n, lq, M, P, D, h, w, v.element_size(),
+                                     v.data_ptr())
+                    plain_band = v2_row_band(loc, h, plan.tq)
+                    lo = plain_band[..., 0].clamp(min=0)
+                    hi = plain_band[..., 1].clamp(max=h - 1)
+                    rows = (hi - lo + 1).clamp(min=0).float()
                     with torch.no_grad():
                         got, band = dense_level_v2_fwd_cuda(
                             v, loc, attn, h, w, return_band=True)
@@ -1215,7 +1342,7 @@ def kernel_phase_dense_v2(seed: int):
                           rows_skipped=f"{1 - rows.mean().item() / h:.4f}",
                           max_abs_err=f"{max_abs:.3e}",
                           tol=f"{atol:g}+{rtol:g}*|ref|", band_ok=band_ok,
-                          ok=ok)
+                          **plan_fields(plan), ok=ok)
                     check(ok, f"kernel dense_level_v2 level {level} {dtype} "
                               f"N={n} scale {scale} out of tolerance: max "
                               f"abs err {max_abs}")
@@ -1253,19 +1380,83 @@ def kernel_phase_dense_v2(seed: int):
                             v, loc, attn, h, w), 5, INNER)
                         gather_ms = time_ms(lambda: dense_level_pallas(
                             v, loc, attn, h, w), 20, INNER)
+                        comp_ms = time_ms(lambda: grid_sample_level(
+                            v, loc, attn, h, w), 10, INNER)
+                        ab = dense_entry_times("v2", v, loc, attn, h, w,
+                                               want)
                     n_bytes = (v.numel() * 2 + loc.numel() * 4
                                + attn.numel() * 4 + got.numel() * 4)
                     bound_ms, bound_by = bound(
                         n_bytes, 2 * n * lq * M * P * 4 * D, FP32_FLOPS)
                     phase("kernel", case=f"dense_level_v2_l{level}",
-                          dtype="bfloat16", items=n, ms=f"{ms:.4f}",
+                          dtype="bfloat16", items=n, ms=f"{ms:.4f}", **ab,
                           plain_ms=f"{plain_ms:.4f}",
                           gather_kernel_ms=f"{gather_ms:.4f}",
+                          grid_sample_composition_ms=f"{comp_ms:.4f}",
                           bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
                     results[level] = dict(
                         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        library_ms=None, gather_kernel_ms=gather_ms)
+                        library_ms=None, gather_kernel_ms=gather_ms,
+                        grid_sample_composition_ms=comp_ms)
+
+    # the walk's own edges at the full width: tiles whose band holds rows
+    # with no sample of a head (each tile's queries split between the top
+    # and the bottom of the level), and supports that straddle the window
+    # borders (rows on and half a cell beside multiples of 6), in float32
+    # and bfloat16, with the bands against `v2_row_band`
+    h, w = LEVELS[0]
+    lq = 4800
+    value = torch.randn(1, h * w, M, D, device="cuda", generator=gen)
+    attn = torch.rand(1, lq, M, P, device="cuda", generator=gen)
+    far = torch.tensor([0.08, 0.92], device="cuda")[
+        torch.arange(lq, device="cuda") % 2]
+    skipped = (far[None, :, None, None, None] + 0.02 * torch.randn(
+        1, lq, M, P, 2, device="cuda", generator=gen)).contiguous()
+    by = 6 * torch.randint(1, h // 6 + 1, (1, lq, M, P), device="cuda",
+                           generator=gen)
+    off = torch.tensor([-0.5, -0.25, 0.0, 0.25], device="cuda")
+    y = (by + off[torch.randint(0, 4, (1, lq, M, P), device="cuda",
+                                generator=gen)]).clamp(max=h - 1)
+    x = torch.rand(1, lq, M, P, device="cuda", generator=gen) * w - 0.5
+    borders = torch.stack([(x + 0.5) / w, (y + 0.5) / h], -1).contiguous()
+    for case, loc in (("dense_level_v2_skipped_windows", skipped),
+                      ("dense_level_v2_borders", borders)):
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            plan = walk_plan(1, lq, M, P, D, h, w, v.element_size(),
+                             v.data_ptr())
+            want_band = v2_row_band(loc, h, plan.tq)
+            with torch.no_grad():
+                got, band = dense_level_v2_fwd_cuda(v, loc, attn, h, w,
+                                                    return_band=True)
+                torch.cuda.synchronize()
+                want = msda.level_plain(v, loc, attn, h, w)
+            band_ok = (bool((band[..., 0] == want_band[..., 0].clamp(
+                min=0)).all()) and bool((band[..., 1] == want_band[
+                    ..., 1].clamp(max=h - 1)).all()))
+            held_against_plain(case, dtype, got, want, level=f"{h}x{w}",
+                               lq=lq, band_ok=band_ok, **plan_fields(plan))
+            check(band_ok, f"kernel {case}: row bands differ from "
+                           "v2_row_band")
+
+    # the other staging words (`ODD_LEVELS`), three heads, ragged tiles
+    h, w = ODD_LEVELS[0]
+    for d in (5, 6):
+        value, loc, attn = odd_shape_inputs(gen, d, ODD_LEVELS[:1], 70)
+        loc, attn = loc[:, :, :, 0].contiguous(), attn[:, :, :, 0].contiguous()
+        want_band = v2_row_band(loc, h, ODD_TQ)
+        for dtype in (torch.float32, bf16):
+            v = value.to(dtype)
+            got, band = dense_level_v2_fwd_cuda(v, loc, attn, h, w,
+                                                tq=ODD_TQ, return_band=True)
+            band_ok = (bool((band[..., 0] == want_band[..., 0].clamp(
+                min=0)).all()) and bool((band[..., 1] == want_band[
+                    ..., 1].clamp(max=h - 1)).all()))
+            held_against_plain("dense_level_v2_odd_shape", dtype, got,
+                               msda.level_plain(v, loc, attn, h, w), d=d,
+                               band_ok=band_ok)
+            check(band_ok, "dense_level_v2 odd shape: row bands")
 
     # the encoder call of the training step through the route switch
     value, loc, attn = msda_inputs(LEVELS, s_enc, True, gen, TRAIN_BATCH)
@@ -1372,9 +1563,9 @@ def kernel_phase_dense_v4(seed: int):
     initial offsets, sorted in chunks as the routes launch it."""
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.msda_dense import (
-        V2_TQ, dense_level_pallas, dense_level_pallas_v4,
-        dense_level_pallas_v4p, dense_level_v2_fwd_cuda,
-        dense_level_v4_fwd_cuda, spatial_sort_perm, v4_ranges)
+        dense_level_pallas, dense_level_pallas_v4, dense_level_pallas_v4p,
+        dense_level_v2_fwd_cuda, dense_level_v4_fwd_cuda, spatial_sort_perm,
+        v4_ranges, walk_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 17)
     bf16 = torch.bfloat16
@@ -1384,12 +1575,16 @@ def kernel_phase_dense_v4(seed: int):
 
     def held(tag, value, loc, attn, h, w, perm, chunk, **fields):
         """Both dtypes against the plain level, the kernel's walk bounds
-        against `v4_ranges` -> bfloat16 max abs error."""
-        want_r = v4_ranges(loc, h, w, V2_TQ, chunk, perm)
-        cells = ((want_r[..., 1] - want_r[..., 0] + 1).clamp(min=0)
-                 * (want_r[..., 3] - want_r[..., 2] + 1)).float()
+        against `v4_ranges` at the tile of its plan (`walk_plan`) -> the
+        bfloat16 max abs error."""
+        n, lq, m, p = loc.shape[:4]
         for dtype in (torch.float32, bf16):
             v = value.to(dtype)
+            plan = walk_plan(n, lq, m, p, v.shape[-1], h, w,
+                             v.element_size(), v.data_ptr(), chunk or 0)
+            want_r = v4_ranges(loc, h, w, plan.tq, chunk, perm)
+            cells = ((want_r[..., 1] - want_r[..., 0] + 1).clamp(min=0)
+                     * (want_r[..., 3] - want_r[..., 2] + 1)).float()
             with torch.no_grad():
                 got, ranges = dense_level_v4_fwd_cuda(
                     v, loc, attn, h, w, perm=perm, cw=chunk,
@@ -1398,19 +1593,20 @@ def kernel_phase_dense_v4(seed: int):
                 want = msda.level_plain(v, loc, attn, h, w)
             ranges_ok = bool((ranges.long() == want_r).all())
             err = held_against_plain(
-                tag, dtype, got, want, level=f"{h}x{w}", items=loc.shape[0],
-                lq=loc.shape[1], **fields,
+                tag, dtype, got, want, level=f"{h}x{w}", items=n, lq=lq,
+                **fields,
                 walk="sorted, chunks of %d" % chunk if chunk else
                 "raster, full width",
-                mean_cells_walked=f"{cells.mean().item():.0f}",
-                level_skipped=f"{1 - cells.mean().item() / (h * w):.4f}",
-                ranges_ok=ranges_ok)
+                mean_range_cells=f"{cells.mean().item():.0f}",
+                range_skips=f"{1 - cells.mean().item() / (h * w):.4f}",
+                ranges_ok=ranges_ok, **plan_fields(plan))
             check(ranges_ok, f"kernel {tag}: walk bounds differ from "
                              "v4_ranges")
         return err
 
     def timed(tag, v, loc, attn, h, w, perm, err):
         with torch.no_grad():
+            want = msda.level_plain(v, loc, attn, h, w)
             ms = time_ms(lambda: dense_level_v4_fwd_cuda(
                 v, loc, attn, h, w, perm=perm, cw=cw), 20, INNER)
             rows_ms = time_ms(lambda: dense_level_v4_fwd_cuda(
@@ -1421,19 +1617,36 @@ def kernel_phase_dense_v4(seed: int):
                 v, loc, attn, h, w), 20, INNER)
             v2_ms = time_ms(lambda: dense_level_v2_fwd_cuda(
                 v, loc, attn, h, w), 20, INNER)
+            comp_ms = time_ms(lambda: grid_sample_level(v, loc, attn, h, w),
+                              10, INNER)
             sort_ms = time_ms(lambda: spatial_sort_perm(loc, h, w), 10, INNER)
+            ab = dense_entry_times("v4", v, loc, attn, h, w, want, perm, cw)
+            ab_rows = dense_entry_times("v4", v, loc, attn, h, w, want)
         bound_ms, bound_by = level_bound(v, loc, attn, h, w, perm.numel() * 8)
         phase("kernel", case=tag, dtype="bfloat16", items=loc.shape[0],
-              lq=loc.shape[1], ms=f"{ms:.4f}",
+              lq=loc.shape[1], ms=f"{ms:.4f}", **ab,
               unsorted_full_width_ms=f"{rows_ms:.4f}",
+              unsorted_full_width_entry_ms=ab_rows["entry_ms"],
+              unsorted_full_width_old_ms=ab_rows["old_ms"],
               plain_ms=f"{plain_ms:.4f}", gather_kernel_ms=f"{gather_ms:.4f}",
               block_skipping_kernel_ms=f"{v2_ms:.4f}",
+              grid_sample_composition_ms=f"{comp_ms:.4f}",
               spatial_sort_ms=f"{sort_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
               bound_by=bound_by)
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                     gather_kernel_ms=gather_ms, block_skipping_kernel_ms=v2_ms,
+                    grid_sample_composition_ms=comp_ms,
                     unsorted_full_width_ms=rows_ms)
+
+    # the composition that the times are set beside computes this function
+    h, w = LEVELS[1]
+    value, loc, attn = encoder_level_inputs(1, 1, 6.0, gen)
+    with torch.no_grad():
+        held_against_plain("grid_sample_composition", torch.float32,
+                           grid_sample_level(value, loc, attn, h, w),
+                           msda.level_plain(value, loc, attn, h, w),
+                           level=f"{h}x{w}")
 
     # the encoder's call: every token queries every level
     for n in (1, TRAIN_BATCH):
@@ -1522,6 +1735,53 @@ def kernel_phase_dense_v4(seed: int):
                                ranges_ok=bool((ranges.long() == want_r).all()))
             check(bool((ranges.long() == want_r).all()),
                   "dense_level_v4 odd shape: walk bounds")
+    # more than four points a query: 24 corners, sorted in place (the
+    # sorting network takes at most 16)
+    value, loc, attn = odd_shape_inputs(gen, 6, ODD_LEVELS[:1], 70)
+    _, loc2, attn2 = odd_shape_inputs(gen, 6, ODD_LEVELS[:1], 70)
+    loc = torch.cat([loc, loc2], 4)[:, :, :, 0].contiguous()
+    attn = torch.cat([attn, attn2], 4)[:, :, :, 0].contiguous()
+    perm = spatial_sort_perm(loc, h, w)
+    for dtype in (torch.float32, bf16):
+        v = value.to(dtype)
+        got = dense_level_v4_fwd_cuda(v, loc, attn, h, w, perm=perm, cw=8,
+                                      tq=ODD_TQ)
+        held_against_plain("dense_level_v4_many_points", dtype, got,
+                           msda.level_plain(v, loc, attn, h, w),
+                           points=loc.shape[3])
+
+    # the walk's own edges on the finest level: a tile whose range holds
+    # windows with no sample (the queries of each tile split between two
+    # far corners of the level, in query order), and supports that
+    # straddle chunk and window borders (coordinates on and half a cell
+    # beside multiples of 32 columns and 6 rows: the chunks of 64, the
+    # dense windows of 32 columns and the sparse windows' 8 x 2 all border
+    # there), with sparse (96 queries) and dense (4,800) plans
+    h, w = LEVELS[0]
+    for lq in (96, 4800):
+        value = torch.randn(1, h * w, M, D, device="cuda", generator=gen)
+        attn = torch.rand(1, lq, M, P, device="cuda", generator=gen)
+        jitter = 0.02 * torch.randn(1, lq, M, P, 2, device="cuda",
+                                    generator=gen)
+        far = torch.tensor([0.08, 0.92], device="cuda")[
+            torch.arange(lq, device="cuda") % 2]
+        loc = (far[None, :, None, None, None] + jitter).contiguous()
+        held("dense_level_v4_skipped_windows", value, loc, attn, h, w, None,
+             cw, sample="two far corners a tile")
+        bx = 32 * torch.randint(1, w // 32 + 1, (1, lq, M, P), device="cuda",
+                                generator=gen)
+        by = 6 * torch.randint(1, h // 6 + 1, (1, lq, M, P), device="cuda",
+                               generator=gen)
+        off = torch.tensor([-0.5, -0.25, 0.0, 0.25], device="cuda")
+        pick = torch.randint(0, 4, (2, 1, lq, M, P), device="cuda",
+                             generator=gen)
+        x = (bx + off[pick[0]]).clamp(max=w - 1)
+        y = (by + off[pick[1]]).clamp(max=h - 1)
+        loc = torch.stack([(x + 0.5) / w, (y + 0.5) / h], -1).contiguous()
+        held("dense_level_v4_borders", value, loc, attn, h, w,
+             spatial_sort_perm(loc, h, w), cw, sample="on window borders")
+        held("dense_level_v4_borders", value, loc, attn, h, w, None, None,
+             sample="on window borders")
 
     # whole calls through the route switches
     value, loc, attn = msda_inputs(LEVELS, s_enc, True, gen, TRAIN_BATCH)
@@ -2483,7 +2743,7 @@ ROUTE_FRAMES = 3
 
 
 def main() -> int:
-    global OLD_BWD_LIB, OLD_FWD_LIB, OLD_WINDOW_LIB
+    global OLD_BWD_LIB, OLD_FWD_LIB, OLD_WINDOW_LIB, OLD_V2_LIB, OLD_V4_LIB
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=6,
                     help="frames of each tracker run")
@@ -2500,6 +2760,11 @@ def main() -> int:
                     help="an earlier csrc/window_layer_fwd.cu (a copy "
                          "outside the package) to time beside the window "
                          "layer's kernels")
+    for kind in ("v2", "v4"):
+        ap.add_argument(f"--old-dense-{kind}", default=None, metavar="PATH",
+                        help=f"an earlier csrc/msda_dense_{kind}_fwd.cu (a "
+                             "copy outside the package) to time beside "
+                             "that kernel")
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2539,6 +2804,12 @@ def main() -> int:
     if args.old_window_layer:
         OLD_WINDOW_LIB = old_window_lib(args.old_window_layer)
         libs.append(OLD_WINDOW_LIB)
+    if args.old_dense_v2:
+        OLD_V2_LIB = old_dense_lib(args.old_dense_v2, "v2")
+        libs.append(OLD_V2_LIB)
+    if args.old_dense_v4:
+        OLD_V4_LIB = old_dense_lib(args.old_dense_v4, "v4")
+        libs.append(OLD_V4_LIB)
     build_all(libs)
     for lib in libs:
         info = lib.info()
@@ -2629,9 +2900,10 @@ def main() -> int:
 
     csrc = "trackformer_tpu_torch/csrc/"
     msda_src, win_src = csrc + "msda_fwd.cu", csrc + "window_layer_fwd.cu"
-    bwd_src, v2_src = csrc + "msda_bwd.cu", csrc + "msda_dense_v2_fwd.cu"
-    v4_src, v3_src = (csrc + "msda_dense_v4_fwd.cu",
-                      csrc + "msda_dense_v3_fwd.cu")
+    bwd_src = csrc + "msda_bwd.cu"
+    # the block-skipping kernel (v2) is the range-walking kernel's walk
+    v4_src = v2_src = csrc + "msda_dense_v4_fwd.cu"
+    v3_src = csrc + "msda_dense_v3_fwd.cu"
     rows_src, v6_src = (csrc + "msda_gather_rows_fwd.cu",
                         csrc + "msda_patch_v6_fwd.cu")
     pallas_py = "trackformer_tpu/ops/msda_pallas.py"
@@ -2694,7 +2966,7 @@ def main() -> int:
              f"{lvl} {hw[0]}x{hw[1]} of a captured call, B = 1)",
              v3_src, dense_py + ":270", {**kv3[lvl], "path": no_route},
              ("dense_level_pallas_v3", 1, s_enc, (hw,))),
-            ("msda_dense_v2_fwd via dense_level_pallas_v2 (training, " + at,
+            ("msda_dense_v4_fwd via dense_level_pallas_v2 (training, " + at,
              v2_src, dense_py + ":68", kv2[lvl],
              ("dense_level_pallas_v2", TRAIN_BATCH, s_enc, (hw,)))]
     msda_entries += [

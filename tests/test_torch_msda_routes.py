@@ -24,6 +24,8 @@ against the plain versions on the card): on CPU tensors every wrapper is its
 plain version. Tolerances: float32 on both sides, sums in different orders:
 forward 1e-5 absolute and relative, gradients 1e-4.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +37,7 @@ from trackformer_tpu.ops import msda_dense as jdense
 from trackformer_tpu.ops import msda_pallas as jpallas
 from trackformer_tpu.ops import msda_patch as jpatch
 from trackformer_tpu_torch.ops import (cuda_build, msda, msda_dense,
-                                       msda_pallas, msda_patch)
+                                       msda_pallas, msda_patch, window_attn)
 
 torch.set_num_threads(1)
 
@@ -289,14 +291,21 @@ def capture_pallas_operands(monkeypatch, fn):
     return seen
 
 
+# every tile `walk_plan` picks for the flagship's D = 36 (lane groups of 9
+# lanes, 24 a block, 1, 2, 4 or 8 queries a group), and the small tests'
+# 16 (`tests/test_torch_msda_walk.py` holds the plan to these)
+WALK_TQS = [16, 24, 48, 96, 192]
+
+
+@pytest.mark.parametrize("tq", WALK_TQS)
 @pytest.mark.parametrize("sigma", [0.03, 0.5], ids=["narrow", "wide_oob"])
 @pytest.mark.parametrize("cw", [None, 8, 64])
 @pytest.mark.parametrize("sort", [False, True], ids=["raster", "sorted"])
-def test_v4_ranges_equal_jax(monkeypatch, sort, cw, sigma):
-    h, w, lq, tq = 30, 41, 64, 16           # Lq a multiple of the tile
+def test_v4_ranges_equal_jax(monkeypatch, sort, cw, sigma, tq):
+    h, w, lq = 30, 41, 4 * tq               # Lq a multiple of the tile
     loc = clustered_level(59, h, w, lq, sigma)
     if sigma > 0.1:
-        loc[:, :tq] -= 2.0                   # a tile wholly above and left
+        loc[:, :tq] -= 3.0                   # a tile wholly above and left
     value = np.zeros((N, h * w, M, 4), np.float32)
     attn = np.ones((N, lq, M, P), np.float32)
     perm = (np.asarray(jdense.spatial_sort_perm(jnp.asarray(loc), h, w))
@@ -325,8 +334,12 @@ def test_v4_ranges_equal_jax(monkeypatch, sort, cw, sigma):
                           np.minimum(jxhi, (w - 1) // jchunk))
     if sigma > 0.1:
         assert (got[:, 0, 0] > got[:, 0, 1]).all() or sort   # empty walk
-    elif cw == 8 and sort:
+    elif cw == 8 and sort and tq == 16:
         assert (got[..., 3] - got[..., 2] < w - 1).any()     # it skips
+    elif cw == 8 and sort:
+        # a larger sorted tile spans a whole row of 8 x 8 buckets of this
+        # level: it skips rows
+        assert (got[..., 1] - got[..., 0] < h - 1).all()
 
 
 @pytest.mark.parametrize("case", ["uniform", "out_of_range", "clustered"])
@@ -631,9 +644,16 @@ def test_build_key_covers_the_included_headers(tmp_path, monkeypatch):
     assert without.so_path() == alone
     (csrc / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert without.so_path() != alone
-    # every kernel that includes the shared header names it
+    # every kernel that includes the shared header names it (V4_LIB is the
+    # walk of both the range-walking and the block-skipping kernel)
     for lib in (msda_dense.V4_LIB, msda_dense.V3_LIB, msda_patch.V6_LIB,
                 msda_pallas.LIB, msda.BWD_LIB, msda.LIB):
         assert [h.name for h in lib.headers] == [cuda_build.MSDA_COMMON]
         assert f'#include "{cuda_build.MSDA_COMMON}"' in lib.source.read_text()
         assert all(h.is_file() for h in lib.headers)
+    # and no source includes a header of `csrc/` that its key leaves out
+    for lib in (msda_dense.V4_LIB, msda_dense.V3_LIB, msda_patch.V6_LIB,
+                msda_pallas.LIB, msda.BWD_LIB, msda.LIB, window_attn.LIB):
+        included = set(re.findall(r'#include "([^"]+)"',
+                                  lib.source.read_text()))
+        assert included == {h.name for h in lib.headers}, lib.source.name

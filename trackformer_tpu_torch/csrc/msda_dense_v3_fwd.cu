@@ -20,10 +20,10 @@
 // numbers. (The TPU kernel aligns xstart down to a multiple of 8 for its
 // compiler's sake; here the window only has to hold every occupied column.)
 //
-// On this card: one block per (head, q-tile, item), as the block-skipping
-// kernel (msda_dense_v2_fwd.cu), which stages whole rows; this one stages
-// only the window's columns of each row, so a fitting tile moves CW / W of
-// the band's bytes. The permutation is applied by index (loc / attn read at
+// On this card: one block per (head, q-tile, item), as the first design of
+// the block-skipping kernel, which staged whole rows of the band; this one
+// stages only the window's columns of each row, so a fitting tile moves
+// CW / W of the band's bytes. The permutation is applied by index (loc / attn read at
 // perm[q], out written at perm[q]). The TPU kernel leaves the pipelining to
 // its grid; this one stages a chunk of rows, waits, sums, and goes on (the
 // double-buffered walk is msda_dense_v4_fwd.cu's). Bound by bytes; copies

@@ -1,70 +1,318 @@
 // One level of multi-scale deformable attention as a walk over each query
-// tile's own rectangle of cells, for Hopper (sm_90a).
+// tile's own occupied windows of cells, for Hopper (sm_90a): the
+// range-walking and the block-skipping level kernels, one engine and one C
+// entry point.
 //
-// Replaces trackformer_tpu/ops/msda_dense.py::_kernel_v4 (reached through
-// _dense_level_pallas_v4_fwd: dense_level_pallas_v4 and
-// dense_level_pallas_v4p; routes PALLAS_SKIP_IMPL="v4" and MSDA_DEC_SKIP=1):
+// Replaces trackformer_tpu/ops/msda_dense.py::_kernel_v4 (:356, reached
+// through the pallas_call of _dense_level_pallas_v4_fwd at :539:
+// dense_level_pallas_v4 and dense_level_pallas_v4p; routes
+// PALLAS_SKIP_IMPL="v4" and MSDA_DEC_SKIP=1) and ::_kernel_v2 (:68, reached
+// through the pallas_call of _dense_level_pallas_v2_fwd at :199; route
+// PALLAS_SKIP_IMPL="v2"). Both compute
 //
 //   out[n, q, m, :] = sum_p attn[n, q, m, p] * sum_{r, c} hat(y_p - r)
 //                     * hat(x_p - c) * value[n, r * W + c, m, :],
-//   hat(t) = max(0, 1 - |t|),  x = loc_x * W - 0.5,  y = loc_y * H - 0.5.
+//   hat(t) = max(0, 1 - |t|),  x = loc_x * W - 0.5,  y = loc_y * H - 0.5,
 //
-// The TPU kernel grids over (item, q-tile) only. A tile of TQ queries, taken
-// in the order of an optional permutation `perm` (a spatial sort), meets
-// only the rows floor(min y) - 1 .. floor(max y) + 1 and the columns
-// floor(min x) .. floor(max x) + 1 of the level (min / max over the tile's
-// heads and points, clipped into the level); it walks that row range with
-// hand-written double-buffered DMA and, per row tile, the range of CW-wide
-// column chunks. Every cell column belongs to exactly one chunk, so a
-// bilinear support that straddles two chunks is summed once per corner.
-// Rows and columns outside the ranges are never read.
+// summed in float32 into a float32 output. The TPU kernel v4 grids over
+// (item, q-tile). A tile of TQ queries, taken in the order of an optional
+// permutation `perm` (a spatial sort), meets only the rows floor(min y) - 1
+// .. floor(max y) + 1 and the columns floor(min x) .. floor(max x) + 1 of
+// the level (over the tile's heads and points, clipped into the level); it
+// walks that row range with double-buffered DMA and, per row tile, the
+// range of CW-wide column chunks, each cell column owned by one chunk. This
+// kernel reports these bounds (`ranges`, as ops/msda_dense.py: v4_ranges
+// computes them for the tile size it was launched with) and reads no cell
+// outside them. The TPU kernel v2 builds a dense (queries, cells) hat tile
+// per row tile of a tile of consecutive queries and multiplies it with the
+// values on the matrix unit, skipping the rows outside the tile's band
+// floor(min y) - 1 .. floor(max y) + 1; on this card it is v4's walk at the
+// full width in query order, with the band (`band`, as v2_row_band gives
+// it, clipped to the level) written out in place of the ranges.
 //
-// What differs on this card. The TPU kernel stages all heads of a value
-// tile (2 x 1024 x 384 bf16 = 1.5 MB of VMEM); a block here has 227 KB, so a
-// block serves ONE head of a tile (grid = head x q-tile x item, heads
-// fastest so the blocks that read neighbouring slices of the same cells run
-// together) and stages that head's slice of a window of `rows_per_stage`
-// rows x at most CW columns. The dense hat tile times values on the matrix
-// unit becomes a walk of each point's 2 x 2 support in shared memory. The
-// tile's ranges are reduced by the kernel itself from the samples it loads
-// (the TPU wrapper computes them outside and prefetches them as scalars);
-// the range arithmetic is rounded in two steps so that it equals the plain
-// version's (ops/msda_dense.py: v4_ranges). The permutation is applied by
-// index (loc / attn read at perm[q], out written at perm[q]): no sorted
-// copies and no unsort pass. Chunks are clipped to the occupied columns.
+// What bounds it on this card: bytes (0.010-0.026 ms an encoder level of
+// the flagship, 0.0015 ms the decoder's 100x168 level; each sampled channel
+// costs about 10 flops against a value read). The first designs, a thread
+// per (query, channel) walking every window of the range, reached 1-8 % of
+// that. What this design does about each of their costs:
+//  1. Per-sample work redone D x windows times (each thread re-read its
+//     query's P points, redid floor, window tests and hat weights per
+//     window and channel): now once per sample, into a corner table of
+//     folded weights and (window, cell) keys.
+//  2. Every window of the range staged whether or not a sample of the head
+//     landed in it: the corners mark their windows, a block-wide scan ranks
+//     the occupied ones, and only those are staged, each clipped to the
+//     cells this head's corners reach. The windows are small where the
+//     samples are sparse (the decoder's scattered queries: 1 x 4 cells, 56
+//     a stage in bfloat16) and larger where they are dense (3 x 16 cells on
+//     the encoder levels, whole rows at the full width).
+//  3. A grid of M x ceil(Lq / 256) x N blocks (24 at the decoder call): the
+//     host's plan (ops/msda_dense.py: walk_plan) takes the largest tile of
+//     192, 96, 48 or 24 queries that still gives two blocks an SM (224
+//     blocks at the decoder call).
+//  4. Every head block re-read all M * P samples of its tile to reduce the
+//     tile's range: each block reads only its head's; the bounds over all
+//     heads, which only the reported `ranges` / `band` need, come from the M
+//     head blocks launched as one cluster, through distributed shared
+//     memory.
+//  5. A float32 output tile in shared memory updated with += every window,
+//     two barriers a window, 87 KB a block: each query is owned by one lane
+//     group that keeps its D sums in registers across the walk and writes
+//     them once, at perm[q]; the windows are walked by stages of several.
+//  6. v2 staged its band's rows with plain loads and no overlap: now
+//     cp.async, two stages in flight, as for v4.
 //
-// What bounds it: bytes (each sampled channel costs about 10 flops against
-// a value read). Copies are asynchronous (cp.async, two stages in flight:
-// the next window loads while this one is summed) in the widest word a
-// head's D channels align to: 8 bytes for D = 36 bfloat16, since a head's
-// row of 72 bytes at offset cell * 576 + m * 72 is never 16-byte aligned,
-// which also rules out TMA on this layout.
+// A block serves one head of a tile of `tq` queries of one item (grid =
+// head x tile x item, heads fastest, so that the blocks that read
+// neighbouring slices of the same cells run together). The block:
+//
+//  (1) loads this head's samples of the tile once, one thread a sample, and
+//      computes once per sample its cell coordinates (msda::cell_coord,
+//      rounded in two steps), its four corner cells and their folded
+//      attention x bilinear weights: a corner table of 4 P entries a query.
+//      The level is cut into windows of wr rows x wc columns on a fixed
+//      grid (wc divides the walk's column chunk, so a window lies in one
+//      chunk); each corner in the level belongs to exactly one window, so a
+//      support that straddles windows or chunks is summed once per corner.
+//      Each corner marks its window occupied. Off-level corners are left
+//      out (the plain version gives them weight 0).
+//  (2) reduces the tile's min / max cell coordinates: its own head's in the
+//      block; over all heads, only where the caller asks for the tile's
+//      bounds (`ranges` / `band`), through distributed shared memory: the
+//      M head blocks of a tile are launched as one thread-block cluster,
+//      each publishes its four partials and block 0 of the cluster reads
+//      them all. No block reads another head's samples.
+//  (3) ranks the occupied windows with a block-wide scan (a counting sort
+//      of the windows), and each query's owner thread rewrites its 4 P
+//      corners as (window rank, cell in window) and sorts them by rank.
+//  (4) walks only the occupied windows, `wps` of them a stage, two stages
+//      in flight (cp.async: the next stage loads while this one is summed),
+//      each window clipped to the corners of this head, in the widest word
+//      the layout allows (8 bytes for D = 36 bfloat16: a head's 72-byte row
+//      at cell * 576 + m * 72 is never 16-byte aligned, which also rules out
+//      TMA on a single head's row).
+//  (5) sums each query in registers: the block's lanes form groups of
+//      D * sizeof(T) / WORD lanes (at most 32: a head row of at most 32
+//      words of the widest width that the row and the pointer align to),
+//      each lane on one word of a head row; group g owns the queries g, g +
+//      G, ... (at most KMAX of them) and keeps a cursor into each one's
+//      sorted corners, so that per stage it takes exactly its queries'
+//      corners in that stage, reads their words from shared memory and adds
+//      them. Each (query, channel) is written once, at the query's own index
+//      (perm[q] for a permuted tile).
+//
+// The kernel is compiled for three blocks an SM (at most 85 registers a
+// thread): the phases of a block wait on each other, and a third block
+// hides more of that than the registers a two-block build would keep. Each
+// build makes 28 instantiations (value type x word x queries a group).
+#include <cooperative_groups.h>
+#include <limits.h>
+
 #include "msda_common.cuh"
 
-using namespace msda;
+namespace msda {
+namespace walk {
 
-// Shared memory: [2 stages of `stage_bytes`][out tile: TQ * D f32]
-// [x, y, attn: 3 * TQ * P f32][reduction: 128 f32][query index: TQ int].
-// value_l (N, H*W, M*D) in T; loc (N, Lq, M, P, 2) f32; attn (N, Lq, M, P)
-// f32; perm (N, Lq) int64 or null; out (N, Lq, M*D) f32; ranges
-// (N, ceil(Lq / TQ), 4) int32 or null: each tile's inclusive [row lo, row
-// hi, column lo, column hi] as walked (row lo > row hi: empty walk).
-// cw == 0: no column chunks, every row is walked at full width.
-// gridDim = (M, ceil(Lq / TQ), N).
+constexpr int THREADS = 256;
+// sentinel key of a corner off the level: sorts after every window
+constexpr int NO_CORNER = INT_MAX;
+
+// The host's plan for one launch (ops/msda_dense.py: walk_plan).
+struct Plan {
+  int tq;           // queries a tile
+  int wr, wc;       // rows and columns of a window
+  int wps;          // windows a stage
+  int nwin;         // windows of the level: ceil(h / wr) * ceil(w / wc)
+  int stage_bytes;  // wps windows of wr * wc cells of one head, 16-aligned
+};
+
+// Shared memory of a block: [2 stages][corners: tq * (4P + 1) of (key,
+// weight) int2][window flag / rank: nwin int]
+// [occupied windows in order: nwin int][query index: tq int]
+// [reduction: 128 f32][scan and bounds: 64 int].
+static inline size_t smem_bytes(const Plan& pl, int p) {
+  const size_t ls = 4 * (size_t)p + 1;
+  return 2 * (size_t)pl.stage_bytes + 8 * (size_t)pl.tq * ls +
+         4 * (2 * (size_t)pl.nwin + pl.tq + 128 + 64);
+}
+
+// VW = WORD / sizeof(T) elements of a staged row at `p`, as float32.
 template <typename T, int WORD>
-__global__ void msda_dense_v4_fwd_kernel(
-    const T* __restrict__ value_l, const float* __restrict__ loc,
-    const float* __restrict__ attn, const long long* __restrict__ perm,
-    float* __restrict__ out, int* __restrict__ ranges, int h, int w, int lq,
-    int m, int p, int d, int tq, int cw, int rows_per_stage,
-    int stage_bytes) {
+__device__ __forceinline__ void smem_words(const unsigned char* p, float* o) {
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (WORD == 16) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+    } else if constexpr (WORD == 8) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      o[0] = v.x; o[1] = v.y;
+    } else {
+      o[0] = *reinterpret_cast<const float*>(p);
+    }
+  } else {
+    // bfloat16 is the high half of a float32: element 0 is the low half
+    if constexpr (WORD == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[2 * i] = __uint_as_float(w[i] << 16);
+        o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    } else if constexpr (WORD == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      o[0] = __uint_as_float(u.x << 16);
+      o[1] = __uint_as_float(u.x & 0xffff0000u);
+      o[2] = __uint_as_float(u.y << 16);
+      o[3] = __uint_as_float(u.y & 0xffff0000u);
+    } else if constexpr (WORD == 4) {
+      const unsigned u = *reinterpret_cast<const unsigned*>(p);
+      o[0] = __uint_as_float(u << 16);
+      o[1] = __uint_as_float(u & 0xffff0000u);
+    } else {
+      o[0] = __uint_as_float(
+          (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+    }
+  }
+}
+
+// One word global -> shared: cp.async from 4 bytes up, else a plain copy.
+template <int WORD>
+__device__ __forceinline__ void copy_word(unsigned char* dst,
+                                          const unsigned char* src) {
+  if constexpr (WORD >= 4)
+    cp_async<WORD>(dst, src);
+  else
+    *reinterpret_cast<unsigned short*>(dst) =
+        *reinterpret_cast<const unsigned short*>(src);
+}
+
+// Ranks the flagged windows: `flag_rank` holds 0 / 1 per window and on
+// return the rank of each flagged one among them (in window order); `occ`
+// gets the flagged windows in order. `scratch` is 33 ints. Returns their
+// count to every thread. Barriers inside; the results are visible on
+// return.
+__device__ __forceinline__ int rank_windows(int* flag_rank, int* occ,
+                                            int nwin, int* scratch) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int per = (nwin + blockDim.x - 1) / blockDim.x;
+  const int beg = min(tid * per, nwin);
+  const int end = min(beg + per, nwin);
+  int cnt = 0;
+  for (int i = beg; i < end; ++i) cnt += flag_rank[i];
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += t;
+  }
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int own = lane < nwarps ? scratch[lane] : 0;
+    int v = own;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, v, off);
+      if (lane >= off) v += t;
+    }
+    scratch[lane] = v - own;
+    if (lane == 31) scratch[32] = v;
+  }
+  __syncthreads();
+  int r = scratch[warp] + incl - cnt;
+  for (int i = beg; i < end; ++i) {
+    if (flag_rank[i]) {
+      flag_rank[i] = r;
+      occ[r] = i;
+      ++r;
+    }
+  }
+  const int total = scratch[32];
+  __syncthreads();
+  return total;
+}
+
+// A corner's key as (window rank, cell) from (window, cell).
+__device__ __forceinline__ int ranked(int key, const int* rank) {
+  return key == NO_CORNER ? key : (rank[key >> 16] << 16) | (key & 0xffff);
+}
+
+// The corners of one query sorted by key in registers: a bitonic network
+// over SORT_NET slots, the slots past `count` held by sentinels.
+constexpr int SORT_NET = 16;
+__device__ __forceinline__ void sort_corners_net(int2* cl, int count,
+                                                 const int* rank) {
+  int2 e[SORT_NET];
+#pragma unroll
+  for (int i = 0; i < SORT_NET; ++i) {
+    e[i] = i < count ? cl[i] : make_int2(NO_CORNER, 0);
+    e[i].x = ranked(e[i].x, rank);
+  }
+#pragma unroll
+  for (int k = 2; k <= SORT_NET; k <<= 1)
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1)
+#pragma unroll
+      for (int i = 0; i < SORT_NET; ++i) {
+        const int l = i ^ j;
+        if (l > i && ((e[i].x > e[l].x) == ((i & k) == 0))) {
+          const int2 t = e[i];
+          e[i] = e[l];
+          e[l] = t;
+        }
+      }
+#pragma unroll
+  for (int i = 0; i < SORT_NET; ++i)
+    if (i < count) cl[i] = e[i];
+}
+
+// The same for any count: an insertion sort in shared memory.
+__device__ __forceinline__ void sort_corners_insertion(int2* cl, int count,
+                                                       const int* rank) {
+  for (int e = 0; e < count; ++e) {
+    int2 x = cl[e];
+    x.x = ranked(x.x, rank);
+    int i = e - 1;
+    while (i >= 0 && cl[i].x > x.x) {
+      cl[i + 1] = cl[i];
+      --i;
+    }
+    cl[i + 1] = x;
+  }
+}
+
+// The walk. value_l (N, H*W, M*D) in T; loc (N, Lq, M, P, 2) f32; attn
+// (N, Lq, M, P) f32; perm (N, Lq) int64 or null; out (N, Lq, M*D) f32.
+// The tile's bounds, written only by a launch as clusters of the M head
+// blocks (null otherwise): `ranges` (N, tiles, 4) int32, each tile's
+// inclusive [row lo, row hi, column lo, column hi] as v4_ranges gives them
+// (cw == 0: the full width); `band` (N, tiles, 2) int32, the row band as
+// v2_row_band gives it, clipped to the level. gridDim = (M, tiles, N),
+// blockDim = THREADS. WORD: the bytes a lane reads of a head row at a time
+// (divides D * sizeof(T), D * sizeof(T) / WORD <= 32 lanes); KMAX: the most
+// queries a lane group owns.
+template <typename T, int WORD, int KMAX>
+__global__ void __launch_bounds__(THREADS, 3)
+    walk_kernel(const T* __restrict__ value_l, const float* __restrict__ loc,
+                const float* __restrict__ attn,
+                const long long* __restrict__ perm, float* __restrict__ out,
+                int* __restrict__ ranges, int* __restrict__ band, int h,
+                int w, int lq, int m, int p, int d, int cw, Plan pl) {
+  constexpr int VW = WORD / (int)sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  float* out_s = reinterpret_cast<float*>(smem + 2 * (size_t)stage_bytes);
-  float* qx = out_s + (size_t)tq * d;
-  float* qy = qx + (size_t)tq * p;
-  float* qa = qy + (size_t)tq * p;
-  float* red = qa + (size_t)tq * p;
-  int* qidx = reinterpret_cast<int*>(red + 128);
+  const int ls = 4 * p + 1;  // a query's corners and a sentinel
+  // a corner: (key, weight as int bits), read and moved as one word
+  int2* cor = reinterpret_cast<int2*>(smem + 2 * (size_t)pl.stage_bytes);
+  int* rank = reinterpret_cast<int*>(cor + (size_t)pl.tq * ls);
+  int* occ = rank + pl.nwin;
+  int* qidx = occ + pl.nwin;
+  float* red = reinterpret_cast<float*>(qidx + pl.tq);
+  int* scratch = reinterpret_cast<int*>(red + 128);
+  float* part = reinterpret_cast<float*>(scratch + 40);
 
   const int head = blockIdx.x;
   const int tile = blockIdx.y;
@@ -72,153 +320,347 @@ __global__ void msda_dense_v4_fwd_kernel(
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int md = m * d;
-  const int q_begin = tile * tq;
-  const int nq = min(tq, lq - q_begin);
+  const int q_begin = tile * pl.tq;
+  const int nq = min(pl.tq, lq - q_begin);
+  const int wr = pl.wr, wc = pl.wc;
+  const int n_cb = (w + wc - 1) / wc;
 
-  // (1) the tile's queries, this head's samples, the tile's ranges
-  for (int j = tid; j < nq; j += nthreads)
+  for (int j = tid; j < nq; j += nthreads) {
     qidx[j] = perm != nullptr ? (int)perm[(size_t)n * lq + q_begin + j]
                               : q_begin + j;
-  for (int i = tid; i < nq * d; i += nthreads) out_s[i] = 0.f;
+    cor[j * ls + 4 * p] = make_int2(NO_CORNER, 0);
+  }
+  for (int i = tid; i < pl.nwin; i += nthreads) rank[i] = 0;
   __syncthreads();
-  float xmin, xmax, ymin, ymax;
-  load_tile_samples(loc, attn, qidx, n, lq, m, p, h, w, head, nq, 1, 0, qx,
-                    qy, qa, red, xmin, xmax, ymin, ymax);
-  const int r_lo = min(max((int)floorf(ymin) - 1, 0), h - 1);
-  const int r_hi = min((int)floorf(ymax) + 1, h - 1);
-  int c_lo = min(max((int)floorf(xmin), 0), w - 1);
-  int c_hi = min(max((int)floorf(xmax) + 1, 0), w - 1);
-  if (cw == 0) {
-    c_lo = 0;
-    c_hi = w - 1;
-    cw = w;
-  }
-  if (ranges != nullptr && head == 0 && tid == 0) {
-    int* r = ranges + 4 * ((size_t)n * gridDim.y + tile);
-    r[0] = r_lo;
-    r[1] = r_hi;
-    r[2] = c_lo;
-    r[3] = c_hi;
-  }
 
-  // (2) the walk: column chunks outermost, row stages inside, flattened so
-  // that the next window loads while this one is summed
-  const int n_rs =
-      r_lo <= r_hi ? (r_hi - r_lo + rows_per_stage) / rows_per_stage : 0;
-  const int ch_lo = c_lo / cw;
-  const int total = n_rs * (c_hi / cw - ch_lo + 1);
-  const T* level = value_l + (size_t)n * h * w * md + head * d;
-
-  auto window = [&](int t, int& r0, int& r1, int& c0, int& c1) {
-    const int ch = ch_lo + t / n_rs;
-    r0 = r_lo + (t % n_rs) * rows_per_stage;
-    r1 = min(r0 + rows_per_stage, r_hi + 1);
-    c0 = max(ch * cw, c_lo);
-    c1 = min((ch + 1) * cw, c_hi + 1);
-  };
-  auto prefetch = [&](int t) {
-    int r0, r1, c0, c1;
-    window(t, r0, r1, c0, c1);
-    T* dst = reinterpret_cast<T*>(smem + (size_t)(t & 1) * stage_bytes);
-    stage_window<T, WORD>(dst, level, w, md, d, r0, r1, c0, c1, tid,
-                          nthreads);
-  };
-
-  if (total > 0) prefetch(0);
-  cp_async_commit();
-  for (int t = 0; t < total; ++t) {
-    if (t + 1 < total) prefetch(t + 1);
-    cp_async_commit();
-    cp_async_wait(1);  // all but the newest group: window t has landed
-    __syncthreads();
-    int r0, r1, c0, c1;
-    window(t, r0, r1, c0, c1);
-    const T* win =
-        reinterpret_cast<const T*>(smem + (size_t)(t & 1) * stage_bytes);
-    for (int i = tid; i < nq * d; i += nthreads) {
-      const int ql = i / d;
-      const int c = i - ql * d;
-      out_s[i] += window_sum(win + c, d, r0, r1, c0, c1, qx + ql * p,
-                             qy + ql * p, qa + ql * p, p);
+  // (1) this head's samples, once each: corners, weights, windows
+  float xmin = FLT_MAX, xmax = -FLT_MAX, ymin = FLT_MAX, ymax = -FLT_MAX;
+  for (int i = tid; i < nq * p; i += nthreads) {
+    const int j = i / p;
+    const int pt = i - j * p;
+    const size_t k = (((size_t)n * lq + qidx[j]) * m + head) * p + pt;
+    const float x = cell_coord(__ldg(loc + 2 * k), w);
+    const float y = cell_coord(__ldg(loc + 2 * k + 1), h);
+    const float a = __ldg(attn + k);
+    xmin = fminf(xmin, x);
+    xmax = fmaxf(xmax, x);
+    ymin = fminf(ymin, y);
+    ymax = fmaxf(ymax, y);
+    const float x0f = floorf(x);
+    const float y0f = floorf(y);
+    const float dx = x - x0f;
+    const float dy = y - y0f;
+    const int x0 = (int)x0f;
+    const int y0 = (int)y0f;
+    int2* cl = cor + j * ls + 4 * pt;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int cx = x0 + (c & 1);
+      const int cy = y0 + (c >> 1);
+      if (cx >= 0 && cx < w && cy >= 0 && cy < h) {
+        const int win = (cy / wr) * n_cb + cx / wc;
+        rank[win] = 1;
+        cl[c] = make_int2(
+            (win << 16) | ((cy % wr) * wc + cx % wc),
+            __float_as_int(a * ((c & 1) ? dx : 1.f - dx) *
+                           ((c >> 1) ? dy : 1.f - dy)));
+      } else {
+        cl[c] = make_int2(NO_CORNER, 0);
+      }
     }
-    __syncthreads();  // window t is consumed before its stage is refilled
+  }
+  block_min_max2(xmin, xmax, ymin, ymax, red);  // one barrier
+
+  // (2) the tile's bounds over all heads, where the caller asks for them
+  if (ranges != nullptr || band != nullptr) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    if (tid == 0) {
+      part[0] = xmin;
+      part[1] = xmax;
+      part[2] = ymin;
+      part[3] = ymax;
+    }
+    cluster.sync();
+    if (cluster.block_rank() == 0 && tid == 0) {
+      float b[4] = {FLT_MAX, -FLT_MAX, FLT_MAX, -FLT_MAX};
+      for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+        const float* o = cluster.map_shared_rank(part, r);
+        b[0] = fminf(b[0], o[0]);
+        b[1] = fmaxf(b[1], o[1]);
+        b[2] = fminf(b[2], o[2]);
+        b[3] = fmaxf(b[3], o[3]);
+      }
+      const size_t t = (size_t)n * gridDim.y + tile;
+      if (ranges != nullptr) {
+        int* r = ranges + 4 * t;
+        r[0] = min(max((int)floorf(b[2]) - 1, 0), h - 1);
+        r[1] = min((int)floorf(b[3]) + 1, h - 1);
+        r[2] = cw == 0 ? 0 : min(max((int)floorf(b[0]), 0), w - 1);
+        r[3] = cw == 0 ? w - 1 : min(max((int)floorf(b[1]) + 1, 0), w - 1);
+      }
+      if (band != nullptr) {
+        band[2 * t] = max(0, (int)floorf(b[2]) - 1);
+        band[2 * t + 1] = min(h - 1, (int)floorf(b[3]) + 1);
+      }
+    }
+    cluster.sync();  // no block leaves while block 0 reads its partials
+  }
+
+  // (3) the occupied windows in order, and the cells this head's corners
+  // reach: every staged window is clipped to them
+  const int n_occ = rank_windows(rank, occ, pl.nwin, scratch);
+  const int br0 = max((int)floorf(ymin), 0);
+  const int br1 = min((int)floorf(ymax) + 1, h - 1);
+  const int bc0 = max((int)floorf(xmin), 0);
+  const int bc1 = min((int)floorf(xmax) + 1, w - 1);
+
+  // the lanes: groups of `wpc` lanes, lane `ci` of a group on word ci of a
+  // head row, both to stage the windows and to walk them
+  const int es = (int)sizeof(T);
+  const int wpc = d * es / WORD;  // words a head row, lanes a group
+  const int row_bytes = d * es;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthreads >> 5;
+  const int gpw = 32 / wpc;
+  const int gi = lane / wpc;
+  const int ci = lane - gi * wpc;
+  const int groups = nwarps * gpw;
+  const int g = warp * gpw + gi;
+  const bool active = gi < gpw;
+  const unsigned char* level = reinterpret_cast<const unsigned char*>(
+      value_l + (size_t)n * h * w * md + (size_t)head * d) + ci * WORD;
+  const int n_stages = (n_occ + pl.wps - 1) / pl.wps;
+  const int cells_win = wr * wc;
+  // stage s holds the occupied windows of ranks [s * wps, (s + 1) * wps),
+  // each as (wr, wc, D) elements: the lane groups take its cells in turn
+  // (those outside this head's corners are left), a word a lane
+  auto prefetch = [&](int s) {
+    if (!active) return;
+    unsigned char* dst = smem + (size_t)(s & 1) * pl.stage_bytes +
+                         ci * WORD;
+    for (int i = g; i < pl.wps * cells_win; i += groups) {
+      const int slot = i / cells_win;
+      const int rk = s * pl.wps + slot;
+      if (rk >= n_occ) break;  // i only grows
+      const int cell = i - slot * cells_win;
+      const int rr = cell / wc;
+      const int win = occ[rk];
+      const int rs = win / n_cb;
+      const int r = rs * wr + rr;
+      const int c = (win - rs * n_cb) * wc + cell - rr * wc;
+      if (r < br0 || r > br1 || c < bc0 || c > bc1) continue;
+      copy_word<WORD>(dst + (size_t)i * row_bytes,
+                      level + ((size_t)r * w + c) * md * es);
+    }
+  };
+  if (n_stages > 0) prefetch(0);
+  cp_async_commit();
+
+  // each query's corners as (window rank, cell), sorted by rank by the
+  // owner thread (off-level corners last): in registers by a sorting
+  // network where 4 P <= 16, else an insertion sort in place
+  for (int j = tid; j < nq; j += nthreads) {
+    int2* cl = cor + j * ls;
+    if (4 * p <= SORT_NET)
+      sort_corners_net(cl, 4 * p, rank);
+    else
+      sort_corners_insertion(cl, 4 * p, rank);
+  }
+
+  // (4), (5) the walk: group g sums the queries it owns
+  float acc[KMAX][VW];
+  int cur[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    cur[k] = 0;
+#pragma unroll
+    for (int e = 0; e < VW; ++e) acc[k][e] = 0.f;
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    if (s + 1 < n_stages) prefetch(s + 1);
+    cp_async_commit();
+    cp_async_wait(1);  // all but the newest group: stage s has landed
+    __syncthreads();   // (the first time also: the corners are sorted)
+    if (active) {
+      const unsigned char* stg = smem + (size_t)(s & 1) * pl.stage_bytes;
+      const int base = s * pl.wps;
+      const int limit = (base + pl.wps) << 16;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        const int j = g + k * groups;
+        if (j < nq) {
+          // the next corner is loaded while this one is summed; the
+          // sentinel after the last stops the walk before it is passed
+          const int2* cl = cor + j * ls;
+          int c = cur[k];
+          int2 e = cl[c];
+          while (e.x < limit) {
+            const int2 next = cl[c + 1];
+            const int cell = ((e.x >> 16) - base) * cells_win + (e.x & 0xffff);
+            float v[VW];
+            smem_words<T, WORD>(stg + (size_t)cell * row_bytes + ci * WORD,
+                                v);
+            const float wt = __int_as_float(e.y);
+#pragma unroll
+            for (int u = 0; u < VW; ++u) acc[k][u] += wt * v[u];
+            e = next;
+            ++c;
+          }
+          cur[k] = c;
+        }
+      }
+    }
+    __syncthreads();  // stage s is consumed before it is refilled
   }
   cp_async_wait(0);
 
-  // (3) one write per (query, channel), at the query's own index
-  for (int i = tid; i < nq * d; i += nthreads) {
-    const int ql = i / d;
-    const int c = i - ql * d;
-    out[((size_t)n * lq + qidx[ql]) * md + head * d + c] = out_s[i];
+  // one write per (query, channel), at the query's own index
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      const int j = g + k * groups;
+      if (j < nq) {
+        float* o = out + ((size_t)n * lq + qidx[j]) * md + (size_t)head * d +
+                   ci * VW;
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[e] = acc[k][e];
+      }
+    }
   }
 }
 
-template <typename T, int WORD>
-static int launch_v4(const void* value_l, const void* loc, const void* attn,
-                     const void* perm, void* out, void* ranges, int n, int h,
-                     int w, int lq, int m, int p, int d, int tq, int cw,
-                     int rows, int stage_bytes, size_t smem_bytes,
-                     int threads, cudaStream_t st) {
-  auto kernel = msda_dense_v4_fwd_kernel<T, WORD>;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+// Launches the walk on (M, ceil(Lq / tq), N) blocks, as clusters of the M
+// head blocks when the tile's bounds are asked for; returns the launch's
+// error or cudaGetLastError().
+template <typename T, int WORD, int KMAX>
+static int launch_walk(const void* value_l, const float* loc,
+                       const float* attn, const long long* perm, float* out,
+                       int* ranges, int* band, int n, int h, int w, int lq,
+                       int m, int p, int d, int cw, const Plan& pl,
+                       size_t smem, cudaStream_t st) {
+  auto kernel = walk_kernel<T, WORD, KMAX>;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid(m, (lq + tq - 1) / tq, n);
-  kernel<<<grid, threads, smem_bytes, st>>>(
-      static_cast<const T*>(value_l), static_cast<const float*>(loc),
-      static_cast<const float*>(attn), static_cast<const long long*>(perm),
-      static_cast<float*>(out), static_cast<int*>(ranges), h, w, lq, m, p, d,
-      tq, cw, rows, stage_bytes);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(m, (lq + pl.tq - 1) / pl.tq, n);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = m;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = (ranges != nullptr || band != nullptr) ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(value_l), loc,
+                           attn, perm, out, ranges, band, h, w, lq, m, p, d,
+                           cw, pl);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// Plain C entry point, loaded with ctypes. `cw` is the chunk width in
-// columns, 0 for a pure row walk at full width; `perm` and `ranges` may be
-// null; `stage_budget_bytes` is the shared memory to spend on each of the
-// two stages (at least one row of a window is always staged). Launches on
-// `stream` and returns cudaGetLastError() (0 on success),
-// cudaErrorInvalidValue for a shape the kernel does not take.
+template <typename T, int WORD>
+static int launch_kmax(int kmax, const void* value_l, const float* loc,
+                       const float* attn, const long long* perm, float* out,
+                       int* ranges, int* band, int n, int h, int w, int lq,
+                       int m, int p, int d, int cw, const Plan& pl,
+                       size_t smem, cudaStream_t st) {
+#define WALK_K(K)                                                          \
+  return launch_walk<T, WORD, K>(value_l, loc, attn, perm, out, ranges,    \
+                                 band, n, h, w, lq, m, p, d, cw, pl, smem, \
+                                 st)
+  if (kmax == 1) WALK_K(1);
+  if (kmax == 2) WALK_K(2);
+  if (kmax == 4) WALK_K(4);
+  WALK_K(8);
+#undef WALK_K
+}
+
+}  // namespace walk
+}  // namespace msda
+
+// Plain C entry point of both kernels, loaded with ctypes. value_l (N,
+// H*W, M*D) in bf16 or f32; loc (N, Lq, M, P, 2) f32; attn (N, Lq, M, P)
+// f32; perm (N, Lq) int64 or null (tiles in query order); out (N, Lq, M*D)
+// f32. ranges (N, ceil(Lq / tq), 4) int32 or null: each tile's inclusive
+// [row lo, row hi, column lo, column hi] (row lo > row hi: an empty walk);
+// band (N, ceil(Lq / tq), 2) int32 or null: each tile's inclusive row band
+// clipped to the level (lo > hi: empty). `cw` is the chunk width in
+// columns, 0 for the full width. tq, wr, wc, wps, kmax and word are the
+// host's plan (ops/msda_dense.py: walk_plan). Kernel v4 / v4p is this
+// launch with `ranges`, kernel v2 with perm null, cw 0 and `band`.
+// Launches on `stream` and returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for a plan or shape the kernel does not take,
+// cudaErrorMisalignedAddress for a word that the value pointer or a
+// head's row does not align to.
 extern "C" int msda_dense_v4_fwd(const void* value_l, const void* loc,
                                  const void* attn, const void* perm,
-                                 void* out, void* ranges, int n, int h, int w,
-                                 int lq, int m, int p, int d,
-                                 int value_is_bf16, int tq, int cw,
-                                 int stage_budget_bytes, int threads,
+                                 void* out, void* ranges, void* band, int n,
+                                 int h, int w, int lq, int m, int p, int d,
+                                 int value_is_bf16, int cw, int tq, int wr,
+                                 int wc, int wps, int kmax, int word,
                                  void* stream) {
-  if (n < 1 || n > 65535 || h < 1 || w < 1 || lq < 0 || m < 1 || m > 65535 ||
-      p < 1 || d < 1 || tq < 1 || cw < 0 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0)
+  using namespace msda::walk;
+  const int es = value_is_bf16 ? 2 : 4;
+  if (n < 1 || n > 65535 || h < 1 || w < 1 || lq < 0 || m < 1 || p < 1 ||
+      d < 1 || cw < 0 || tq < 1 || wr < 1 || wc < 1 || wc > w || wps < 1 ||
+      (kmax != 1 && kmax != 2 && kmax != 4 && kmax != 8))
     return (int)cudaErrorInvalidValue;
+  // clusters of the M head blocks: at most 8, the portable size
+  if ((ranges != nullptr || band != nullptr) && m > 8)
+    return (int)cudaErrorInvalidValue;
+  if ((word != 2 && word != 4 && word != 8 && word != 16) || word < es ||
+      (d * es) % word != 0 || d * es / word > 32)
+    return (int)cudaErrorInvalidValue;
+  if (((size_t)m * d * es) % word != 0 ||
+      reinterpret_cast<uintptr_t>(value_l) % word != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int groups = (THREADS / 32) * (32 / (d * es / word));
+  if (tq > groups * kmax) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  pl.tq = tq;
+  pl.wr = wr;
+  pl.wc = wc;
+  pl.wps = wps;
+  const long long nwin =
+      (long long)((h + wr - 1) / wr) * ((w + wc - 1) / wc);
+  // a corner's key is (window << 16 | cell): both must fit
+  if (nwin + wps >= 32768 || (long long)wr * wc > 65536)
+    return (int)cudaErrorInvalidValue;
+  pl.nwin = (int)nwin;
+  const long long stage =
+      ((long long)wps * wr * wc * d * es + 15) / 16 * 16;
+  if (stage > 227 * 1024) return (int)cudaErrorInvalidValue;
+  pl.stage_bytes = (int)stage;
+  const size_t smem = smem_bytes(pl, p);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (lq == 0) return (int)cudaGetLastError();
   if ((lq + tq - 1) / tq > 65535) return (int)cudaErrorInvalidValue;
-  const int es = value_is_bf16 ? 2 : 4;
-  const int cols = (cw == 0 || cw > w) ? w : cw;
-  const size_t row_bytes = (size_t)cols * d * es;
-  if (row_bytes > 96 * 1024) return (int)cudaErrorInvalidValue;
-  int rows = (int)((size_t)stage_budget_bytes / row_bytes);
-  rows = rows < 1 ? 1 : (rows > h ? h : rows);
-  const int stage_bytes = (int)((rows * row_bytes + 15) / 16 * 16);
-  const size_t smem_bytes =
-      2 * (size_t)stage_bytes +
-      sizeof(float) * ((size_t)tq * d + 3 * (size_t)tq * p + 128) +
-      sizeof(int) * (size_t)tq;
-  if (smem_bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
-  const int word = staging_word(value_l, m, d, es);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define V4_LAUNCH(T, WORD)                                                   \
-  return launch_v4<T, WORD>(value_l, loc, attn, perm, out, ranges, n, h, w, \
-                            lq, m, p, d, tq, cw, rows, stage_bytes,         \
-                            smem_bytes, threads, st)
+  const float* lo = static_cast<const float*>(loc);
+  const float* at = static_cast<const float*>(attn);
+  const long long* pm = static_cast<const long long*>(perm);
+  float* o = static_cast<float*>(out);
+  int* rg = static_cast<int*>(ranges);
+  int* bd = static_cast<int*>(band);
+#define WALK_W(T, WORD)                                                     \
+  return launch_kmax<T, WORD>(kmax, value_l, lo, at, pm, o, rg, bd, n, h, w, \
+                              lq, m, p, d, cw, pl, smem, st)
   if (value_is_bf16) {
-    if (word == 16) V4_LAUNCH(__nv_bfloat16, 16);
-    if (word == 8) V4_LAUNCH(__nv_bfloat16, 8);
-    if (word == 4) V4_LAUNCH(__nv_bfloat16, 4);
-    V4_LAUNCH(__nv_bfloat16, 2);
+    if (word == 16) WALK_W(__nv_bfloat16, 16);
+    if (word == 8) WALK_W(__nv_bfloat16, 8);
+    if (word == 4) WALK_W(__nv_bfloat16, 4);
+    WALK_W(__nv_bfloat16, 2);
   }
-  if (word == 16) V4_LAUNCH(float, 16);
-  if (word == 8) V4_LAUNCH(float, 8);
-  V4_LAUNCH(float, 4);
-#undef V4_LAUNCH
+  if (word == 16) WALK_W(float, 16);
+  if (word == 8) WALK_W(float, 8);
+  WALK_W(float, 4);
+#undef WALK_W
 }

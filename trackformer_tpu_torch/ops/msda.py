@@ -28,8 +28,9 @@ The route switches are the JAX package's. The module global
 `PALLAS_SKIP_IMPL`, read from the environment variable of that name, default
 "v5": with "v2" the levels that the JAX routing sends to its block-skipping
 kernel (`v2_levels`) go through `dense_level_pallas_v2`
-(`ops/msda_dense.py`, `csrc/msda_dense_v2_fwd.cu`); with "v4" the same
-levels go through the range-walking kernel (`csrc/msda_dense_v4_fwd.cu`):
+(`ops/msda_dense.py`: the walk of `csrc/msda_dense_v4_fwd.cu` at the full
+width in query order); with "v4" the same levels go through the
+range-walking kernel (the same walk, `csrc/msda_dense_v4_fwd.cu`):
 `dense_level_pallas_v4p` in column chunks of `PALLAS_V4_CW` with ONE
 spatial sort of the queries per call while `PALLAS_V4_SORT` is on, else
 `dense_level_pallas_v4`. The module global `MSDA_DEC_SKIP` (environment

@@ -16,10 +16,8 @@ its TPU contract so that the kernel can be held against the v1 kernel at
 the decoder's single-level shape.
 
 `dense_level_pallas_v2`: the TPU's `_kernel_v2` skips every (query tile,
-row tile) pair whose row ranges miss. On the card it is one launch of
-`csrc/msda_dense_v2_fwd.cu`: a block per (head, tile of `V2_TQ` consecutive
-queries, item) stages only the tile's band of value rows (`v2_row_band`)
-into shared memory and samples from there. Route "v2" of `ms_deform_attn`
+row tile) pair whose row ranges miss. On the card it is one launch of the
+walk of `csrc/msda_dense_v4_fwd.cu` (below); route "v2" of `ms_deform_attn`
 reaches it for every level of the flagship encoder call.
 
 `dense_level_pallas_v4` / `dense_level_pallas_v4p`: the TPU's `_kernel_v4`
@@ -29,6 +27,17 @@ order of a caller's permutation (`spatial_sort_perm`). On the card: one
 launch of `csrc/msda_dense_v4_fwd.cu`. Route "v4" of `ms_deform_attn`
 reaches it for every level of the encoder call, `MSDA_DEC_SKIP` for the
 decoder's fine levels.
+
+The two compute one function and launch one kernel and C entry point, the
+walk of `csrc/msda_dense_v4_fwd.cu`: a block per (head, query tile, item)
+computes each sample's corners once, stages only the windows of cells that
+its head's corners fall in, and sums each query in one lane group's
+registers. v2 is the walk in query order at the full width, with the
+tile's row band (`v2_row_band`) written out. The host's `walk_plan` picks
+the tile, the windows and the lanes of a launch. A head row must fit one
+warp's lanes (`walk_plan`): the walk refuses float32 rows of more than 128
+channels and bfloat16 rows that a pointer's alignment splits into more
+than 32 words; the plain version takes any.
 
 `dense_level_pallas_v3`: the TPU's `_kernel_v3` sorts the queries, keeps
 v2's row band and computes a tile on one window of `cw` columns when its
@@ -44,22 +53,20 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .cuda_build import MSDA_COMMON, CudaLib
 from .msda import count_launch, level_plain, msda_bwd_cuda, msda_cuda
 
-# queries per tile of the tile-walking kernels (the JAX package's V2_TQ);
-# read at every call that leaves `tq` unset
+# queries per tile of kernel v3 (the JAX package's V2_TQ); read at every
+# call that leaves `tq` unset
 V2_TQ = 256
-# shared memory for staged value rows per block, and threads per block
+# kernel v3: shared memory for staged value rows per block, and threads per
+# block
 V2_CHUNK_BYTES = 48 * 1024
 V2_THREADS = 256
-# kernel v4: shared memory for each of its two stages. 18 KB is four rows of
-# a 64-column chunk of one head in bfloat16, and keeps two blocks on an SM
-V4_STAGE_BYTES = 18 * 1024
 # kernel v3: columns of a tile's window (the JAX function's default)
 V3_CW = 64
 
@@ -74,6 +81,161 @@ def dense_level_pallas(value_l: torch.Tensor, loc_l: torch.Tensor,
         return level_plain(value_l, loc_l, attn_l, h, w).to(value_l.dtype)
     return msda_cuda(value_l, ((h, w),), loc_l.unsqueeze(3),
                      attn_l.unsqueeze(3), "dense_level_pallas")
+
+
+# --------------------------------------------------------------------------
+# the walk of kernels v2 and v4 (`csrc/msda_dense_v4_fwd.cu`): the host's
+# plan
+# --------------------------------------------------------------------------
+
+# threads a block, and the SMs of the card the plan fills (H100 SXM)
+WALK_THREADS = 256
+WALK_SMS = 132
+# the most queries one lane group owns: the kernel's instantiations; the
+# tiles the plan takes, largest first
+WALK_KMAX = (1, 2, 4, 8)
+WALK_TQS = (192, 96, 48, 24)
+# shared memory for each of the walk's two stages, and a window's target
+# size where the samples are dense (several windows a stage)
+WALK_STAGE_BYTES = 16 * 1024
+WALK_WINDOW_BYTES = 4 * 1024
+# a window of whole rows at the full width: at most this many bytes (at
+# least one row), one a stage
+WALK_ROWS_BYTES = 24 * 1024
+# the window where the samples are sparse (fewer corners a head than
+# cells: the decoder's scattered queries), rows x columns, and its columns
+# where they are dense
+WALK_SPARSE_ROWS = 1
+WALK_SPARSE_COLS = 4
+WALK_DENSE_COLS = 16
+WALK_SMEM_LIMIT = 227 * 1024
+
+
+class WalkPlan(NamedTuple):
+    """How the walk serves one launch: `tq` queries a tile; lane groups of
+    `lanes` lanes, each lane on `word` bytes of a head row, `groups` of them
+    a block, each owning at most `kmax` queries of the tile; windows of
+    `wr` rows x `wc` columns on a fixed grid of `nwin` windows, `wps` of
+    them a stage of `stage_bytes`; `smem_bytes` of shared memory a block;
+    the grid (heads, tiles, items)."""
+    tq: int
+    kmax: int
+    word: int
+    lanes: int
+    groups: int
+    wr: int
+    wc: int
+    wps: int
+    nwin: int
+    stage_bytes: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def _largest_divisor(n: int, most: int) -> int:
+    return max(k for k in range(1, min(n, most) + 1) if n % k == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def walk_plan(n: int, lq: int, m: int, p: int, d: int, h: int, w: int,
+              es: int, value_ptr: int, cw: int = 0,
+              tq: Optional[int] = None,
+              stage_budget: int = WALK_STAGE_BYTES,
+              window_budget: int = WALK_WINDOW_BYTES) -> WalkPlan:
+    """The plan of the walk (`csrc/msda_dense_v4_fwd.cu`) for one level of
+    (h, w) cells with head rows of d elements of es bytes at `value_ptr`,
+    `lq` queries of p points, walked in column chunks of `cw` (0: the full
+    width). The word: the widest of 16, 8, 4, 2 bytes that divides a head's
+    row, the cell and the pointer's alignment, with a row in at most 32
+    lanes: a row that needs more lanes than a warp is refused (float32
+    rows of more than 128 channels; bfloat16 rows of more than 32 channels
+    at a pointer only 2-byte aligned, of more than 64 at a 4-byte one). The
+    tile (`tq` None): the largest of `WALK_TQS` that still gives two
+    blocks an SM, else the smallest. The windows: at the full
+    width, whole rows (`WALK_ROWS_BYTES`); in chunks, a divisor of the
+    chunk as columns (so that a window lies in one chunk):
+    `WALK_SPARSE_ROWS` x `WALK_SPARSE_COLS` cells where the samples are
+    sparse, about `window_budget` bytes of `WALK_DENSE_COLS` columns where
+    they are dense; `stage_budget` bytes of windows a stage (the tests'
+    mirror of the walk takes small budgets, so that a tile walks several
+    stages). Only `value_ptr % 16` matters: the wrappers pass that, so
+    that the cache holds one plan a call shape."""
+    word = next((wd for wd in (16, 8, 4, 2)
+                 if wd >= es and (d * es) % wd == 0 and value_ptr % wd == 0
+                 and d * es // wd <= 32), None)
+    if word is None:
+        raise ValueError(f"walk: no word for head rows of {d} x {es} bytes "
+                         f"at {value_ptr % 16} bytes past a 16-byte "
+                         f"boundary")
+    lanes = d * es // word
+    groups = WALK_THREADS // 32 * (32 // lanes)
+    if tq is None:
+        tq = next((t for t in WALK_TQS
+                   if m * -(-lq // t) * n >= 2 * WALK_SMS), WALK_TQS[-1])
+    kmax = next((k for k in WALK_KMAX if groups * k >= tq), None)
+    if kmax is None or tq < 1:
+        raise ValueError(f"walk: tq {tq} above {groups * WALK_KMAX[-1]}")
+    cell = d * es
+    if cw == 0:
+        wc = w
+        wr = max(1, min(h, WALK_ROWS_BYTES // (w * cell)))
+    elif lq * p < h * w:
+        wc = _largest_divisor(min(cw, w), WALK_SPARSE_COLS)
+        wr = min(WALK_SPARSE_ROWS, h)
+    else:
+        wc = _largest_divisor(min(cw, w), WALK_DENSE_COLS)
+        wr = max(1, min(h, window_budget // (wc * cell)))
+    wps = max(1, stage_budget // (wr * wc * cell))
+    nwin = -(-h // wr) * -(-w // wc)
+    while nwin + wps >= 32768:          # a corner's key holds its window
+        wr *= 2
+        wps = max(1, stage_budget // (wr * wc * cell))
+        nwin = -(-h // wr) * -(-w // wc)
+    stage_bytes = -(-wps * wr * wc * cell // 16) * 16
+    smem = 2 * stage_bytes + 4 * (2 * tq * (4 * p + 1) + 2 * nwin + tq
+                                  + 128 + 64)
+    if smem > WALK_SMEM_LIMIT:
+        raise ValueError(f"walk: {smem} bytes of shared memory a block")
+    return WalkPlan(tq, kmax, word, lanes, groups, wr, wc, wps, nwin,
+                    stage_bytes, smem, (m, -(-lq // tq), n))
+
+
+V4_LIB = CudaLib("msda_dense_v4_fwd.cu", {"msda_dense_v4_fwd": (
+    ctypes.c_int,
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p])},
+    headers=[MSDA_COMMON])
+
+
+def _walk(count_name: str, value_l, loc_l, attn_l, h: int, w: int,
+          perm: Optional[torch.Tensor], cw: int, tq: Optional[int],
+          want_ranges: bool = False, want_band: bool = False):
+    """One launch of the walk, served as `walk_plan` says -> (out (N, Lq,
+    M, D) float32, the tiles' int32 `ranges` (N, tiles, 4) or `band` (N,
+    tiles, 2) where asked for, else None). Counts it as `count_name`."""
+    name = "msda_dense_v4_fwd"
+    n, lq, m, p, d = _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
+    plan = walk_plan(n, lq, m, p, d, h, w, value_l.element_size(),
+                     value_l.data_ptr() % 16, cw, tq)
+    lib = V4_LIB.load()
+    dev = value_l.device
+    out = torch.empty(n, lq, m, d, dtype=torch.float32, device=dev)
+    bounds = (torch.empty(n, plan.grid[1], 4 if want_ranges else 2,
+                          dtype=torch.int32, device=dev)
+              if want_ranges or want_band else None)
+    ptr = None if bounds is None else bounds.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msda_dense_v4_fwd(
+            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
+            None if perm is None else perm.data_ptr(), out.data_ptr(),
+            ptr if want_ranges else None, None if want_ranges else ptr,
+            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), cw,
+            plan.tq, plan.wr, plan.wc, plan.wps, plan.kmax, plan.word,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    count_launch(count_name, n, lq, ((h, w),))
+    return out, bounds
 
 
 # --------------------------------------------------------------------------
@@ -132,35 +294,17 @@ def _check_perm(name: str, perm, ref: torch.Tensor) -> None:
                          f"({n}, {lq}) tensor on {ref.device}")
 
 
-V2_LIB = CudaLib("msda_dense_v2_fwd.cu", {"msda_dense_v2_fwd": (
-    ctypes.c_int,
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])})
-
-
 def dense_level_v2_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
                             attn_l: torch.Tensor, h: int, w: int,
-                            tq: int = V2_TQ, return_band: bool = False):
-    """One launch of the block-skipping kernel -> (N, Lq, M, D) float32;
-    with `return_band` also the kernel's own (N, ceil(Lq / tq), 2) int32
-    row bands clipped to the level (lo > hi: empty). Counts the launch as
-    "dense_level_pallas_v2"."""
-    n, lq, m, p, d = _check_level_inputs("msda_dense_v2_fwd", value_l, loc_l,
-                                         attn_l, h, w)
-    lib = V2_LIB.load()
-    out = torch.empty(n, lq, m, d, dtype=torch.float32,
-                      device=value_l.device)
-    band = (torch.empty(n, -(-lq // tq), 2, dtype=torch.int32,
-                        device=value_l.device) if return_band else None)
-    with torch.cuda.device(value_l.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_dense_v2_fwd(
-            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
-            out.data_ptr(), None if band is None else band.data_ptr(),
-            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), tq,
-            V2_CHUNK_BYTES, V2_THREADS, stream)
-    if rc != 0:
-        raise RuntimeError(f"msda_dense_v2_fwd launch failed: cudaError {rc}")
-    count_launch("dense_level_pallas_v2", n, lq, ((h, w),))
+                            tq: Optional[int] = None,
+                            return_band: bool = False):
+    """One launch of the block-skipping kernel: the walk (`V4_LIB`) at the
+    full width in query order, served as `walk_plan` says (`tq` None: the
+    plan's tile) -> (N, Lq, M, D) float32; with `return_band` also the
+    kernel's own (N, ceil(Lq / tq), 2) int32 row bands clipped to the level
+    (lo > hi: empty). Counts the launch as "dense_level_pallas_v2"."""
+    out, band = _walk("dense_level_pallas_v2", value_l, loc_l, attn_l, h, w,
+                      None, 0, tq, want_band=return_band)
     return (out, band) if return_band else out
 
 
@@ -268,10 +412,6 @@ def v4_ranges(loc_l: torch.Tensor, h: int, w: int, tq: Optional[int] = None,
     return torch.stack([r_lo, r_hi, c_lo, c_hi], -1).long()
 
 
-V4_LIB = CudaLib("msda_dense_v4_fwd.cu", {"msda_dense_v4_fwd": (
-    ctypes.c_int,
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p])},
-    headers=[MSDA_COMMON])
 
 
 def dense_level_v4_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
@@ -280,34 +420,18 @@ def dense_level_v4_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
                             cw: Optional[int] = None,
                             tq: Optional[int] = None,
                             return_ranges: bool = False):
-    """One launch of the range-walking kernel -> (N, Lq, M, D) float32; with
+    """One launch of the range-walking kernel, served as `walk_plan` says
+    (`tq` None: the plan's tile) -> (N, Lq, M, D) float32; with
     `return_ranges` also the kernel's own (N, ceil(Lq / tq), 4) int32 walk
-    bounds (`v4_ranges`). `perm` (N, Lq) int64 tiles the queries in its
-    order; `cw` None walks every row at full width. Counts the launch as
-    "dense_level_pallas_v4"."""
-    name = "msda_dense_v4_fwd"
-    n, lq, m, p, d = _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
+    bounds (`v4_ranges` at that tile). `perm` (N, Lq) int64 tiles the
+    queries in its order; `cw` None walks every row at full width. Counts
+    the launch as "dense_level_pallas_v4"."""
     if perm is not None:
-        _check_perm(name, perm, loc_l)
+        _check_perm("msda_dense_v4_fwd", perm, loc_l)
     if cw is not None and cw < 1:
-        raise ValueError(f"{name}: cw {cw}")
-    tq = V2_TQ if tq is None else tq
-    lib = V4_LIB.load()
-    out = torch.empty(n, lq, m, d, dtype=torch.float32,
-                      device=value_l.device)
-    ranges = (torch.empty(n, -(-lq // tq), 4, dtype=torch.int32,
-                          device=value_l.device) if return_ranges else None)
-    with torch.cuda.device(value_l.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_dense_v4_fwd(
-            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
-            None if perm is None else perm.data_ptr(), out.data_ptr(),
-            None if ranges is None else ranges.data_ptr(),
-            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), tq,
-            cw or 0, V4_STAGE_BYTES, V2_THREADS, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    count_launch("dense_level_pallas_v4", n, lq, ((h, w),))
+        raise ValueError(f"msda_dense_v4_fwd: cw {cw}")
+    out, ranges = _walk("dense_level_pallas_v4", value_l, loc_l, attn_l, h,
+                        w, perm, cw or 0, tq, want_ranges=return_ranges)
     return (out, ranges) if return_ranges else out
 
 
