@@ -62,8 +62,9 @@ REPO = Path(__file__).resolve().parent
 
 # the port's kernels, by a part of their CUDA function's name
 # ("window_layer_" sums the window layer's kernels, the stages name each;
-# "walk_kernel" is the one kernel of both the block-skipping and the
-# range-walking level ops: a path that runs both, such as
+# "walk_kernel" is the one kernel of the block-skipping and the
+# range-walking level ops, and of the sorted x-windowed and all-levels
+# flat-walk ops that no path runs: a path that runs both routes, such as
 # PALLAS_SKIP_IMPL=v2 with MSDA_DEC_SKIP=1, gets their sum under it, and
 # `port_launches_per_step` still counts each op's launches apart)
 PORT_KERNELS = ("msda_fwd_kernel", "msda_bwd_kernel", "window_layer_",

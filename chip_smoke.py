@@ -7,7 +7,7 @@ NVIDIA GPU.
 Phases, a few lines each (`--phases` runs a subset and then ends with a
 last line marked "partial"; the kernels line needs all of them):
   device: requires CUDA, prints `nvidia-smi` name and power limit;
-  build: compiles the eight kernel sources of trackformer_tpu_torch/csrc
+  build: compiles the five kernel sources of trackformer_tpu_torch/csrc
      for sm_90a, one nvcc each, started together; reports each one's seconds
      and registers;
   msda: holds each MSDA wrapper's CUDA launch against the plain PyTorch
@@ -53,7 +53,9 @@ last line marked "partial"; the kernels line needs all of them):
      the gather kernel and the `grid_sample` composition on the same level,
      and with `--old-dense-v2 PATH` (an earlier `csrc/msda_dense_v2_fwd.cu`,
      copied outside the package) that design and this one through their C
-     entry points in turns (`old_ms`, `entry_ms`, `ms_turns`); then tiles
+     entry points in turns (`old_ms`, `entry_ms`, `ms_turns`; with
+     `--old-walk PATH`, an earlier one-level walk's copy, that walk too:
+     `old_walk_ms`); then tiles
      whose band holds rows with no sample, supports on window borders and
      the odd staging words; then the differentiable wrapper
      `dense_level_pallas_v2` on a slice of the value table, and the whole
@@ -70,8 +72,11 @@ last line marked "partial"; the kernels line needs all of them):
      of its plan (`walk_plan`, printed in each case line); times beside the
      gather kernel's, the block-skipping kernel's and the `grid_sample`
      composition's on the same level, and with `--old-dense-v4 PATH` the
-     earlier design's through the C entry points in turns; the
-     differentiable wrappers' gradients;
+     earlier design's (and with `--old-walk PATH` an earlier walk's)
+     through the C entry points in turns; the
+     differentiable wrappers' gradients; head rows wider than a warp (the
+     walk's two passes): float32 rows of 160 channels, and D = 36
+     bfloat16 rows at a value pointer one element off its alignment;
      then the whole encoder call through route "v4" and the whole decoder
      call under `MSDA_DEC_SKIP`, output and gradients against the plain
      version, with their launch counts;
@@ -79,15 +84,22 @@ last line marked "partial"; the kernels line needs all of them):
      JAX package reaches. Their path is the public op on the inputs of one
      real encoder MSDA call of the full-width exact model on a frame (the
      value after its projection, the layer's own locations and weights):
-     `dense_level_pallas_v3` per level (windows against `v3_windows`, both
-     the fitting and the full-width branch, also with offsets six times as
-     large), `ms_deform_attn_pallas` (also at the decoder call's shape;
+     `dense_level_pallas_v3` per level (the walk in a spatial sort and
+     64-column chunks; windows against `v3_windows` at the tile of its
+     plan, both the fitting and the full-width branch, also N = 2 with
+     offsets six times as large and with samples pushed across the
+     border), `ms_deform_attn_pallas` (also at the decoder call's shape;
      timed beside torch.gather + multiply + sum, a library composition),
-     `msda_patch_v6` (also N = 2 with samples pushed across the border);
+     `msda_patch_v6` (the walk over all levels in snake order; also N = 2
+     with samples pushed across the border; its time split by level);
      each against its plain version in float32 and bfloat16, with the
-     wrappers' gradients where the op has them. These four kernels are also
+     wrappers' gradients where the op has them. These kernels are also
      held at small shapes whose head rows align to 2 and to 4 bytes only
-     (the staging words that D = 36 never takes);
+     (the staging words that D = 36 never takes); with `--old-dense-v3
+     PATH` / `--old-patch-v6 PATH` (the earlier sources, copied outside
+     the package with the `msda_common.cuh` they were built with) the
+     earlier designs through their C entry points, timed in turns with
+     this one's (`old_ms`, `entry_ms`, `ms_turns`);
   Times are CUDA-event medians over back-to-back calls (`time_ms`);
   exact: the full-width flagship model (hidden 288, 6+6 layers, 500
      queries, 4 levels x 2 frames, exact MSDA) with seeded random weights
@@ -235,9 +247,9 @@ def reset_launch_counts() -> None:
 def all_libs():
     """Every kernel library of the port."""
     from trackformer_tpu_torch.ops import (msda, msda_dense, msda_pallas,
-                                           msda_patch, window_attn)
+                                           window_attn)
     return [msda.LIB, msda.BWD_LIB, window_attn.LIB, msda_dense.V4_LIB,
-            msda_dense.V3_LIB, msda_pallas.LIB, msda_patch.V6_LIB]
+            msda_pallas.LIB]
 
 
 # MSDA launches of the main paths by shape, (count name, items, queries per
@@ -1170,22 +1182,30 @@ def grads_against_plain(tag: str, dtype, kernel_fn, plain_fn, inputs, g,
               f"tolerance: {errs}")
 
 
-# the earlier designs of the block-skipping and range-walking kernels
-# (`--old-dense-v2`, `--old-dense-v4`): their libraries, built with the
-# others, or None
+# the earlier designs of the block-skipping, range-walking and sorted
+# x-windowed level kernels and of the flat-walk kernel (`--old-dense-v2`,
+# `--old-dense-v4`, `--old-dense-v3`, `--old-patch-v6`), and the earlier
+# walk of one level (`--old-walk`): their libraries, built with the others,
+# or None
 OLD_V2_LIB = None
 OLD_V4_LIB = None
-# the earlier designs' tile, and their shared memory for staged rows
+OLD_V3_LIB = None
+OLD_V6_LIB = None
+OLD_WALK_LIB = None
+# the earlier level designs' tile, and their shared memory for staged rows
 OLD_DENSE_TQ = 256
 OLD_V2_CHUNK_BYTES = 48 * 1024
 OLD_V4_STAGE_BYTES = 18 * 1024
+# the earlier flat walk's tile, chunk rows and columns, slots and threads
+OLD_V6_GEOMETRY = (128, 8, 32, 4, 256)
 
 
 def old_dense_lib(path: str, kind: str):
     """A `CudaLib` of an earlier `csrc/msda_dense_{kind}_fwd.cu` (a copy
-    outside the package, for an A/B) with that design's C entry point: the
-    first designs of both kernels, a thread per (query, channel), with the
-    tile, the staging budget and the threads as the last ints."""
+    outside the package, for an A/B, beside the `msda_common.cuh` it was
+    built with) with that design's C entry point: the first designs of the
+    level kernels, a thread per (query, channel), with the tile, the
+    staging budget and the threads as the last ints."""
     import ctypes
     from trackformer_tpu_torch.ops.cuda_build import CudaLib
     ptrs, ints = (5, 11) if kind == "v2" else (6, 12)
@@ -1194,68 +1214,147 @@ def old_dense_lib(path: str, kind: str):
         [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p])})
 
 
-def raw_dense(kind: str, fn, v, loc, attn, h, w, perm=None, cw=None,
-              plan=None):
-    """One launch of kernel `kind` (v2 / v4) through the C entry point `fn`,
-    without the wrapper's checks, plan and count -> (N, Lq, M, D) float32.
-    `plan` (`walk_plan`) for this design's entry point, the walk's
-    `msda_dense_v4_fwd` for both kernels (v2: query order at the full
-    width); None for the earlier design's (`old_dense_lib`), one entry point
-    a kernel."""
+def old_walk_lib(path: str):
+    """A `CudaLib` of an earlier walk, `csrc/msda_dense_v4_fwd.cu` with a
+    one-level C entry point of 7 pointers and 15 ints (the plan's tile,
+    windows, queries a group and word last; a copy outside the package,
+    beside the `msda_common.cuh` it was built with)."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    return CudaLib(str(Path(path).resolve()), {"msda_dense_v4_fwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p])})
+
+
+def raw_old_walk(fn, v, loc, attn, plan, cw, perm=None):
+    """One launch of the earlier walk through its C entry point `fn`, as
+    this walk's one-level `plan` says -> (N, Lq, M, D) float32."""
+    n, lq, m, p = loc.shape[:4]
+    d = v.shape[-1]
+    (h, w), = plan.shapes
+    lv = plan.levels[0]
+    out = torch.empty(n, lq, m, d, device=v.device, dtype=torch.float32)
+    rc = fn(v.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            None if perm is None else perm.data_ptr(), out.data_ptr(), None,
+            None, n, h, w, lq, m, p, d, int(v.dtype == torch.bfloat16), cw,
+            plan.tq, lv.wr, lv.wc, lv.wps, plan.kmax, plan.word,
+            torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"msda_dense_v4_fwd (earlier walk) launch failed: "
+                   f"cudaError {rc}")
+    return out
+
+
+def old_patch_lib(path: str):
+    """A `CudaLib` of an earlier `csrc/msda_patch_v6_fwd.cu` (a copy outside
+    the package, beside the `msda_common.cuh` it was built with): the first
+    design of the flat walk, which walks the chunk list `v6_walk` builds."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    return CudaLib(str(Path(path).resolve()), {"msda_patch_v6_fwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7
+        + [ctypes.c_void_p])})
+
+
+def raw_walk(v, loc, attn, plan, cw, perm=None, perm_shared=None):
+    """One launch of the walk through its C entry point `msda_walk_fwd`, as
+    `plan` (`levels_plan`) says, with no host work beyond the call (as the
+    earlier designs' entry points are timed) -> (N, Lq, M, D) float32."""
+    from trackformer_tpu_torch.ops import msda_dense
+    n, lq, m = loc.shape[:3]
+    d = v.shape[-1]
+    out = torch.empty(n, lq, m, d, device=v.device, dtype=torch.float32)
+    rc = msda_dense.V4_LIB.load().msda_walk_fwd(
+        v.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+        None if perm is None else perm.data_ptr(),
+        None if perm_shared is None else perm_shared.data_ptr(),
+        out.data_ptr(), None, None, None, n, lq, m, attn.shape[-1], d,
+        int(v.dtype == torch.bfloat16), len(plan.shapes),
+        msda_dense._c_ints(plan.table), cw, plan.tq, plan.kmax, plan.word,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"msda_walk_fwd launch failed: cudaError {rc}")
+    return out
+
+
+def raw_dense(kind: str, fn, v, loc, attn, h, w, perm=None, cw=None):
+    """One launch of the earlier design of kernel `kind` (v2 / v3 / v4)
+    through its own C entry point `fn` (`old_dense_lib`) -> (N, Lq, M, D)
+    float32."""
     n, lq, m, p = loc.shape[:4]
     d = v.shape[-1]
     out = torch.empty(n, lq, m, d, device=v.device, dtype=torch.float32)
     shape = [n, h, w, lq, m, p, d, int(v.dtype == torch.bfloat16)]
     ptrs = [v.data_ptr(), loc.data_ptr(), attn.data_ptr()]
-    if plan is not None:
-        ptrs += [None if perm is None else perm.data_ptr(), out.data_ptr(),
-                 None, None]
-        tail = [cw or 0, plan.tq, plan.wr, plan.wc, plan.wps, plan.kmax,
-                plan.word]
-    elif kind == "v2":
+    if kind == "v2":
         ptrs += [out.data_ptr(), None]
         tail = [OLD_DENSE_TQ, OLD_V2_CHUNK_BYTES, 256]
     else:
         ptrs += [None if perm is None else perm.data_ptr(), out.data_ptr(),
                  None]
-        tail = [OLD_DENSE_TQ, cw or 0, OLD_V4_STAGE_BYTES, 256]
+        tail = [OLD_DENSE_TQ, cw or 0,
+                OLD_V4_STAGE_BYTES if kind == "v4" else OLD_V2_CHUNK_BYTES,
+                256]
     rc = fn(*ptrs, *shape, *tail, torch.cuda.current_stream().cuda_stream)
     check(rc == 0, f"msda_dense_{kind}_fwd launch failed: cudaError {rc}")
     return out
 
 
+def turns_against(new, earlier: dict, want, dtype, name: str) -> dict:
+    """This design (`new`) and the earlier ones given (`earlier`: field ->
+    callable, or None where not given), all through their C entry points,
+    timed in turns (new, each earlier one, twice) -> `entry_ms`, each
+    earlier one's mean under its field ("not measured" where not given)
+    and `ms_turns`; each earlier design's output held against `want`
+    first."""
+    given = {k: fn for k, fn in earlier.items() if fn is not None}
+    fields = {k: "not measured" for k in earlier}
+    if not given:
+        return dict(entry_ms=f"{time_ms(new, 20, INNER):.4f}", **fields)
+    atol, rtol = TOL[dtype]
+    for key, fn in given.items():
+        got = fn().reshape(want.shape)
+        check(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
+              f"{name}: the earlier design ({key}) is out of tolerance")
+    turns = {"entry_ms": [], **{k: [] for k in given}}
+    for _ in range(2):
+        turns["entry_ms"].append(time_ms(new, 10, INNER))
+        for key, fn in given.items():
+            turns[key].append(time_ms(fn, 10, INNER))
+    fields.update({k: f"{statistics.mean(t):.4f}" for k, t in turns.items()})
+    return dict(entry_ms=fields.pop("entry_ms"), **fields,
+                ms_turns=json.dumps({k: [round(x, 4) for x in t]
+                                     for k, t in turns.items()}))
+
+
 def dense_entry_times(kind: str, v, loc, attn, h, w, want, perm=None,
                       cw=None) -> dict:
-    """Kernel `kind` through its C entry point (`entry_ms`) and, with
-    `--old-dense-{kind}`, the earlier design through its own (`old_ms`),
-    timed in turns (new, old, new, old: `ms_turns`); the earlier design's
-    output held against `want` first."""
+    """Kernel `kind` through the walk's C entry point (`entry_ms`) and,
+    with `--old-dense-{kind}`, the earlier design through its own
+    (`old_ms`), with `--old-walk` (v2 and v4) the earlier walk through its
+    own (`old_walk_ms`), timed in turns (`turns_against`)."""
     from trackformer_tpu_torch.ops import msda_dense
-    name = f"msda_dense_{kind}_fwd"
-    fn = msda_dense.V4_LIB.load().msda_dense_v4_fwd
     n, lq, m, p = loc.shape[:4]
-    plan = msda_dense.walk_plan(n, lq, m, p, v.shape[-1], h, w,
-                                v.element_size(), v.data_ptr(), cw or 0)
+    plan = msda_dense.levels_plan(n, lq, m, p, v.shape[-1], ((h, w),),
+                                  v.element_size(), v.data_ptr() % 16,
+                                  cw or 0)
 
     def new():
-        return raw_dense(kind, fn, v, loc, attn, h, w, perm, cw, plan)
-    old_lib = OLD_V2_LIB if kind == "v2" else OLD_V4_LIB
-    if old_lib is None:
-        return dict(entry_ms=f"{time_ms(new, 20, INNER):.4f}",
-                    old_ms="not measured")
-    old_fn = getattr(old_lib.load(), name)
-
-    def old():
-        return raw_dense(kind, old_fn, v, loc, attn, h, w, perm, cw)
-    atol, rtol = TOL[v.dtype]
-    check(bool(((old() - want).abs() <= atol + rtol * want.abs()).all()),
-          f"{name}: the earlier design is out of tolerance")
-    turns = []
-    for _ in range(2):
-        turns += [time_ms(new, 10, INNER), time_ms(old, 10, INNER)]
-    return dict(entry_ms=f"{statistics.mean(turns[0::2]):.4f}",
-                old_ms=f"{statistics.mean(turns[1::2]):.4f}",
-                ms_turns=json.dumps([round(t, 4) for t in turns]))
+        return raw_walk(v, loc, attn, plan, cw or 0, perm)
+    old_lib = {"v2": OLD_V2_LIB, "v3": OLD_V3_LIB, "v4": OLD_V4_LIB}[kind]
+    earlier = {"old_ms": None}
+    if old_lib is not None:
+        old_fn = getattr(old_lib.load(), f"msda_dense_{kind}_fwd")
+        earlier["old_ms"] = lambda: raw_dense(kind, old_fn, v, loc, attn, h,
+                                              w, perm, cw)
+    if kind != "v3":
+        earlier["old_walk_ms"] = None
+        if OLD_WALK_LIB is not None:
+            walk_fn = OLD_WALK_LIB.load().msda_dense_v4_fwd
+            earlier["old_walk_ms"] = lambda: raw_old_walk(
+                walk_fn, v, loc, attn, plan, cw or 0, perm)
+    return turns_against(new, earlier, want, v.dtype,
+                         f"msda_dense_{kind}_fwd")
 
 
 def grid_sample_level(value, loc, attn, h, w):
@@ -1628,6 +1727,7 @@ def kernel_phase_dense_v4(seed: int):
               unsorted_full_width_ms=f"{rows_ms:.4f}",
               unsorted_full_width_entry_ms=ab_rows["entry_ms"],
               unsorted_full_width_old_ms=ab_rows["old_ms"],
+              unsorted_full_width_old_walk_ms=ab_rows["old_walk_ms"],
               plain_ms=f"{plain_ms:.4f}", gather_kernel_ms=f"{gather_ms:.4f}",
               block_skipping_kernel_ms=f"{v2_ms:.4f}",
               grid_sample_composition_ms=f"{comp_ms:.4f}",
@@ -1749,6 +1849,45 @@ def kernel_phase_dense_v4(seed: int):
         held_against_plain("dense_level_v4_many_points", dtype, got,
                            msda.level_plain(v, loc, attn, h, w),
                            points=loc.shape[3])
+
+    # head rows wider than a warp, two passes of a lane group over each
+    # row: float32 rows of 160 channels (40 words of 16 bytes), and D = 36
+    # bfloat16 rows at a value pointer one element off its alignment (36
+    # words of 2 bytes); sorted in chunks and unsorted at the full width
+    h, w = LEVELS[1]
+    _, loc, attn = encoder_level_inputs(1, 1, 6.0, gen)
+    loc, attn = loc[:, :4096].contiguous(), attn[:, :4096].contiguous()
+    perm = spatial_sort_perm(loc, h, w)
+    for what, d, dtype in (("float32 rows of 160 channels", 160,
+                            torch.float32),
+                           ("bfloat16 rows one element off", D, bf16)):
+        value = torch.randn(1, h * w, M, d, device="cuda", generator=gen)
+        if dtype == bf16:
+            buf = torch.empty(value.numel() + 1, dtype=bf16, device="cuda")
+            buf[1:] = value.flatten().to(bf16)
+            v = buf[1:].view(value.shape)
+        else:
+            v = value
+        for order, chunk in ((perm, cw), (None, None)):
+            plan = walk_plan(1, loc.shape[1], M, P, d, h, w,
+                             v.element_size(), v.data_ptr(), chunk or 0)
+            check(plan.passes == 2, f"{what}: plan {plan}")
+            want_r = v4_ranges(loc, h, w, plan.tq, chunk, order)
+            with torch.no_grad():
+                got, ranges = dense_level_v4_fwd_cuda(
+                    v, loc, attn, h, w, perm=order, cw=chunk,
+                    return_ranges=True)
+                torch.cuda.synchronize()
+                want = msda.level_plain(v, loc, attn, h, w)
+            ranges_ok = bool((ranges.long() == want_r).all())
+            held_against_plain(
+                "dense_level_v4_wide_rows", dtype, got, want,
+                rows=json.dumps(what), d=d,
+                value_ptr_mod_16=v.data_ptr() % 16, passes=plan.passes,
+                walk="sorted, chunks of %d" % chunk if chunk else
+                "raster, full width", ranges_ok=ranges_ok,
+                **plan_fields(plan))
+            check(ranges_ok, f"dense_level_v4 {what}: walk bounds")
 
     # the walk's own edges on the finest level: a tile whose range holds
     # windows with no sample (the queries of each tile split between two
@@ -1873,22 +2012,32 @@ def captured_encoder_call(seed: int):
 
 
 def kernel_phase_dense_v3(seed: int, captured):
-    """The sorted, x-windowed kernel: the public op on each level of the
-    captured encoder call (its path), its windows against `v3_windows`;
-    the same with offsets six times as large, N = 2, where tiles do not
-    fit; and with a window of one column, which no tile fits, so that every
-    tile takes the full width. -> results by level."""
+    """The sorted, x-windowed kernel, the walk in a spatial sort and
+    64-column chunks: the public op on each level of the captured encoder
+    call (its path), its windows against `v3_windows` at the tile of its
+    plan; the same N = 2 with offsets six times as large, where tiles do
+    not fit, and with every 16th query's samples pushed across the border;
+    and with a window of one column, which no tile fits, so that every tile
+    takes the full width. -> results by level."""
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.msda_dense import (
-        V2_TQ, V3_CW, dense_level_pallas, dense_level_pallas_v3,
+        V3_CW, dense_level_pallas, dense_level_pallas_v3,
         dense_level_v2_fwd_cuda, dense_level_v3_fwd_cuda, spatial_sort_perm,
-        v3_windows)
+        v3_windows, walk_plan)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 19)
     bf16 = torch.bfloat16
     value_all, loc_all, attn_all = captured
     s_enc = loc_all.shape[1]
     results, fit_share = {}, []
+
+    def windows_at_plan(v, loc, h, w, perm, cw):
+        """`v3_windows` at the tile of the walk's plan, and the plan."""
+        n, lq, m, p = loc.shape[:4]
+        plan = walk_plan(n, lq, m, p, v.shape[-1], h, w, v.element_size(),
+                         v.data_ptr(), cw)
+        return v3_windows(loc, h, w, perm, plan.tq, cw), plan
+
     for level, (h, w) in enumerate(LEVELS):
         start = sum(a * b for a, b in LEVELS[:level])
         cases = [("captured call", value_all[:, start:start + h * w].float(),
@@ -1896,13 +2045,17 @@ def kernel_phase_dense_v3(seed: int, captured):
                   attn_all[:, :, :, level].contiguous())]
         cases.append(("offsets x6, N=2",
                       *encoder_level_inputs(level, TRAIN_BATCH, 6.0, gen)))
+        value, loc, attn = encoder_level_inputs(level, TRAIN_BATCH, 1.0, gen)
+        loc[:, ::16] = loc[:, ::16] * 1.2 - 0.1
+        cases.append(("pushed across the border, N=2", value, loc, attn))
         for what, value, loc, attn in cases:
             perm = spatial_sort_perm(loc, h, w)
-            want_w = v3_windows(loc, h, w, perm, V2_TQ, V3_CW)
-            fits = want_w[..., 3].float().mean().item()
-            fit_share.append(fits)
             for dtype in (torch.float32, bf16):
                 v = value.to(dtype).contiguous()
+                want_w, plan = windows_at_plan(v, loc, h, w, perm, V3_CW)
+                none_w, _ = windows_at_plan(v, loc, h, w, perm, 1)
+                fits = want_w[..., 3].float().mean().item()
+                fit_share.append(fits)
                 with torch.no_grad():
                     got, windows = dense_level_v3_fwd_cuda(
                         v, loc, attn, h, w, return_windows=True)
@@ -1911,20 +2064,23 @@ def kernel_phase_dense_v3(seed: int, captured):
                     torch.cuda.synchronize()
                     want = msda.level_plain(v, loc, attn, h, w)
                 windows_ok = bool((windows.long() == want_w).all())
+                none_ok = bool((none_fit.long() == none_w).all())
                 err = held_against_plain(
                     f"dense_level_v3_l{level}", dtype, got, want,
                     level=f"{h}x{w}", inputs=json.dumps(what),
                     items=loc.shape[0], tiles_that_fit=f"{fits:.4f}",
-                    windows_ok=windows_ok)
+                    windows_ok=windows_ok, **plan_fields(plan))
                 held_against_plain(
                     f"dense_level_v3_l{level}", dtype, full, want,
                     level=f"{h}x{w}", inputs=json.dumps(what),
                     branch="cw=1: every tile on the full width",
-                    tiles_that_fit=int(none_fit[..., 3].sum().item()))
+                    tiles_that_fit=int(none_fit[..., 3].sum().item()),
+                    windows_ok=none_ok)
                 check(int(none_fit[..., 3].sum().item()) == 0,
                       f"dense_level_v3 level {level}: a tile fits one column")
-                check(windows_ok, f"kernel dense_level_v3 level {level}: "
-                                  "windows differ from v3_windows")
+                check(windows_ok and none_ok,
+                      f"kernel dense_level_v3 level {level}: windows differ "
+                      "from v3_windows")
             if what != "captured call":
                 continue
             # the path: the public op on the captured call, counted
@@ -1945,6 +2101,7 @@ def kernel_phase_dense_v3(seed: int, captured):
                     lambda v_, lo_, at: msda.level_plain(v_, lo_, at, h, w),
                     (value.to(dtype), loc, attn), g, items=1)
             with torch.no_grad():
+                want = msda.level_plain(v, loc, attn, h, w)
                 ms = time_ms(lambda: dense_level_v3_fwd_cuda(
                     v, loc, attn, h, w, perm=perm), 20, INNER)
                 with_sort_ms = time_ms(lambda: dense_level_v3_fwd_cuda(
@@ -1957,10 +2114,15 @@ def kernel_phase_dense_v3(seed: int, captured):
                     v, loc, attn, h, w), 20, INNER)
                 v2_ms = time_ms(lambda: dense_level_v2_fwd_cuda(
                     v, loc, attn, h, w), 20, INNER)
+                sort_ms = time_ms(lambda: spatial_sort_perm(loc, h, w), 10,
+                                  INNER)
+                ab = dense_entry_times("v3", v, loc, attn, h, w, want, perm,
+                                       V3_CW)
             bound_ms, bound_by = level_bound(v, loc, attn, h, w)
             phase("kernel", case=f"dense_level_v3_l{level}",
                   dtype="bfloat16", items=1, lq=s_enc, ms=f"{with_sort_ms:.4f}",
-                  kernel_alone_ms=f"{ms:.4f}",
+                  kernel_alone_ms=f"{ms:.4f}", **ab,
+                  spatial_sort_ms=f"{sort_ms:.4f}",
                   every_tile_full_width_ms=f"{full_ms:.4f}",
                   plain_ms=f"{plain_ms:.4f}",
                   gather_kernel_ms=f"{gather_ms:.4f}",
@@ -1969,7 +2131,8 @@ def kernel_phase_dense_v3(seed: int, captured):
             results[level] = dict(
                 max_abs_err=err, ms=with_sort_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                kernel_alone_ms=ms, gather_kernel_ms=gather_ms,
+                kernel_alone_ms=ms, entry_ms=ab["entry_ms"],
+                old_ms=ab["old_ms"], gather_kernel_ms=gather_ms,
                 block_skipping_kernel_ms=v2_ms)
     h, w = ODD_LEVELS[0]
     for d in (5, 6):                # the other staging words
@@ -2105,51 +2268,87 @@ def kernel_phase_gather_rows(seed: int, captured):
     return results
 
 
+def old_patch_v6(lib, value, loc, attn):
+    """The earlier flat walk (`--old-patch-v6`) through its C entry point:
+    `v6_walk` at its geometry, then its kernel -> ((N, S, M, D) float32,
+    the kernel alone as a callable on the same walk)."""
+    import ctypes
+    from trackformer_tpu_torch.ops.msda_patch import (_snake_perm_on,
+                                                      v6_max_chunks, v6_walk)
+    tq, ph, pw, nslots, threads = OLD_V6_GEOMETRY
+    n, s, m, d = value.shape
+    l, p = loc.shape[3], loc.shape[4]
+    perm = _snake_perm_on(LEVELS, value.device)
+    maxc = v6_max_chunks(LEVELS, ph, pw)
+    hw = (ctypes.c_int * (2 * l))(*[v for pair in LEVELS for v in pair])
+
+    def kernel(walk):
+        codes, totals = walk
+        out = torch.empty(n, s, m, d, dtype=torch.float32,
+                          device=value.device)
+        rc = lib.msda_patch_v6_fwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            perm.data_ptr(), codes.data_ptr(), totals.contiguous().data_ptr(),
+            out.data_ptr(), n, s, m, l, p, d, hw,
+            int(value.dtype == torch.bfloat16), tq, ph, pw, nslots, maxc,
+            threads, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"msda_patch_v6_fwd (earlier design) launch failed: "
+                       f"cudaError {rc}")
+        return out
+
+    walk = v6_walk(LEVELS, loc, tq, ph, pw)
+    return (lambda: kernel(v6_walk(LEVELS, loc, tq, ph, pw))), \
+        (lambda: kernel(walk))
+
+
 def kernel_phase_patch_v6(seed: int, captured):
-    """The flat chunk walk: `msda_patch_v6` on the captured encoder call
-    (its path) and on N = 2 items with every 16th query's samples pushed
-    across the border, float32 and bfloat16, against
-    `ms_deform_attn_plain`; the wrapper's gradients; times of the op, of
-    the kernel with the walk handed in, of `v6_walk`, of the plain version
-    and of the gather kernel on the same call. -> result."""
+    """The flat chunk walk, on the card the walk over all levels in snake
+    order: `msda_patch_v6` on the captured encoder call (its path) and on
+    N = 2 items with every 16th query's samples pushed across the border,
+    float32 and bfloat16, against `ms_deform_attn_plain`; the wrapper's
+    gradients; times of the op, of the walk over each level alone (the
+    split by level), of the plain version and of the gather kernel on the
+    same call, and with `--old-patch-v6` of the earlier design (its
+    `v6_walk` and kernel, and the kernel alone) in turns with this one,
+    both through their C entry points. -> result."""
     from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.ops.msda_dense import levels_plan
     from trackformer_tpu_torch.ops.msda_patch import (
-        V6_PH, V6_PW, V6_TQ, msda_patch, msda_patch_v6,
-        msda_patch_v6_fwd_cuda, v6_max_chunks, v6_walk)
+        V6_CW, _snake_perm_on, msda_patch, msda_patch_v6,
+        msda_patch_v6_fwd_cuda)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 29)
     bf16 = torch.bfloat16
     s_enc = sum(h * w for h, w in LEVELS)
     pushed = msda_inputs(LEVELS, s_enc, True, gen, TRAIN_BATCH)
     pushed[1][:, ::16] = pushed[1][:, ::16] * 1.2 - 0.1
-    maxc = v6_max_chunks(LEVELS, V6_PH, V6_PW)
     errs = {}
     for what, (value, loc, attn) in (("captured call", captured),
                                      ("pushed across the border, N=2",
                                       pushed)):
-        totals = v6_walk(LEVELS, loc)[1].float()
         for dtype in (torch.float32, bf16):
             v = value.to(dtype)
+            plan = levels_plan(loc.shape[0], s_enc, M, P, D, LEVELS,
+                               v.element_size(), v.data_ptr() % 16, V6_CW)
             with torch.no_grad():
                 got = msda_patch_v6(v, LEVELS, loc, attn)
                 torch.cuda.synchronize()
                 want = msda.ms_deform_attn_plain(v, LEVELS, loc, attn)
             errs[(what, dtype)] = held_against_plain(
                 "msda_patch_v6", dtype, got, want, inputs=json.dumps(what),
-                items=loc.shape[0], lq=s_enc, tile=V6_TQ,
-                chunk=f"{V6_PH}x{V6_PW}",
-                mean_chunks_walked=f"{totals.mean().item():.1f}",
-                max_chunks_walked=int(totals.max().item()),
-                all_chunks=maxc)
+                items=loc.shape[0], lq=s_enc, tile=plan.tq,
+                windows=json.dumps([f"{lv.wr}x{lv.wc}" for lv in plan.levels]),
+                windows_per_stage=json.dumps([lv.wps for lv in plan.levels]),
+                smem_bytes=plan.smem_bytes,
+                grid="x".join(map(str, plan.grid)))
     s_odd = sum(h * w for h, w in ODD_LEVELS)
-    for d in (5, 6):                # the other staging words, a ring of 3
+    for d in (5, 6):                # the other staging words, ragged tiles
         value, loc, attn = odd_shape_inputs(gen, d, ODD_LEVELS, s_odd)
         for dtype in (torch.float32, bf16):
             v = value.to(dtype)
             held_against_plain(
                 "msda_patch_v6_odd_shape", dtype,
-                msda_patch_v6_fwd_cuda(v, ODD_LEVELS, loc, attn, tq=ODD_TQ,
-                                       ph=4, pw=8, nslots=3),
+                msda_patch_v6_fwd_cuda(v, ODD_LEVELS, loc, attn, tq=ODD_TQ),
                 msda.ms_deform_attn_plain(v, ODD_LEVELS, loc, attn), d=d)
     value, loc, attn = captured
     v = value.to(bf16)
@@ -2169,30 +2368,57 @@ def kernel_phase_patch_v6(seed: int, captured):
         counts = {k: n for k, n in msda.launch_counts().items() if n}
         check(counts == {"msda_patch_v6": 1, "msda_bwd": 1},
               f"msda_patch_v6 and its backward launched {counts}")
-    walk = v6_walk(LEVELS, loc)
+    plan = levels_plan(1, s_enc, M, P, D, LEVELS, 2, v.data_ptr() % 16,
+                       V6_CW)
+    perm = _snake_perm_on(LEVELS, v.device)
     with torch.no_grad():
+        want = msda.ms_deform_attn_plain(v, LEVELS, loc, attn)
         ms = time_ms(lambda: msda_patch_v6(v, LEVELS, loc, attn), 20, INNER)
-        kernel_ms = time_ms(lambda: msda_patch_v6_fwd_cuda(
-            v, LEVELS, loc, attn, walk=walk), 20, INNER)
-        walk_ms = time_ms(lambda: v6_walk(LEVELS, loc), 10, INNER)
         plain_ms = time_ms(lambda: msda.ms_deform_attn_plain(
             v, LEVELS, loc, attn), 5, INNER)
         gather_ms = time_ms(lambda: msda_patch(v, LEVELS, loc, attn), 20,
                             INNER)
+        # the split by level: the same walk over one level at a time, the
+        # tiles and windows of the all-levels plan
+        level_ms = []
+        for lvl, (h, w) in enumerate(LEVELS):
+            start = plan.starts[lvl]
+            args = (v[:, start:start + h * w].contiguous(),
+                    loc[:, :, :, lvl:lvl + 1].contiguous(),
+                    attn[:, :, :, lvl:lvl + 1].contiguous())
+            one = levels_plan(1, s_enc, M, P, D, ((h, w),), 2,
+                              args[0].data_ptr() % 16, V6_CW, plan.tq)
+            check(one.levels[0] == plan.levels[lvl],
+                  f"msda_patch_v6 level {lvl}: another plan alone")
+            level_ms.append(time_ms(lambda: raw_walk(
+                *args, one, V6_CW, perm_shared=perm), 20, INNER))
+
+        def new():
+            return raw_walk(v, loc, attn, plan, V6_CW, perm_shared=perm)
+        old_op = old_kernel = None
+        if OLD_V6_LIB is not None:
+            old_op, old_kernel = old_patch_v6(
+                OLD_V6_LIB.load(), v, loc, attn)
+        ab = turns_against(new, {"old_ms": old_op,
+                                 "old_kernel_alone_ms": old_kernel}, want,
+                           bf16, "msda_patch_v6_fwd")
     rows = touched_value_rows(loc, LEVELS)
     n_bytes = (rows * D * 2 + loc.numel() * 4 + attn.numel() * 4
                + s_enc * M * D * 4 + s_enc * 4)
     bound_ms, bound_by = bound(
         n_bytes, s_enc * M * len(LEVELS) * P * D * 10, FP32_FLOPS)
     phase("kernel", case="msda_patch_v6", dtype="bfloat16", items=1,
-          lq=s_enc, ms=f"{ms:.4f}", kernel_alone_ms=f"{kernel_ms:.4f}",
-          v6_walk_ms=f"{walk_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          lq=s_enc, ms=f"{ms:.4f}", **ab,
+          level_ms=json.dumps([round(t, 4) for t in level_ms]),
+          level_sum_ms=f"{sum(level_ms):.4f}", plain_ms=f"{plain_ms:.4f}",
           gather_kernel_ms=f"{gather_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
           bound_by=bound_by)
     return dict(max_abs_err=errs[("captured call", bf16)], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, kernel_alone_ms=kernel_ms,
-                v6_walk_ms=walk_ms, gather_kernel_ms=gather_ms)
+                library_ms=None, entry_ms=ab["entry_ms"],
+                old_ms=ab["old_ms"],
+                old_kernel_alone_ms=ab["old_kernel_alone_ms"],
+                level_ms=level_ms, gather_kernel_ms=gather_ms)
 
 
 # --------------------------------------------------------------------------
@@ -2744,6 +2970,7 @@ ROUTE_FRAMES = 3
 
 def main() -> int:
     global OLD_BWD_LIB, OLD_FWD_LIB, OLD_WINDOW_LIB, OLD_V2_LIB, OLD_V4_LIB
+    global OLD_V3_LIB, OLD_V6_LIB, OLD_WALK_LIB
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=6,
                     help="frames of each tracker run")
@@ -2760,11 +2987,22 @@ def main() -> int:
                     help="an earlier csrc/window_layer_fwd.cu (a copy "
                          "outside the package) to time beside the window "
                          "layer's kernels")
-    for kind in ("v2", "v4"):
+    for kind in ("v2", "v4", "v3"):
         ap.add_argument(f"--old-dense-{kind}", default=None, metavar="PATH",
                         help=f"an earlier csrc/msda_dense_{kind}_fwd.cu (a "
-                             "copy outside the package) to time beside "
-                             "that kernel")
+                             "copy outside the package, beside the "
+                             "msda_common.cuh it was built with) to time "
+                             "beside that kernel")
+    ap.add_argument("--old-walk", default=None, metavar="PATH",
+                    help="an earlier one-level walk, csrc/msda_dense_v4_fwd"
+                         ".cu (a copy outside the package, beside the "
+                         "msda_common.cuh it was built with), to time "
+                         "beside the block-skipping and range-walking "
+                         "kernels")
+    ap.add_argument("--old-patch-v6", default=None, metavar="PATH",
+                    help="an earlier csrc/msda_patch_v6_fwd.cu (a copy "
+                         "outside the package, beside the msda_common.cuh "
+                         "it was built with) to time beside the flat walk")
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2810,6 +3048,15 @@ def main() -> int:
     if args.old_dense_v4:
         OLD_V4_LIB = old_dense_lib(args.old_dense_v4, "v4")
         libs.append(OLD_V4_LIB)
+    if args.old_dense_v3:
+        OLD_V3_LIB = old_dense_lib(args.old_dense_v3, "v3")
+        libs.append(OLD_V3_LIB)
+    if args.old_patch_v6:
+        OLD_V6_LIB = old_patch_lib(args.old_patch_v6)
+        libs.append(OLD_V6_LIB)
+    if args.old_walk:
+        OLD_WALK_LIB = old_walk_lib(args.old_walk)
+        libs.append(OLD_WALK_LIB)
     build_all(libs)
     for lib in libs:
         info = lib.info()
@@ -2901,11 +3148,10 @@ def main() -> int:
     csrc = "trackformer_tpu_torch/csrc/"
     msda_src, win_src = csrc + "msda_fwd.cu", csrc + "window_layer_fwd.cu"
     bwd_src = csrc + "msda_bwd.cu"
-    # the block-skipping kernel (v2) is the range-walking kernel's walk
-    v4_src = v2_src = csrc + "msda_dense_v4_fwd.cu"
-    v3_src = csrc + "msda_dense_v3_fwd.cu"
-    rows_src, v6_src = (csrc + "msda_gather_rows_fwd.cu",
-                        csrc + "msda_patch_v6_fwd.cu")
+    # one walk serves the block-skipping (v2), range-walking (v4), sorted
+    # x-windowed (v3) and flat-walk (v6) kernels
+    v4_src = v2_src = v3_src = v6_src = csrc + "msda_dense_v4_fwd.cu"
+    rows_src = csrc + "msda_gather_rows_fwd.cu"
     pallas_py = "trackformer_tpu/ops/msda_pallas.py"
     no_route = "public op, no route in the JAX package"
     bf16 = torch.bfloat16
@@ -2962,7 +3208,7 @@ def main() -> int:
              + at.replace("route v2", "route v4"),
              v4_src, dense_py + ":356", kv4[("enc", TRAIN_BATCH, lvl)],
              ("dense_level_pallas_v4", TRAIN_BATCH, s_enc, (hw,))),
-            (f"msda_dense_v3_fwd via dense_level_pallas_v3 (encoder level "
+            (f"msda_dense_v4_fwd via dense_level_pallas_v3 (encoder level "
              f"{lvl} {hw[0]}x{hw[1]} of a captured call, B = 1)",
              v3_src, dense_py + ":270", {**kv3[lvl], "path": no_route},
              ("dense_level_pallas_v3", 1, s_enc, (hw,))),
@@ -2982,7 +3228,7 @@ def main() -> int:
          "call's shape, 8 levels, 650 queries, B = 1)",
          rows_src, pallas_py + ":34", {**krows["decoder"], "path": no_route},
          ("ms_deform_attn_pallas", 1, DEC_QUERIES, dec_levels)),
-        ("msda_patch_v6_fwd via msda_patch_v6 (a captured encoder call, all "
+        ("msda_dense_v4_fwd via msda_patch_v6 (a captured encoder call, all "
          "levels, B = 1)",
          v6_src, patch_py + ":411", {**kv6, "path": no_route},
          ("msda_patch_v6", 1, s_enc, LEVELS)),

@@ -645,15 +645,19 @@ def test_build_key_covers_the_included_headers(tmp_path, monkeypatch):
     (csrc / "k.cu").write_text('#include "common.cuh"\n// edited\n')
     assert without.so_path() != alone
     # every kernel that includes the shared header names it (V4_LIB is the
-    # walk of both the range-walking and the block-skipping kernel)
-    for lib in (msda_dense.V4_LIB, msda_dense.V3_LIB, msda_patch.V6_LIB,
-                msda_pallas.LIB, msda.BWD_LIB, msda.LIB):
+    # walk of the range-walking, block-skipping, sorted x-windowed and
+    # all-levels flat-walk kernels)
+    for lib in (msda_dense.V4_LIB, msda_pallas.LIB, msda.BWD_LIB, msda.LIB):
         assert [h.name for h in lib.headers] == [cuda_build.MSDA_COMMON]
         assert f'#include "{cuda_build.MSDA_COMMON}"' in lib.source.read_text()
         assert all(h.is_file() for h in lib.headers)
-    # and no source includes a header of `csrc/` that its key leaves out
-    for lib in (msda_dense.V4_LIB, msda_dense.V3_LIB, msda_patch.V6_LIB,
-                msda_pallas.LIB, msda.BWD_LIB, msda.LIB, window_attn.LIB):
+    # and no source includes a header of `csrc/` that its key leaves out;
+    # these five are every source of `csrc/`
+    libs = (msda_dense.V4_LIB, msda_pallas.LIB, msda.BWD_LIB, msda.LIB,
+            window_attn.LIB)
+    assert {lib.source.name for lib in libs} == {
+        f.name for f in msda.LIB.source.parent.glob("*.cu")}
+    for lib in libs:
         included = set(re.findall(r'#include "([^"]+)"',
                                   lib.source.read_text()))
         assert included == {h.name for h in lib.headers}, lib.source.name

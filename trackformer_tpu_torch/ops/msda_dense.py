@@ -28,22 +28,24 @@ launch of `csrc/msda_dense_v4_fwd.cu`. Route "v4" of `ms_deform_attn`
 reaches it for every level of the encoder call, `MSDA_DEC_SKIP` for the
 decoder's fine levels.
 
-The two compute one function and launch one kernel and C entry point, the
-walk of `csrc/msda_dense_v4_fwd.cu`: a block per (head, query tile, item)
-computes each sample's corners once, stages only the windows of cells that
-its head's corners fall in, and sums each query in one lane group's
-registers. v2 is the walk in query order at the full width, with the
-tile's row band (`v2_row_band`) written out. The host's `walk_plan` picks
-the tile, the windows and the lanes of a launch. A head row must fit one
-warp's lanes (`walk_plan`): the walk refuses float32 rows of more than 128
-channels and bfloat16 rows that a pointer's alignment splits into more
-than 32 words; the plain version takes any.
-
 `dense_level_pallas_v3`: the TPU's `_kernel_v3` sorts the queries, keeps
 v2's row band and computes a tile on one window of `cw` columns when its
-occupied columns fit (`v3_windows`), else on the full width. On the card:
-one launch of `csrc/msda_dense_v3_fwd.cu`. No route calls it, as in the JAX
-package.
+occupied columns fit (`v3_windows`), else on the full width. No route calls
+it, as in the JAX package.
+
+All three compute one function and launch one kernel and C entry point,
+the walk of `csrc/msda_dense_v4_fwd.cu` (which also serves the all-levels
+`msda_patch_v6` of `ops/msda_patch.py`): a block per (head, query tile,
+item) computes each sample's corners once, stages only the windows of
+cells that its head's corners fall in, and sums each query in one lane
+group's registers. v2 is the walk in query order at the full width, with
+the tile's row band (`v2_row_band`) written out; v3 the walk in a spatial
+sort and `cw`-column chunks, with the tile's `v3_windows` written out: the
+TPU's fit-or-full-width choice changes only what it stages, and the walk
+stages only occupied windows either way. The host's `walk_plan` picks the
+tile, the windows and the lanes of a launch; a head row of more than 32
+words (float32 rows of more than 128 channels, bfloat16 rows that the
+pointer's alignment splits finely) takes several passes of a warp.
 
 All are differentiable: the backward of each is the backward kernel of
 `ops/msda.py` launched for the single level, as the JAX package shares one
@@ -55,18 +57,15 @@ import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .cuda_build import MSDA_COMMON, CudaLib
 from .msda import count_launch, level_plain, msda_bwd_cuda, msda_cuda
 
-# queries per tile of kernel v3 (the JAX package's V2_TQ); read at every
-# call that leaves `tq` unset
+# queries per tile of the plain bounds (the JAX package's V2_TQ), where the
+# caller leaves `tq` unset
 V2_TQ = 256
-# kernel v3: shared memory for staged value rows per block, and threads per
-# block
-V2_CHUNK_BYTES = 48 * 1024
-V2_THREADS = 256
 # kernel v3: columns of a tile's window (the JAX function's default)
 V3_CW = 64
 
@@ -84,8 +83,8 @@ def dense_level_pallas(value_l: torch.Tensor, loc_l: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# the walk of kernels v2 and v4 (`csrc/msda_dense_v4_fwd.cu`): the host's
-# plan
+# the walk of kernels v2, v3, v4 and v6 (`csrc/msda_dense_v4_fwd.cu`): the
+# host's plan
 # --------------------------------------------------------------------------
 
 # threads a block, and the SMs of the card the plan fills (H100 SXM)
@@ -95,6 +94,12 @@ WALK_SMS = 132
 # tiles the plan takes, largest first
 WALK_KMAX = (1, 2, 4, 8)
 WALK_TQS = (192, 96, 48, 24)
+# words of a head row in one pass of a lane group (a warp's lanes), and the
+# most passes
+WALK_PASS_WORDS = 32
+WALK_MAX_PASSES = 32
+# the most levels of one launch
+WALK_MAX_LEVELS = 8
 # shared memory for each of the walk's two stages, and a window's target
 # size where the samples are dense (several windows a stage)
 WALK_STAGE_BYTES = 16 * 1024
@@ -112,16 +117,18 @@ WALK_SMEM_LIMIT = 227 * 1024
 
 
 class WalkPlan(NamedTuple):
-    """How the walk serves one launch: `tq` queries a tile; lane groups of
-    `lanes` lanes, each lane on `word` bytes of a head row, `groups` of them
-    a block, each owning at most `kmax` queries of the tile; windows of
-    `wr` rows x `wc` columns on a fixed grid of `nwin` windows, `wps` of
-    them a stage of `stage_bytes`; `smem_bytes` of shared memory a block;
-    the grid (heads, tiles, items)."""
+    """How the walk serves one level of a launch: `tq` queries a tile; lane
+    groups of `lanes` lanes, each lane on `word` bytes of a head row,
+    `passes` passes over a row, `groups` groups a block, each owning at most
+    `kmax` queries of the tile; windows of `wr` rows x `wc` columns on a
+    fixed grid of `nwin` windows, `wps` of them a stage of `stage_bytes`;
+    `smem_bytes` of shared memory a block; the grid (heads, tiles,
+    items)."""
     tq: int
     kmax: int
     word: int
     lanes: int
+    passes: int
     groups: int
     wr: int
     wc: int
@@ -146,36 +153,41 @@ def walk_plan(n: int, lq: int, m: int, p: int, d: int, h: int, w: int,
     (h, w) cells with head rows of d elements of es bytes at `value_ptr`,
     `lq` queries of p points, walked in column chunks of `cw` (0: the full
     width). The word: the widest of 16, 8, 4, 2 bytes that divides a head's
-    row, the cell and the pointer's alignment, with a row in at most 32
-    lanes: a row that needs more lanes than a warp is refused (float32
-    rows of more than 128 channels; bfloat16 rows of more than 32 channels
-    at a pointer only 2-byte aligned, of more than 64 at a 4-byte one). The
-    tile (`tq` None): the largest of `WALK_TQS` that still gives two
-    blocks an SM, else the smallest. The windows: at the full
-    width, whole rows (`WALK_ROWS_BYTES`); in chunks, a divisor of the
-    chunk as columns (so that a window lies in one chunk):
+    row, the cell and the pointer's alignment. The lanes: min(32, words);
+    a row of more words takes ceil(words / 32) passes (float32 rows of
+    more than 128 channels; bfloat16 rows of more than 32 channels at a
+    pointer only 2-byte aligned, of more than 64 at a 4-byte one), one of
+    more than 32 x 32 words is refused. The tile (`tq` None): the largest
+    of `WALK_TQS` that the block's lane groups can own and that still gives
+    two blocks an SM, else the smallest they can own. The windows, sized
+    for a pass's slice of a head row: at the full width, whole rows
+    (`WALK_ROWS_BYTES`); in chunks, a divisor of the chunk as columns (so
+    that a window lies in one chunk):
     `WALK_SPARSE_ROWS` x `WALK_SPARSE_COLS` cells where the samples are
     sparse, about `window_budget` bytes of `WALK_DENSE_COLS` columns where
     they are dense; `stage_budget` bytes of windows a stage (the tests'
     mirror of the walk takes small budgets, so that a tile walks several
     stages). Only `value_ptr % 16` matters: the wrappers pass that, so
     that the cache holds one plan a call shape."""
-    word = next((wd for wd in (16, 8, 4, 2)
-                 if wd >= es and (d * es) % wd == 0 and value_ptr % wd == 0
-                 and d * es // wd <= 32), None)
-    if word is None:
-        raise ValueError(f"walk: no word for head rows of {d} x {es} bytes "
-                         f"at {value_ptr % 16} bytes past a 16-byte "
-                         f"boundary")
-    lanes = d * es // word
+    word = next(wd for wd in (16, 8, 4, 2)
+                if wd >= es and (d * es) % wd == 0 and value_ptr % wd == 0)
+    words = d * es // word
+    if words > WALK_PASS_WORDS * WALK_MAX_PASSES:
+        raise ValueError(f"walk: a head row of {words} words of {word} bytes "
+                         f"({d} x {es} bytes at {value_ptr % 16} bytes past "
+                         f"a 16-byte boundary), more than "
+                         f"{WALK_PASS_WORDS * WALK_MAX_PASSES}")
+    lanes = min(words, WALK_PASS_WORDS)
+    passes = -(-words // WALK_PASS_WORDS)
     groups = WALK_THREADS // 32 * (32 // lanes)
     if tq is None:
-        tq = next((t for t in WALK_TQS
-                   if m * -(-lq // t) * n >= 2 * WALK_SMS), WALK_TQS[-1])
+        owned = [t for t in WALK_TQS if t <= groups * WALK_KMAX[-1]]
+        tq = next((t for t in owned if m * -(-lq // t) * n >= 2 * WALK_SMS),
+                  owned[-1])
     kmax = next((k for k in WALK_KMAX if groups * k >= tq), None)
     if kmax is None or tq < 1:
         raise ValueError(f"walk: tq {tq} above {groups * WALK_KMAX[-1]}")
-    cell = d * es
+    cell = lanes * word
     if cw == 0:
         wc = w
         wr = max(1, min(h, WALK_ROWS_BYTES // (w * cell)))
@@ -196,44 +208,129 @@ def walk_plan(n: int, lq: int, m: int, p: int, d: int, h: int, w: int,
                                   + 128 + 64)
     if smem > WALK_SMEM_LIMIT:
         raise ValueError(f"walk: {smem} bytes of shared memory a block")
-    return WalkPlan(tq, kmax, word, lanes, groups, wr, wc, wps, nwin,
+    return WalkPlan(tq, kmax, word, lanes, passes, groups, wr, wc, wps, nwin,
                     stage_bytes, smem, (m, -(-lq // tq), n))
 
 
-V4_LIB = CudaLib("msda_dense_v4_fwd.cu", {"msda_dense_v4_fwd": (
+class LevelsPlan(NamedTuple):
+    """How the walk serves a launch over several levels (the all-levels
+    `msda_patch_v6`): the tile, lanes and grid shared by every level, and
+    each level's own `walk_plan` at that tile (its windows: wr, wc, wps,
+    nwin, stage_bytes) with its first cell `start` in an item's value
+    table; `smem_bytes` a block, the largest level's stage and windows
+    reused from level to level; `table`, the C entry point's level table
+    (h, w, wr, wc, wps a level)."""
+    tq: int
+    kmax: int
+    word: int
+    lanes: int
+    passes: int
+    groups: int
+    shapes: Tuple[Tuple[int, int], ...]
+    starts: Tuple[int, ...]
+    levels: Tuple[WalkPlan, ...]
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    table: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=64)
+def levels_plan(n: int, lq: int, m: int, p: int, d: int, shapes,
+                es: int, value_ptr: int, cw: int = V3_CW,
+                tq: Optional[int] = None,
+                stage_budget: int = WALK_STAGE_BYTES,
+                window_budget: int = WALK_WINDOW_BYTES) -> LevelsPlan:
+    """The plan of one walk over the levels `shapes` ((h, w), ...) in
+    `cw`-column chunks: level 0's `walk_plan` picks the tile (`tq` None),
+    every level's `walk_plan` at that tile its windows. Each level's
+    `nwin + wps` stays under 32768 (a corner's key); the block's shared
+    memory, the largest stage and window table, within the card's."""
+    shapes = tuple(tuple(hw) for hw in shapes)
+    if not 1 <= len(shapes) <= WALK_MAX_LEVELS:
+        raise ValueError(f"walk: {len(shapes)} levels")
+    first = walk_plan(n, lq, m, p, d, *shapes[0], es, value_ptr, cw, tq,
+                      stage_budget, window_budget)
+    levels = tuple(walk_plan(n, lq, m, p, d, h, w, es, value_ptr, cw,
+                             first.tq, stage_budget, window_budget)
+                   for h, w in shapes)
+    starts = tuple(int(x) for x in np.cumsum([0] + [h * w for h, w
+                                                   in shapes[:-1]]))
+    stage = max(pl.stage_bytes for pl in levels)
+    nwin = max(pl.nwin for pl in levels)
+    smem = 2 * stage + 4 * (2 * first.tq * (4 * p + 1) + 2 * nwin + first.tq
+                            + 128 + 64)
+    if smem > WALK_SMEM_LIMIT:
+        raise ValueError(f"walk: {smem} bytes of shared memory a block")
+    table = tuple(v for (h, w), pl in zip(shapes, levels)
+                  for v in (h, w, pl.wr, pl.wc, pl.wps))
+    return LevelsPlan(first.tq, first.kmax, first.word, first.lanes,
+                      first.passes, first.groups, shapes, starts, levels,
+                      smem, first.grid, table)
+
+
+@functools.lru_cache(maxsize=64)
+def _c_ints(values: Tuple[int, ...]):
+    """`values` as a C int array, made once a plan (a launch's host work
+    is most of a small call's time)."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+V4_LIB = CudaLib("msda_dense_v4_fwd.cu", {"msda_walk_fwd": (
     ctypes.c_int,
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p])},
-    headers=[MSDA_COMMON])
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p])}, headers=[MSDA_COMMON])
+
+
+def launch_walk(value, loc, attn, plan: LevelsPlan, cw: int,
+                perm: Optional[torch.Tensor] = None,
+                perm_shared: Optional[torch.Tensor] = None,
+                bounds: Optional[torch.Tensor] = None,
+                bounds_kind: Optional[str] = None) -> torch.Tensor:
+    """One launch of the walk's C entry point `msda_walk_fwd` as `plan`
+    says, on checked inputs: value (N, cells, M, D), loc (N, Lq, M, L, P,
+    2) or (N, Lq, M, P, 2) for one level, attn likewise; the tiles' order
+    `perm` (N, Lq) int64 or `perm_shared` (Lq) int32; a one-level launch
+    may fill `bounds` with the tiles' "ranges", "band" or "windows". ->
+    out (N, Lq, M, D) float32. Raises if the launch fails; counts
+    nothing."""
+    n, lq, m = loc.shape[:3]
+    d = value.shape[-1]
+    lib = V4_LIB.load()
+    out = torch.empty(n, lq, m, d, dtype=torch.float32, device=value.device)
+    b = None if bounds is None else bounds.data_ptr()
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.msda_walk_fwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(),
+            None if perm is None else perm.data_ptr(),
+            None if perm_shared is None else perm_shared.data_ptr(),
+            out.data_ptr(), b if bounds_kind == "ranges" else None,
+            b if bounds_kind == "band" else None,
+            b if bounds_kind == "windows" else None,
+            n, lq, m, attn.shape[-1], d, int(value.dtype == torch.bfloat16),
+            len(plan.shapes), _c_ints(plan.table), cw, plan.tq, plan.kmax,
+            plan.word, stream)
+    if rc != 0:
+        raise RuntimeError(f"msda_walk_fwd launch failed: cudaError {rc}")
+    return out
 
 
 def _walk(count_name: str, value_l, loc_l, attn_l, h: int, w: int,
           perm: Optional[torch.Tensor], cw: int, tq: Optional[int],
-          want_ranges: bool = False, want_band: bool = False):
-    """One launch of the walk, served as `walk_plan` says -> (out (N, Lq,
-    M, D) float32, the tiles' int32 `ranges` (N, tiles, 4) or `band` (N,
-    tiles, 2) where asked for, else None). Counts it as `count_name`."""
-    name = "msda_dense_v4_fwd"
-    n, lq, m, p, d = _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
-    plan = walk_plan(n, lq, m, p, d, h, w, value_l.element_size(),
-                     value_l.data_ptr() % 16, cw, tq)
-    lib = V4_LIB.load()
-    dev = value_l.device
-    out = torch.empty(n, lq, m, d, dtype=torch.float32, device=dev)
-    bounds = (torch.empty(n, plan.grid[1], 4 if want_ranges else 2,
-                          dtype=torch.int32, device=dev)
-              if want_ranges or want_band else None)
-    ptr = None if bounds is None else bounds.data_ptr()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_dense_v4_fwd(
-            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
-            None if perm is None else perm.data_ptr(), out.data_ptr(),
-            ptr if want_ranges else None, None if want_ranges else ptr,
-            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), cw,
-            plan.tq, plan.wr, plan.wc, plan.wps, plan.kmax, plan.word,
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+          bounds_kind: Optional[str] = None):
+    """One launch of the walk over one level, served as `walk_plan` says ->
+    (out (N, Lq, M, D) float32, the tiles' int32 `bounds_kind` bounds:
+    "ranges" or "windows" (N, tiles, 4), "band" (N, tiles, 2); None where
+    not asked for). Counts it as `count_name`."""
+    n, lq, m, p, d = _check_level_inputs("msda_walk_fwd", value_l, loc_l,
+                                         attn_l, h, w)
+    plan = levels_plan(n, lq, m, p, d, ((h, w),), value_l.element_size(),
+                       value_l.data_ptr() % 16, cw, tq)
+    bounds = (torch.empty(n, plan.grid[1], 2 if bounds_kind == "band" else 4,
+                          dtype=torch.int32, device=value_l.device)
+              if bounds_kind else None)
+    out = launch_walk(value_l, loc_l, attn_l, plan, cw, perm=perm,
+                      bounds=bounds, bounds_kind=bounds_kind)
     count_launch(count_name, n, lq, ((h, w),))
     return out, bounds
 
@@ -304,7 +401,7 @@ def dense_level_v2_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
     kernel's own (N, ceil(Lq / tq), 2) int32 row bands clipped to the level
     (lo > hi: empty). Counts the launch as "dense_level_pallas_v2"."""
     out, band = _walk("dense_level_pallas_v2", value_l, loc_l, attn_l, h, w,
-                      None, 0, tq, want_band=return_band)
+                      None, 0, tq, "band" if return_band else None)
     return (out, band) if return_band else out
 
 
@@ -427,11 +524,12 @@ def dense_level_v4_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
     queries in its order; `cw` None walks every row at full width. Counts
     the launch as "dense_level_pallas_v4"."""
     if perm is not None:
-        _check_perm("msda_dense_v4_fwd", perm, loc_l)
+        _check_perm("msda_walk_fwd", perm, loc_l)
     if cw is not None and cw < 1:
-        raise ValueError(f"msda_dense_v4_fwd: cw {cw}")
+        raise ValueError(f"msda_walk_fwd: cw {cw}")
     out, ranges = _walk("dense_level_pallas_v4", value_l, loc_l, attn_l, h,
-                        w, perm, cw or 0, tq, want_ranges=return_ranges)
+                        w, perm, cw or 0, tq,
+                        "ranges" if return_ranges else None)
     return (out, ranges) if return_ranges else out
 
 
@@ -485,45 +583,27 @@ def v3_windows(loc_l: torch.Tensor, h: int, w: int, perm: torch.Tensor,
     return torch.stack([r_lo, r_hi, xstart, fits.to(r_lo.dtype)], -1).long()
 
 
-V3_LIB = CudaLib("msda_dense_v3_fwd.cu", {"msda_dense_v3_fwd": (
-    ctypes.c_int,
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p])},
-    headers=[MSDA_COMMON])
-
-
 def dense_level_v3_fwd_cuda(value_l: torch.Tensor, loc_l: torch.Tensor,
                             attn_l: torch.Tensor, h: int, w: int,
                             perm: Optional[torch.Tensor] = None,
                             cw: int = V3_CW, tq: Optional[int] = None,
                             return_windows: bool = False):
-    """One launch of the sorted, x-windowed kernel -> (N, Lq, M, D) float32;
-    with `return_windows` also the kernel's own (N, ceil(Lq / tq), 4) int32
-    bounds (`v3_windows`). `perm` None: the queries' own spatial sort.
-    Counts the launch as "dense_level_pallas_v3"."""
-    name = "msda_dense_v3_fwd"
-    n, lq, m, p, d = _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
+    """One launch of the sorted, x-windowed kernel: the walk (`V4_LIB`) in
+    `perm` order and `cw`-column chunks, served as `walk_plan` says (`tq`
+    None: the plan's tile) -> (N, Lq, M, D) float32; with `return_windows`
+    also the kernel's own (N, ceil(Lq / tq), 4) int32 bounds (`v3_windows`
+    at that tile). `perm` None: the queries' own spatial sort. Counts the
+    launch as "dense_level_pallas_v3"."""
+    name = "msda_walk_fwd"
+    _check_level_inputs(name, value_l, loc_l, attn_l, h, w)
     if perm is None:
         perm = spatial_sort_perm(loc_l, h, w)
     _check_perm(name, perm, loc_l)
     if cw < 1:
         raise ValueError(f"{name}: cw {cw}")
-    tq = V2_TQ if tq is None else tq
-    lib = V3_LIB.load()
-    out = torch.empty(n, lq, m, d, dtype=torch.float32,
-                      device=value_l.device)
-    windows = (torch.empty(n, -(-lq // tq), 4, dtype=torch.int32,
-                           device=value_l.device) if return_windows else None)
-    with torch.cuda.device(value_l.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_dense_v3_fwd(
-            value_l.data_ptr(), loc_l.data_ptr(), attn_l.data_ptr(),
-            perm.data_ptr(), out.data_ptr(),
-            None if windows is None else windows.data_ptr(),
-            n, h, w, lq, m, p, d, int(value_l.dtype == torch.bfloat16), tq,
-            cw, V2_CHUNK_BYTES, V2_THREADS, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    count_launch("dense_level_pallas_v3", n, lq, ((h, w),))
+    out, windows = _walk("dense_level_pallas_v3", value_l, loc_l, attn_l, h,
+                         w, perm, cw, tq,
+                         "windows" if return_windows else None)
     return (out, windows) if return_windows else out
 
 

@@ -15,34 +15,35 @@ Differentiable (`ops/msda.py:MSDAFunction`).
 `msda_patch_v6`: the TPU's `_kernel_v6` tiles the queries in the static
 `snake_bucket_perm` order and runs one loop over a precomputed flat list of
 the value chunks each tile's samples cover on all levels (`v6_walk`), with
-a ring of chunk copies in flight. On the card: `v6_walk` in tensor code on
-the device, then one launch of `csrc/msda_patch_v6_fwd.cu` -> (N, Lq, M, D)
-float32 as the TPU kernel returns it; the backward is the backward kernel
-of `ops/msda.py` over all levels. On a CPU tensor it is the plain version.
-No route calls it, as in the JAX package. The chunk geometry is the card's
-(8 x 32 cells, four slots: a block has 227 KB of shared memory where the
-TPU kernel stages 3 MB), not the TPU's 16 x 64.
+a ring of chunk copies in flight. On the card: one launch of the walk of
+`csrc/msda_dense_v4_fwd.cu` over all levels (`ops/msda_dense.py`:
+`levels_plan`, `launch_walk`): tiles in the same snake order, each block
+finding its own occupied windows level by level, so no list is built; no
+window leaves a tile's occupied cells, so it reads no cell outside the
+chunks `v6_walk` lists. -> (N, Lq, M, D) float32 as the TPU kernel returns
+it; the backward is the backward kernel of `ops/msda.py` over all levels.
+On a CPU tensor it is the plain version. No route calls it, as in the JAX
+package. `v6_walk` stays as the plain counterpart of the JAX wrapper's
+list (its tests hold the walk's bounds).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .cuda_build import MSDA_COMMON, CudaLib
 from .msda import (_check_inputs, count_launch, ms_deform_attn_plain,
                    msda_bwd_cuda, msda_cuda)
+from .msda_dense import V3_CW, launch_walk, levels_plan
 
-# kernel v6 on the card: queries per tile, chunk rows and columns in cells,
-# chunk copies in flight + 1, threads per block
+# `v6_walk`'s defaults: queries per tile, chunk rows and columns in cells
 V6_TQ = 128
 V6_PH = 8
 V6_PW = 32
-V6_NSLOTS = 4
-V6_THREADS = 256
+# the walk's column chunks on every level: its dense windows of 16 columns
+V6_CW = V3_CW
 
 
 def msda_patch(value: torch.Tensor,
@@ -161,56 +162,25 @@ def v6_walk(spatial_shapes: Sequence[Tuple[int, int]],
     return codes.to(torch.int32).contiguous(), totals.to(torch.int32)
 
 
-V6_LIB = CudaLib("msda_patch_v6_fwd.cu", {"msda_patch_v6_fwd": (
-    ctypes.c_int,
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-    + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 7
-    + [ctypes.c_void_p])}, headers=[MSDA_COMMON])
-
-
 def msda_patch_v6_fwd_cuda(value: torch.Tensor,
                            spatial_shapes: Sequence[Tuple[int, int]],
                            sampling_locations: torch.Tensor,
                            attention_weights: torch.Tensor,
-                           tq: Optional[int] = None, ph: Optional[int] = None,
-                           pw: Optional[int] = None,
-                           nslots: Optional[int] = None,
-                           walk=None) -> torch.Tensor:
-    """`v6_walk` (unless the caller hands its result in as `walk`) and one
-    launch of the flat-walk kernel -> (N, S, M, D) float32. Counts the
-    launch as "msda_patch_v6"."""
+                           tq: Optional[int] = None) -> torch.Tensor:
+    """One launch of the walk over all levels, tiles of `tq` queries (None:
+    the plan's) in `snake_bucket_perm` order, served as `levels_plan` says
+    -> (N, S, M, D) float32. Counts the launch as "msda_patch_v6"."""
     _check_inputs(value, spatial_shapes, sampling_locations,
                   attention_weights)
     n, s, m, d = value.shape
-    _, lq, _, l, p, _ = sampling_locations.shape
+    lq, p = sampling_locations.shape[1], sampling_locations.shape[4]
     if lq != s:
         raise ValueError(f"msda_patch_v6 needs Lq == S, got Lq={lq}, S={s}")
-    tq = V6_TQ if tq is None else tq
-    ph = V6_PH if ph is None else ph
-    pw = V6_PW if pw is None else pw
-    nslots = V6_NSLOTS if nslots is None else nslots
-    shapes = tuple(tuple(hw) for hw in spatial_shapes)
-    codes, totals = walk if walk is not None else v6_walk(
-        shapes, sampling_locations, tq, ph, pw)
-    maxc = v6_max_chunks(shapes, ph, pw)
-    if tuple(codes.shape) != (n, -(-s // tq), maxc) \
-            or codes.dtype != torch.int32 or not codes.is_contiguous():
-        raise ValueError(f"msda_patch_v6: codes {tuple(codes.shape)}")
-    totals = totals.contiguous()
-    perm = _snake_perm_on(shapes, value.device)
-    lib = V6_LIB.load()
-    out = torch.empty(n, s, m, d, dtype=torch.float32, device=value.device)
-    hw = (ctypes.c_int * (2 * l))(*[int(v) for pair in shapes for v in pair])
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.msda_patch_v6_fwd(
-            value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), perm.data_ptr(), codes.data_ptr(),
-            totals.data_ptr(), out.data_ptr(), n, s, m, l, p, d, hw,
-            int(value.dtype == torch.bfloat16), tq, ph, pw, nslots, maxc,
-            V6_THREADS, stream)
-    if rc != 0:
-        raise RuntimeError(f"msda_patch_v6_fwd launch failed: cudaError {rc}")
+    shapes = tuple(tuple(int(v) for v in hw) for hw in spatial_shapes)
+    plan = levels_plan(n, s, m, p, d, shapes, value.element_size(),
+                       value.data_ptr() % 16, V6_CW, tq)
+    out = launch_walk(value, sampling_locations, attention_weights, plan,
+                      V6_CW, perm_shared=_snake_perm_on(shapes, value.device))
     count_launch("msda_patch_v6", n, s, shapes)
     return out
 
