@@ -88,9 +88,15 @@ last line marked "partial"; the kernels line needs all of them):
      64-column chunks; windows against `v3_windows` at the tile of its
      plan, both the fitting and the full-width branch, also N = 2 with
      offsets six times as large and with samples pushed across the
-     border), `ms_deform_attn_pallas` (also at the decoder call's shape;
-     timed beside torch.gather + multiply + sum, a library composition),
-     `msda_patch_v6` (the walk over all levels in snake order; also N = 2
+     border), `ms_deform_attn_pallas` (two kernels: the corner build, bit
+     for bit against its plain version with float32 and bfloat16
+     locations and weights, and the gather reading the value in place,
+     also with every corner of a query on one row and every corner on one
+     row; also at the decoder call's shape; its device time from a CUDA
+     graph, the corner build's, the whole op's, and `embedding_bag`, the
+     library call, on the same operands; with `--old-gather-rows PATH`
+     the earlier design through its C entry point in turns), `msda_patch_v6`
+     (the walk over all levels in snake order; also N = 2
      with samples pushed across the border; its time split by level);
      each against its plain version in float32 and bfloat16, with the
      wrappers' gradients where the op has them. These kernels are also
@@ -2157,24 +2163,112 @@ def kernel_phase_dense_v3(seed: int, captured):
     return results
 
 
+# the earlier design of the precomputed-rows gather (`--old-gather-rows`):
+# its library, built with the others, or None
+OLD_ROWS_LIB = None
+
+
+def old_rows_lib(path: str):
+    """A `CudaLib` of an earlier `csrc/msda_gather_rows_fwd.cu` (a copy
+    outside the package, beside the `msda_common.cuh` it was built with)
+    with the first design's C entry point: a warp per (item * head,
+    query), lanes over channels, the head-major float32 table, warps per
+    block last."""
+    import ctypes
+    from trackformer_tpu_torch.ops.cuda_build import CudaLib
+    return CudaLib(str(Path(path).resolve()), {"msda_gather_rows_fwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])})
+
+
+def raw_gather_rows(idx, w, v, plan, out):
+    """One launch of the gather through its C entry point as `plan` says,
+    into `out`, with no host work beyond the call -> out."""
+    from trackformer_tpu_torch.ops import msda_pallas
+    n, s, m, d = v.shape
+    lq, k = idx.shape[1:]
+    rc = msda_pallas.LIB.load().msda_gather_rows_fwd(
+        idx.data_ptr(), w.data_ptr(), v.data_ptr(), out.data_ptr(), n, s, m,
+        lq, k, d, int(v.dtype == torch.bfloat16), plan.word, plan.qstep,
+        plan.chunk, plan.passes, plan.warps, plan.smem_bytes, plan.grid[0],
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"msda_gather_rows_fwd launch failed: cudaError {rc}")
+    return out
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Median device milliseconds of one call of `fn`, replayed from a CUDA
+    graph of `calls` calls: no host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        fn()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def corners_held(tag: str, shapes, loc, attn, **fields) -> None:
+    """The corner build against `corner_operands_plain` on the card, bit
+    for bit (indices, and weights as bits); prints the reading, fails the
+    run if a bit differs."""
+    from trackformer_tpu_torch.ops.msda_pallas import (
+        corner_operands_cuda, corner_operands_plain)
+    idx, w = corner_operands_cuda(shapes, loc, attn)
+    torch.cuda.synchronize()
+    want_idx, want_w = corner_operands_plain(shapes, loc, attn)
+    idx_diff = int((idx != want_idx).sum())
+    w_diff = int((w.view(torch.int32) != want_w.view(torch.int32)).sum())
+    phase("kernel", case=tag, locations=str(loc.dtype).split(".")[-1],
+          weights=str(attn.dtype).split(".")[-1], corners=idx.numel(),
+          indices_differing=idx_diff, weight_bits_differing=w_diff,
+          tol="bit for bit", ok=idx_diff == 0 and w_diff == 0)
+    check(idx_diff == 0 and w_diff == 0,
+          f"{tag} {fields}: {idx_diff} indices and {w_diff} weights differ "
+          f"from corner_operands_plain")
+
+
 def kernel_phase_gather_rows(seed: int, captured):
-    """The precomputed-rows gather: `ms_deform_attn_pallas` on the captured
-    encoder call (K = 64) and at the decoder call's shape (K = 128, 650
-    scattered queries), float32 and bfloat16 values, against
-    `ms_deform_attn_plain`; the kernel alone, on the operands the wrapper
-    builds, held against and timed beside the one library call that
-    computes the same function on the same operands
-    (`torch.nn.functional.embedding_bag` with per-sample weights, the
-    tables of all (item, head) laid end to end; used nowhere in the port)
-    and beside torch.gather + multiply + sum (the plain version, a
-    composition). -> results by "encoder" / "decoder"."""
+    """The precomputed-rows gather, two kernels: the corner build bit for
+    bit against `corner_operands_plain` with float32 and bfloat16 locations
+    and weights; the gather (the value read in place) against
+    `gather_rows_plain`, float32 and bfloat16 values, with every corner of a
+    query on one row (`ms_one_cell`: every row read an L1 hit, three rows a
+    load instruction) and every corner on one row of the call (`ms_one_row`:
+    one row a load instruction); the op `ms_deform_attn_pallas` against
+    `ms_deform_attn_plain` (bfloat16 locations: against the plain versions
+    of the two kernels), with its launches; at the captured encoder call
+    (K = 64) and at the decoder call's shape (K = 128, 650 scattered
+    queries). Times: the gather through its wrapper and its C entry point,
+    as device time (`graph_ms`), with `--old-gather-rows` the earlier design
+    through its own C entry point in turns (its float32 head-major table
+    built outside the timing); the corner build; the whole op; the plain
+    gather; the MSDA forward kernel on the same call; the one library call
+    that computes the same function, also as device time
+    (`torch.nn.functional.embedding_bag` with per-sample weights over the
+    float32 value read in place as a table of N * S * M rows; used nowhere
+    in the port). Then the odd shape (D = 5, K = 24) and a value pointer one
+    element off its alignment. -> results by ("gather" / "corners",
+    "encoder" / "decoder")."""
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.msda_pallas import (
-        gather_operands, gather_rows_cuda, gather_rows_plain,
-        ms_deform_attn_pallas)
+        corner_operands_cuda, corner_operands_plain, gather_plan,
+        gather_rows_cuda, gather_rows_plain, ms_deform_attn_pallas)
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 23)
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     dec_levels = LEVELS * 2
     cases = [("encoder", LEVELS, *captured),
              ("decoder", dec_levels,
@@ -2182,89 +2276,193 @@ def kernel_phase_gather_rows(seed: int, captured):
     results = {}
     for name, shapes, value, loc, attn in cases:
         lq = loc.shape[1]
-        for dtype in (torch.float32, bf16):
-            v = value.to(dtype)
-            with torch.no_grad():
+        for ld in (f32, bf16):
+            for ad in (f32, bf16):
+                corners_held(f"msda_corners_{name}", shapes, loc.to(ld),
+                             attn.to(ad))
+        with torch.no_grad():
+            for dtype in (f32, bf16):
+                v = value.to(dtype)
                 got = ms_deform_attn_pallas(v, shapes, loc, attn)
                 torch.cuda.synchronize()
                 want = msda.ms_deform_attn_plain(v, shapes, loc, attn)
-            check(got.dtype == dtype and got.shape == (1, lq, M * D),
-                  f"ms_deform_attn_pallas {name}: output")
-            err = held_against_plain(
-                f"ms_deform_attn_pallas_{name}", dtype, got.float(),
-                want.flatten(2), items=1, lq=lq, levels=len(shapes))
-        v = value.to(bf16)
+                check(got.dtype == dtype and got.shape == (1, lq, M * D),
+                      f"ms_deform_attn_pallas {name}: output")
+                held_against_plain(f"ms_deform_attn_pallas_{name}", dtype,
+                                   got.float(), want.flatten(2), items=1,
+                                   lq=lq, levels=len(shapes))
+                # bfloat16 locations and weights: the JAX wrapper's corners
+                loc_b, attn_b = loc.to(bf16), attn.to(bf16)
+                held_against_plain(
+                    f"ms_deform_attn_pallas_{name}", dtype,
+                    ms_deform_attn_pallas(v, shapes, loc_b, attn_b).float(),
+                    gather_rows_plain(*corner_operands_plain(
+                        shapes, loc_b, attn_b), v).flatten(2),
+                    locations="bfloat16", weights="bfloat16")
+            idx, w = corner_operands_cuda(shapes, loc, attn)
+            one_cell = idx[..., :1].expand_as(idx).contiguous()
+            one_row = torch.zeros_like(idx)
+            gather_err = {}
+            for dtype in (f32, bf16):
+                v = value.to(dtype).contiguous()
+                plan = gather_plan(1, lq, M, idx.shape[2], D,
+                                   v.element_size(), v.data_ptr())
+                for what, ix in (("corners", idx), ("one_cell", one_cell),
+                                 ("one_row", one_row)):
+                    got = gather_rows_cuda(ix, w, v, shapes)
+                    torch.cuda.synchronize()
+                    err = held_against_plain(
+                        f"msda_gather_rows_{name}", dtype, got,
+                        gather_rows_plain(ix, w, v), indices=what,
+                        k=idx.shape[2], plan=json.dumps(list(plan[:7])))
+                    gather_err.setdefault(dtype, err)
+        v = value.to(bf16).contiguous()
         reset_launch_counts()
         with torch.no_grad():
             ms_deform_attn_pallas(v, shapes, loc, attn)     # the path
+        counts = {k: c for k, c in msda.launch_counts().items() if c}
         record_path()
-        idx, weights, table = gather_operands(v, shapes, loc, attn)
+        check(counts == {"ms_deform_attn_pallas": 1,
+                         "ms_deform_attn_pallas_corners": 1},
+              f"ms_deform_attn_pallas {name} launched {counts}")
         with torch.no_grad():
-            same = gather_rows_cuda(idx, weights, table, M, shapes)
-            comp = gather_rows_plain(idx, weights, table)
-            check(bool(((same - comp).abs() <= 1e-5 + 1e-5 * comp.abs())
-                       .all()), f"gather_rows {name}: kernel against "
-                                "torch.gather composition")
-            # the library call's operands: one table of B*S rows, one bag
-            # of K rows per (item * head, query)
-            b, s_rows = table.shape[:2]
-            flat_table = table.reshape(b * s_rows, D)
-            bags = (idx + s_rows * torch.arange(
-                b, device="cuda", dtype=torch.int32)[:, None, None]
-                ).reshape(b * lq, -1)
-            bag_w = weights.reshape(b * lq, -1)
+            times = {}
+            for dtype in (bf16, f32):
+                vd = value.to(dtype).contiguous()
+                plan = gather_plan(1, lq, M, idx.shape[2], D,
+                                   vd.element_size(), vd.data_ptr())
+                out = torch.empty(1, lq, M, D, dtype=dtype, device="cuda")
+                sfx = "" if dtype == bf16 else "_f32"
+                times["ms" + sfx] = time_ms(lambda: gather_rows_cuda(
+                    idx, w, vd, shapes), 20, INNER)
+                times["device_ms" + sfx] = graph_ms(
+                    lambda: raw_gather_rows(idx, w, vd, plan, out))
+                for what, ix in (("one_cell", one_cell),
+                                 ("one_row", one_row)):
+                    times[f"device_ms_{what}{sfx}"] = graph_ms(
+                        lambda: raw_gather_rows(ix, w, vd, plan, out))
+                times["whole_op_ms" + sfx] = time_ms(
+                    lambda: ms_deform_attn_pallas(vd, shapes, loc, attn), 20,
+                    INNER)
+            # the earlier design in turns, on its float32 head-major table
+            b = M
+            want_hm = gather_rows_plain(idx, w, v).permute(0, 2, 1, 3) \
+                .reshape(b, lq, D)
+            table = v.float().permute(0, 2, 1, 3).reshape(b, -1, D) \
+                .contiguous()
+            plan = gather_plan(1, lq, M, idx.shape[2], D, 2, v.data_ptr())
+            out = torch.empty(1, lq, M, D, dtype=bf16, device="cuda")
+            old = None
+            if OLD_ROWS_LIB is not None:
+                old_fn = OLD_ROWS_LIB.load().msda_gather_rows_fwd
+                old_out = torch.empty(b, lq, D, device="cuda")
+
+                def old():
+                    rc = old_fn(idx.data_ptr(), w.data_ptr(),
+                                table.data_ptr(), old_out.data_ptr(), b,
+                                table.shape[1], lq, idx.shape[2], D, 8,
+                                torch.cuda.current_stream().cuda_stream)
+                    check(rc == 0, f"msda_gather_rows_fwd (earlier design) "
+                                   f"launch failed: cudaError {rc}")
+                    return old_out
+            ab = turns_against(
+                lambda: raw_gather_rows(idx, w, v, plan, out),
+                {"old_ms": old}, want_hm, f32, "msda_gather_rows_fwd")
+            corner_ms = time_ms(lambda: corner_operands_cuda(
+                shapes, loc, attn), 20, INNER)
+            corner_device_ms = graph_ms(lambda: corner_operands_cuda(
+                shapes, loc, attn))
+            corner_plain_ms = time_ms(lambda: corner_operands_plain(
+                shapes, loc, attn), 5, INNER)
+            plain_ms = time_ms(lambda: gather_rows_plain(idx, w, v), 5,
+                               INNER)
+            # the MSDA forward kernel on the same call, for scale
+            fwd_ms = time_ms(lambda: msda.ms_deform_attn(v, shapes, loc,
+                                                         attn), 20, INNER)
+            # the library call: the float32 value in place as one table of
+            # N * S * M rows, one bag of K rows per (item * head, query)
+            flat_table = value.float().reshape(-1, D)
+            heads = torch.arange(M, device="cuda", dtype=torch.int32)
+            bags = (idx * M + heads[:, None, None]).reshape(M * lq, -1)
+            bag_w = w.reshape(M * lq, -1)
 
             def library():
                 return torch.nn.functional.embedding_bag(
                     bags, flat_table, per_sample_weights=bag_w, mode="sum")
 
-            lib_out = library().reshape(same.shape)
-            lib_err = (same - lib_out).abs().max().item()
-            check(bool(((same - lib_out).abs()
+            lib_out = library().reshape(M, lq, D)
+            kern_f32 = gather_rows_cuda(idx, w, value.float().contiguous(),
+                                        shapes).permute(0, 2, 1, 3)[0]
+            lib_err = (kern_f32 - lib_out).abs().max().item()
+            check(bool(((kern_f32 - lib_out).abs()
                         <= 1e-5 + 1e-5 * lib_out.abs()).all()),
                   f"gather_rows {name}: kernel against embedding_bag: "
                   f"{lib_err}")
             library_ms = time_ms(library, 20, INNER)
-            op_ms = time_ms(lambda: ms_deform_attn_pallas(v, shapes, loc,
-                                                          attn), 10, INNER)
-            ms = time_ms(lambda: gather_rows_cuda(idx, weights, table, M,
-                                                  shapes), 20, INNER)
-            plain_ms = time_ms(lambda: gather_rows_plain(idx, weights, table),
-                               5, INNER)
-            comp_ms = time_ms(
-                lambda: (torch.gather(
-                    table, 1, idx.long().reshape(idx.shape[0], -1, 1)
-                    .expand(-1, -1, D)).reshape(*idx.shape, D)
-                    * weights[..., None]).sum(2), 5, INNER)
-            fused_ms = time_ms(lambda: msda.ms_deform_attn(v, shapes, loc,
-                                                           attn), 20, INNER)
+            library_device_ms = graph_ms(library)
         rows = touched_value_rows(loc, shapes)
-        n_bytes = (idx.numel() * 8 + rows * D * 4 + same.numel() * 4)
-        bound_ms, bound_by = bound(n_bytes, 2 * idx.numel() * D, FP32_FLOPS)
-        phase("kernel", case=f"msda_gather_rows_{name}",
-              table="float32, head-major", items=1, lq=lq, k=idx.shape[2],
-              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-              library_ms=f"{library_ms:.4f}",
+        k = idx.shape[2]
+        flops = 2 * idx.numel() * D
+        bound_ms, bound_by = bound(idx.numel() * 8 + rows * D * 2
+                                   + lq * M * D * 2, flops, FP32_FLOPS)
+        bound_f32_ms, _ = bound(idx.numel() * 8 + rows * D * 4
+                                + lq * M * D * 4, flops, FP32_FLOPS)
+        corner_bound_ms, corner_bound_by = bound(
+            loc.numel() * 4 + attn.numel() * 4 + idx.numel() * 8,
+            idx.numel() * 12, FP32_FLOPS)
+        fmt = {key: f"{t:.4f}" for key, t in times.items()}
+        phase("kernel", case=f"msda_gather_rows_{name}", dtype="bfloat16",
+              items=1, lq=lq, k=k, table="the value in place",
+              plan=json.dumps(list(plan[:7])), **fmt, **ab,
+              corner_build_ms=f"{corner_ms:.4f}",
+              corner_build_device_ms=f"{corner_device_ms:.4f}",
+              corner_build_plain_ms=f"{corner_plain_ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+              library_device_ms=f"{library_device_ms:.4f}",
               library_max_abs_diff=f"{lib_err:.3e}",
-              library_composition_ms=f"{comp_ms:.4f}",
-              whole_op_with_operands_ms=f"{op_ms:.4f}",
-              gather_kernel_same_call_ms=f"{fused_ms:.4f}",
-              bound_ms=f"{bound_ms:.4f}", bound_by=bound_by)
-        results[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms,
-            library_composition_ms=comp_ms, whole_op_with_operands_ms=op_ms,
-            gather_kernel_ms=fused_ms)
-        del idx, weights, table, same, comp, flat_table, bags, bag_w, lib_out
-    # K = 24 corners (a ragged load of 32) and D = 5 channels
+              msda_fwd_same_call_ms=f"{fwd_ms:.4f}",
+              bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+              bound_float32_table_ms=f"{bound_f32_ms:.4f}",
+              corner_build_bound_ms=f"{corner_bound_ms:.4f}")
+        results[("gather", name)] = dict(
+            max_abs_err=gather_err[bf16], ms=times["ms"], plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            **{key: t for key, t in times.items() if key != "ms"},
+            entry_ms=ab["entry_ms"], old_ms=ab["old_ms"],
+            bound_float32_table_ms=bound_f32_ms,
+            library_device_ms=library_device_ms,
+            msda_fwd_same_call_ms=fwd_ms)
+        results[("corners", name)] = dict(
+            max_abs_err=0.0, ms=corner_ms, plain_ms=corner_plain_ms,
+            bound_ms=corner_bound_ms, bound_by=corner_bound_by,
+            library_ms=None, device_ms=corner_device_ms)
+        del idx, w, one_cell, one_row, table, flat_table, bags, bag_w
+    # K = 24 corners, D = 5 channels (2- and 4-byte words), and a value one
+    # element off its alignment at the decoder call's shape (2- and 4-byte
+    # words, a row of 36 words in two passes)
     value, loc, attn = odd_shape_inputs(gen, 5, ODD_LEVELS, 70)
-    for dtype in (torch.float32, bf16):
+    corners_held("msda_corners_odd_shape", ODD_LEVELS, loc.to(bf16),
+                 attn.to(bf16))
+    value_d, loc_d, attn_d = msda_inputs(dec_levels, DEC_QUERIES, False, gen,
+                                         1)
+    for dtype in (f32, bf16):
         v = value.to(dtype)
         held_against_plain(
             "ms_deform_attn_pallas_odd_shape", dtype,
             ms_deform_attn_pallas(v, ODD_LEVELS, loc, attn).float(),
             msda.ms_deform_attn_plain(v, ODD_LEVELS, loc, attn).flatten(2),
             d=5, k=24)
+        store = torch.empty(value_d.numel() + 1, dtype=dtype, device="cuda")
+        v = store[1:].view(value_d.shape)
+        v.copy_(value_d)
+        plan = gather_plan(1, DEC_QUERIES, M, 128, D, v.element_size(),
+                           v.data_ptr())
+        held_against_plain(
+            "ms_deform_attn_pallas_unaligned", dtype,
+            ms_deform_attn_pallas(v, dec_levels, loc_d, attn_d).float(),
+            msda.ms_deform_attn_plain(v, dec_levels, loc_d, attn_d)
+            .flatten(2), offset_bytes=v.element_size(),
+            plan=json.dumps(list(plan[:7])))
     return results
 
 
@@ -2970,7 +3168,7 @@ ROUTE_FRAMES = 3
 
 def main() -> int:
     global OLD_BWD_LIB, OLD_FWD_LIB, OLD_WINDOW_LIB, OLD_V2_LIB, OLD_V4_LIB
-    global OLD_V3_LIB, OLD_V6_LIB, OLD_WALK_LIB
+    global OLD_V3_LIB, OLD_V6_LIB, OLD_WALK_LIB, OLD_ROWS_LIB
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=6,
                     help="frames of each tracker run")
@@ -3003,6 +3201,10 @@ def main() -> int:
                     help="an earlier csrc/msda_patch_v6_fwd.cu (a copy "
                          "outside the package, beside the msda_common.cuh "
                          "it was built with) to time beside the flat walk")
+    ap.add_argument("--old-gather-rows", default=None, metavar="PATH",
+                    help="an earlier csrc/msda_gather_rows_fwd.cu (a copy "
+                         "outside the package, beside the msda_common.cuh "
+                         "it was built with) to time beside the gather")
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -3057,6 +3259,9 @@ def main() -> int:
     if args.old_walk:
         OLD_WALK_LIB = old_walk_lib(args.old_walk)
         libs.append(OLD_WALK_LIB)
+    if args.old_gather_rows:
+        OLD_ROWS_LIB = old_rows_lib(args.old_gather_rows)
+        libs.append(OLD_ROWS_LIB)
     build_all(libs)
     for lib in libs:
         info = lib.info()
@@ -3222,12 +3427,24 @@ def main() -> int:
          ("dense_level_pallas_v4", 1, DEC_QUERIES, (LEVELS[0],))),
         ("msda_gather_rows_fwd via ms_deform_attn_pallas (a captured "
          "encoder call, all levels, B = 1)",
-         rows_src, pallas_py + ":34", {**krows["encoder"], "path": no_route},
+         rows_src, pallas_py + ":34",
+         {**krows[("gather", "encoder")], "path": no_route},
          ("ms_deform_attn_pallas", 1, s_enc, LEVELS)),
         ("msda_gather_rows_fwd via ms_deform_attn_pallas (the decoder "
          "call's shape, 8 levels, 650 queries, B = 1)",
-         rows_src, pallas_py + ":34", {**krows["decoder"], "path": no_route},
+         rows_src, pallas_py + ":34",
+         {**krows[("gather", "decoder")], "path": no_route},
          ("ms_deform_attn_pallas", 1, DEC_QUERIES, dec_levels)),
+        ("msda_corners_fwd via ms_deform_attn_pallas (its corner operands, "
+         "a captured encoder call, B = 1)",
+         rows_src, pallas_py + ":67",
+         {**krows[("corners", "encoder")], "path": no_route},
+         ("ms_deform_attn_pallas_corners", 1, s_enc, LEVELS)),
+        ("msda_corners_fwd via ms_deform_attn_pallas (its corner operands, "
+         "the decoder call's shape, B = 1)",
+         rows_src, pallas_py + ":67",
+         {**krows[("corners", "decoder")], "path": no_route},
+         ("ms_deform_attn_pallas_corners", 1, DEC_QUERIES, dec_levels)),
         ("msda_dense_v4_fwd via msda_patch_v6 (a captured encoder call, all "
          "levels, B = 1)",
          v6_src, patch_py + ":411", {**kv6, "path": no_route},

@@ -134,5 +134,5 @@ def test_cpu_calls_launch_nothing():
                            "dense_level_pallas", "dense_level_pallas_v2",
                            "msda_bwd", "dense_level_pallas_v4",
                            "dense_level_pallas_v3", "ms_deform_attn_pallas",
-                           "msda_patch_v6"}
+                           "ms_deform_attn_pallas_corners", "msda_patch_v6"}
     assert all(v == 0 for v in counts.values())

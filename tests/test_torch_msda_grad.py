@@ -266,14 +266,16 @@ def test_new_cuda_launchers_refuse_cpu_tensors():
                                                        cw=8),
             lambda: msda_dense.dense_level_v3_fwd_cuda(*level),
             lambda: msda_patch.msda_patch_v6_fwd_cuda(tv, SHAPES, tl, ta),
+            lambda: msda_pallas.corner_operands_cuda(SHAPES, tl, ta),
             lambda: msda_pallas.gather_rows_cuda(
                 torch.zeros(2, 3, 4, dtype=torch.int32), torch.zeros(2, 3, 4),
-                torch.zeros(2, 5, 6), 2, ((1, 5),))):
+                torch.zeros(1, 5, 2, 6), ((1, 5),))):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert msda.launch_counts() == before
     assert {"dense_level_pallas_v4", "dense_level_pallas_v3",
-            "ms_deform_attn_pallas", "msda_patch_v6"} <= set(before)
+            "ms_deform_attn_pallas", "ms_deform_attn_pallas_corners",
+            "msda_patch_v6"} <= set(before)
 
 
 def test_launches_are_counted_by_name_and_by_shape():

@@ -89,7 +89,9 @@ LAUNCHES: Dict[str, int] = {"ms_deform_attn": 0, "msda_patch": 0,
                             "dense_level_pallas_v2": 0, "msda_bwd": 0,
                             "dense_level_pallas_v4": 0,
                             "dense_level_pallas_v3": 0,
-                            "ms_deform_attn_pallas": 0, "msda_patch_v6": 0}
+                            "ms_deform_attn_pallas": 0,
+                            "ms_deform_attn_pallas_corners": 0,
+                            "msda_patch_v6": 0}
 # The same launches by shape, (count name, items, queries per item, levels):
 # they show which shapes a run gave each kernel, the backward's split over
 # the encoder's and the decoder's calls included.
