@@ -4,7 +4,8 @@ on one NVIDIA GPU.
 
     python3 chip_profile.py [--frames 8] [--seed 0] [--out DIR]
                             [--paths exact_b1,fast_b1,fast_b8,train_v5,train_v2,
-                                     exact_v4,exact_decskip,train_v4]
+                                     exact_v4,exact_decskip,train_v4,
+                                     train_fast]
 
 For each path — the exact mode through `Tracker` (B = 1), the TPU-fast mode
 through `Tracker` (B = 1) and through `BatchedTracker` (8 sequences in
@@ -38,7 +39,9 @@ frame pairs at 800x1344 with `chip_smoke.py`'s synthetic boxes: three
 untraced steps (step ms and its split by stage, host clock with a
 synchronize after each stage; the median of the last two), then one traced
 step: device ms, the device's busy share, kernel launches, device time by
-operator, the MSDA kernels' launch counts, and peak memory.
+operator, the port wrappers' launch counts (`port_launches_per_step`), and
+peak memory. `train_fast` is the same step of the TPU-fast flagship (its
+windowed encoder on the training path, `tpu_fast`'s warmup).
 
 One JSON line per path, also written to `--out DIR` when given.
 
@@ -194,7 +197,8 @@ def run_path(tag: str, cfg, batch: int, n_frames: int, seed: int,
                                                                 indent=1))
 
 
-def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
+def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path],
+              fast: bool = False):
     from chip_smoke import (launch_counts, reset_launch_counts,
                             synthetic_train_pack)
     from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
@@ -203,7 +207,8 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
-    cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
+    cfg = (FlagshipConfig.tpu_fast() if fast else FlagshipConfig()).replace(
+        dataset="mot_crowdhuman")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model, crit_cfg, _, track_cfg = build_model(cfg, "cuda", generator=gen,
                                                 train=True)
@@ -245,6 +250,7 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
         msda.PALLAS_SKIP_IMPL = saved_impl
     steady_ms = statistics.median(step_ms[1:])
     line = {"path": tag, "batch": 2, "route": route,
+            "mode": "fast" if fast else "exact",
             "steady_step_ms": steady_ms,
             "step_ms": [round(t, 2) for t in step_ms],
             "steady_split_ms": {k: round(statistics.median(
@@ -256,7 +262,7 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
             "device_busy_share": dev_ms / wall_ms,
             "device_share_of_untraced_step": dev_ms / steady_ms,
             "kernel_launches_per_step": launches,
-            "msda_launches_per_step": {k: v for k, v in counts.items() if v},
+            "port_launches_per_step": {k: v for k, v in counts.items() if v},
             "port_kernel_device_ms_per_step": port, "top_device_ops": top}
     print(json.dumps(line), flush=True)
     if out_dir is not None:
@@ -265,7 +271,7 @@ def run_train(tag: str, route: str, seed: int, out_dir: Optional[Path]):
 
 
 PATHS = ("exact_b1", "fast_b1", "fast_b8", "train_v5", "train_v2",
-         "exact_v4", "exact_decskip", "train_v4")
+         "exact_v4", "exact_decskip", "train_v4", "train_fast")
 
 
 def main() -> int:
@@ -315,6 +321,9 @@ def main() -> int:
                     run_path(tag, cfg, batch, args.frames, args.seed, out_dir)
             finally:
                 msda.PALLAS_SKIP_IMPL, msda.MSDA_DEC_SKIP = saved
+        elif tag == "train_fast":
+            # no MSDA in the windowed encoder: the route is the decoder's
+            run_train(tag, "v5", args.seed, out_dir, fast=True)
         else:
             run_train(tag, tag.split("_")[1], args.seed, out_dir)
     return 0

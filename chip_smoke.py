@@ -135,7 +135,28 @@ last line marked "partial"; the kernels line needs all of them):
   train_reference: one float32 train step at 128x192, 2 + 2 layers, on the
      card (kernels) against the same step on the CPU (plain versions):
      loss, grad_norm and every gradient name by name, for two seeds, held
-     against the CPU's float32 step and, ten times closer, its float64 step.
+     against the CPU's float32 step and, ten times closer, its float64 step;
+  train_fast: two-frame training of the full-width TPU-fast flagship in
+     bfloat16 (B = 2 frame pairs, `train.yaml`'s training fields,
+     `tpu_fast`'s warmup): 3 steps with finite losses, 12 decoder MSDA
+     launches and 6 backward launches each and no window-layer kernel (the
+     windowed encoder trains on its module path), step ms and peak memory;
+     then an eval-mode forward of the trained model, whose every windowed
+     layer launches kernel #8; then one float32 fast train step at 128x192,
+     card against the CPU's float32 and float64 steps, as train_reference;
+  checkpoint: `CheckpointManager` saves the train_fast state after its
+     second step (seconds); a fresh model and state restored from it
+     (seconds) hold every saved tensor bit for bit, and their third step
+     with the same draws lands within the train phase's tolerance of the
+     uninterrupted third step; the exact and the fast model with seeded
+     weights through an `.npz` in the JAX layout into a fresh model give a
+     bit-equal forward on one frame (file size, save and load seconds);
+  evaluate: `evaluate` of the full-width exact and fast models over 4
+     frames of moving rectangles with their boxes as ground truth
+     (seconds per frame of the whole call, the 12 COCO statistics, launches
+     per frame); 6 frames of `Tracker` on moving rectangles scored by
+     `get_mot_accum` and `summarize` (MOTA, IDF1); `make_results` of the
+     float32 eval forward on the card against the CPU's at 128x192.
 Then one JSON line with the kernels, each with the launches that the main
 paths made at exactly its shape (it fails if a path launched a kernel at a
 shape that no kernel phase held), and last the device line
@@ -149,6 +170,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -169,6 +191,7 @@ DEC_QUERIES = 650  # 150 track slots + 500 object queries
 TRAIN_BATCH = 2
 TRAIN_DEC_QUERIES = 611
 TRAIN_PREV_QUERIES = 500       # the previous frame's forward: no track query
+EVAL_DEC_QUERIES = 500         # `evaluate`'s forward: no track query, B = 1
 # float32: the kernel and the plain version sum in different orders;
 # bfloat16: the kernel rounds its float32 sum to bfloat16 once (half an
 # ulp, at most 2^-8 relative) where the plain version returns float32
@@ -400,7 +423,9 @@ def kernel_phase_msda(seed: int):
     # sums handed over unrounded, encoder_train and decoder_train the
     # training step's (two frame pairs, 500 object queries + 111
     # track-query slots), decoder_train_prev that of its previous-frame
-    # forward (the object queries alone)
+    # forward (the object queries alone), decoder_eval that of a frame
+    # through `evaluate` or a single-frame forward (the object queries
+    # alone, B = 1)
     cases = [
         ("encoder", LEVELS, s_enc, 1, enc_kernel, plain_of(LEVELS)),
         ("decoder", dec_levels, DEC_QUERIES, 1, dec_kernel,
@@ -415,6 +440,8 @@ def kernel_phase_msda(seed: int):
          dec_kernel, plain_of(dec_levels)),
         ("decoder_train_prev", dec_levels, TRAIN_PREV_QUERIES, TRAIN_BATCH,
          dec_kernel, plain_of(dec_levels)),
+        ("decoder_eval", dec_levels, EVAL_DEC_QUERIES, 1, dec_kernel,
+         plain_of(dec_levels)),
         ("single_level", (mid,), DEC_QUERIES, 1,
          lambda v, lo, a: dense_level_pallas(v, lo[:, :, :, 0],
                                              a[:, :, :, 0], *mid),
@@ -2679,16 +2706,17 @@ def smoke_model(cfg, seed: int, tag: str):
 
 
 def tracker_run(tag: str, cfg, model, postprocess, n_frames: int,
-                seed: int, per_frame: dict):
-    """The port's `Tracker` over synthetic frames; checks the launches of
-    the run against `per_frame` launches per frame for every wrapper."""
+                seed: int, per_frame: dict, blobs=None):
+    """The port's `Tracker` over synthetic frames (`blobs`, by default the
+    drifting texture); checks the launches of the run against `per_frame`
+    launches per frame for every wrapper -> (launches, results)."""
     from trackformer_tpu_torch.tracking import Tracker
 
     tracker = Tracker(model, postprocess,
                       {**cfg.tracker_cfg, "max_tracks": cfg.max_tracks},
                       cfg.hidden_dim, cfg.num_queries,
                       overflow_boxes=cfg.overflow_boxes)
-    blobs = frame_blobs(n_frames, seed)
+    blobs = blobs or frame_blobs(n_frames, seed)
     torch.cuda.synchronize()
 
     reset_launch_counts()
@@ -2722,7 +2750,7 @@ def tracker_run(tag: str, cfg, model, postprocess, n_frames: int,
         check(n == want, f"{tag}: {n} {name} launches, want {want}")
     check(finite, f"{tag}: non-finite tracker outputs")
     check(len(results) > 0 and max(live) > 0, f"{tag}: no track was born")
-    return counts
+    return counts, results
 
 
 # launches per frame (or lockstep step) of the fast paths: per encoder
@@ -3060,14 +3088,15 @@ def grad_readings(got: dict, ref: dict, limits) -> dict:
                     f"max:{atol:g}+{max_lim:g}*max|ref|", ok=ok)
 
 
-def train_reference_run(seed: int):
+def train_reference_run(seed: int, fast: bool = False):
     """One float32 train step at 128x192, 2 + 2 layers, full width, on the
     card (kernels) against the same step on the CPU (plain versions) in
     float32 and in float64, with dropout 0 and the track-query draws
     pinned: loss, grad_norm and every gradient, name by name, within
     `REF_LIMITS`. The CPU's float32 step is also read against its float64
     step (no check): that reading shows whose the misses of the
-    elementwise bound are."""
+    elementwise bound are. `fast`: the TPU-fast mode (its windowed encoder
+    on its training path, the decoder's MSDA on the kernels)."""
     import copy
 
     from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
@@ -3079,7 +3108,8 @@ def train_reference_run(seed: int):
     from trackformer_tpu_torch.utils.config import FlagshipConfig
 
     t, n_obj = 10, 7
-    cfg = FlagshipConfig().replace(
+    label = "train_fast_reference" if fast else "train_reference"
+    cfg = (FlagshipConfig.tpu_fast() if fast else FlagshipConfig()).replace(
         dataset="mot_crowdhuman", compute_dtype="float32", enc_layers=2,
         dec_layers=2, num_queries=100, max_objects=t, dropout=0.0)
     gen = torch.Generator().manual_seed(seed)
@@ -3130,15 +3160,19 @@ def train_reference_run(seed: int):
     loss_c, norm_c, grads_c, counts = results["card"]
     for name, got in grads_c.items():
         check(bool(torch.isfinite(got).all()),
-              f"train_reference: non-finite gradient {name}")
-    phase("train_reference", seed=seed, step="float32, 128x192, 2+2 layers, "
+              f"{label}: non-finite gradient {name}")
+    phase(label, seed=seed, step="float32, 128x192, 2+2 layers, "
           "B=2", gradients=len(grads_c),
           **{f"{k}_{tag}": f"{results[tag][i]:.6f}"
              for i, k in enumerate(("loss", "grad_norm")) for tag in results},
           card_launches=json.dumps({k: v for k, v in counts.items() if v},
                                    separators=(",", ":")))
-    check(counts["msda_bwd"] > 0 and counts["msda_patch"] > 0,
-          f"train_reference: the card's step launched {counts}")
+    if fast:
+        launched = (counts["msda_bwd"] > 0 and counts["ms_deform_attn"] > 0
+                    and counts["fused_window_layer"] == 0)
+    else:
+        launched = counts["msda_bwd"] > 0 and counts["msda_patch"] > 0
+    check(launched, f"{label}: the card's step launched {counts}")
     failed = []
     for ref in ("cpu", "cpu_float64"):
         loss_r, norm_r, grads_r, _ = results[ref]
@@ -3147,21 +3181,376 @@ def train_reference_run(seed: int):
             and abs(norm_c - norm_r) <= REF_LOSS_RTOL * max(1.0, abs(norm_r)))
         r = grad_readings(grads_c, grads_r, REF_LIMITS[ref])
         r["ok"] = r["ok"] and scalars_ok
-        phase("train_reference", seed=seed, held=f"card against {ref}",
+        phase(label, seed=seed, held=f"card against {ref}",
               loss_grad_norm_tol=f"{REF_LOSS_RTOL:g}*max(1,|ref|)", **r)
         if not r["ok"]:
             failed.append(ref)
     r = grad_readings(results["cpu"][2], results["cpu_float64"][2],
                       REF_LIMITS["cpu"])
-    phase("train_reference", seed=seed,
-          reading="cpu against cpu_float64 (no check)", **r)
-    check(not failed, f"train_reference seed {seed}: the card's step "
-                      f"differs from {failed}")
+    phase(label, seed=seed, reading="cpu against cpu_float64 (no check)", **r)
+    check(not failed, f"{label} seed {seed}: the card's step differs from "
+                      f"{failed}")
+
+
+# --------------------------------------------------------------------------
+# training the TPU-fast mode, checkpoints, evaluation
+# --------------------------------------------------------------------------
+
+# launches of one fast-mode train step: the decoder's MSDA calls of both
+# frames' forwards (6 each) and the current frame's backward (6). The
+# windowed encoder trains on its module path: no window-layer kernel
+FAST_TRAIN_PER_STEP = {"ms_deform_attn": 12, "msda_bwd": 6}
+
+
+def max_rel_diff(a: dict, b: dict) -> float:
+    """The largest |a - b|_2 / |b|_2 over the tensors of two dicts."""
+    return max(((a[k].float() - b[k].float()).norm()
+                / b[k].float().norm().clamp(min=1e-30)).item() for k in b)
+
+
+def fast_train_run(seed: int, with_checkpoint: bool, out_dir: Path):
+    """The full-width TPU-fast flagship in bfloat16 trains: B = 2 frame
+    pairs at 800x1344 with `train.yaml`'s training fields and `tpu_fast`'s
+    warmup, 3 optimizer steps (finite losses, the launches of
+    `FAST_TRAIN_PER_STEP`, step ms, peak memory); then a deterministic
+    (eval-mode) forward of the same model launches kernel #8 on every
+    windowed layer. With `with_checkpoint`, `CheckpointManager` saves the
+    state after the second step; a fresh model and state restored from it
+    hold the saved tensors bit for bit, and their third step, with the
+    same draws, lands within `ROUTE_LOSS_RTOL` of the uninterrupted one
+    (the backward kernel's sums are not bitwise reproducible)."""
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.utils.checkpoint import CheckpointManager
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    cfg = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, crit_cfg, _, track_cfg = build_model(cfg, "cuda", generator=gen,
+                                                train=True)
+    optimizer = make_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer)
+    step_fn = make_train_step(model, crit_cfg, optimizer, track_cfg,
+                              tracking=True)
+    phase("train_fast", model="flagship TPU-fast (windowed encoder, cached "
+          "memory)", dtype=cfg.compute_dtype, batch=TRAIN_BATCH,
+          image=f"{BUCKET[0]}x{BUCKET[1]}", queries=cfg.num_queries,
+          dropout=cfg.dropout, lr_warmup_steps=cfg.lr_warmup_steps,
+          tensors=len(optimizer.labels),
+          params=sum(p.numel() for p in model.parameters()))
+    gen.manual_seed(seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, saved, save_s, draws, last = [], None, None, None, None
+    for step in range(3):
+        pack = synthetic_train_pack(cfg, seed, step)
+        if step == 2 and with_checkpoint:
+            saved = {name: {k: v.clone() for k, v in
+                            getattr(state, name).items()}
+                     for name in ("params", "mu", "nu")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            CheckpointManager(out_dir, save_interval=1).save(
+                state, 2, {"neg_loss": -last["loss"]}, cfg)
+            save_s = time.perf_counter() - t0
+            draws = gen.get_state()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, pack, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+        record_path()
+        last = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in last.items() if not np.isfinite(v)]
+        phase("train_fast", step=step, loss=f"{last['loss']:.4f}",
+              grad_norm=f"{last['grad_norm']:.4f}",
+              lr_scale=f"{optimizer.lr_scale(step):g}",
+              step_ms=f"{step_ms[-1]:.1f}",
+              launches=json.dumps({k: v for k, v in counts.items() if v},
+                                  separators=(",", ":")))
+        check(not bad, f"train_fast step {step}: non-finite {bad}")
+        check(last["grad_norm"] > 0, "train_fast: zero gradient")
+        for name, n in counts.items():
+            check(n == FAST_TRAIN_PER_STEP.get(name, 0),
+                  f"train_fast step {step}: {n} {name} launches, want "
+                  f"{FAST_TRAIN_PER_STEP.get(name, 0)}")
+    phase("train_fast", steps=3,
+          steady_median_step_ms=f"{statistics.median(step_ms[1:]):.1f}",
+          peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+    # deterministic calls of the trained model: kernel #8 on every layer
+    model.eval()
+    reset_launch_counts()
+    with torch.inference_mode():
+        out = model(pack["batch"])[0]
+    counts = launch_counts()
+    record_path()
+    model.train()
+    phase("train_fast", deterministic_forward=f"eval mode, B = {TRAIN_BATCH}",
+          finite=bool(torch.isfinite(out["pred_logits"]).all()),
+          launches=json.dumps({k: v for k, v in counts.items() if v},
+                              separators=(",", ":")))
+    for name, n in counts.items():
+        check(n == FAST_PER_FRAME.get(name, 0),
+              f"train_fast eval forward: {n} {name} launches, want "
+              f"{FAST_PER_FRAME.get(name, 0)}")
+    if not with_checkpoint:
+        return
+
+    fresh, _, _, _ = build_model(cfg, "cuda", train=True)
+    fresh_state = TrainState.create(fresh, make_optimizer(cfg, fresh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh_state, epoch = CheckpointManager(out_dir).restore(fresh_state,
+                                                            fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    unequal = [f"{name}:{k}" for name, tensors in saved.items()
+               for k, t in tensors.items()
+               if not torch.equal(getattr(fresh_state, name)[k], t)]
+    model_tensors = dict(fresh.named_parameters())
+    unequal += [k for k, t in saved["params"].items() if k in model_tensors
+                and not torch.equal(model_tensors[k],
+                                    t.to(model_tensors[k].dtype))]
+    resume_fn = make_train_step(fresh, crit_cfg, make_optimizer(cfg, fresh),
+                                track_cfg, tracking=True)
+    gen.set_state(draws)
+    reset_launch_counts()
+    fresh_state, metrics = resume_fn(fresh_state, pack, gen)
+    counts = launch_counts()
+    record_path()
+    resumed = {k: float(v) for k, v in metrics.items()}
+    pairs = {k: (last[k], resumed[k]) for k in ("loss", "grad_norm")}
+    ok = all(abs(b - a) <= ROUTE_LOSS_RTOL * abs(a) for a, b in pairs.values())
+    phase("checkpoint", state=f"train_fast after step 2, {len(saved['params'])}"
+          " tensors", epoch=epoch, save_s=f"{save_s:.3f}",
+          restore_s=f"{restore_s:.3f}",
+          files=sorted(p.name for p in Path(out_dir).iterdir()),
+          restored_bit_equal=not unequal, step=fresh_state.step,
+          **{f"third_step_{k}_{tag}": f"{v:.6f}" for k, ab in pairs.items()
+             for tag, v in zip(("uninterrupted", "resumed"), ab)},
+          params_max_rel_diff=f"{max_rel_diff(fresh_state.params, state.params):.3e}",
+          tol=f"{ROUTE_LOSS_RTOL}*|uninterrupted|", ok=ok)
+    check(not unequal, f"checkpoint: restored tensors differ: {unequal[:5]}")
+    check(epoch == 2 and fresh_state.step == 3, "checkpoint: epoch/step")
+    check(ok, f"checkpoint: resumed third step against the uninterrupted "
+              f"one: {pairs}")
+    for name, n in counts.items():
+        check(n == FAST_TRAIN_PER_STEP.get(name, 0),
+              f"checkpoint resumed step: {n} {name} launches")
+
+
+def npz_round_trip(cfg, seed: int, tag: str, out_dir: Path):
+    """The full-width model with seeded weights through an `.npz` in the
+    JAX layout (`save_model_npz`) into a fresh model (`load_model_npz`):
+    a forward on one frame is bit-equal. Prints the file's size and the
+    save and load seconds."""
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.utils.checkpoint import (load_model_npz,
+                                                        save_model_npz)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = build_model(cfg, "cuda", generator=gen)[0]
+    blob = frame_blobs(1, seed)[0]
+    outs, launches = [], []
+    path = Path(out_dir) / f"{tag}.npz"
+    for run in range(2):
+        if run:
+            t0 = time.perf_counter()
+            save_model_npz(model, path, cfg)
+            save_s = time.perf_counter() - t0
+            del model
+            model = build_model(cfg, "cuda")[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load_model_npz(model, path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs.append(model(blob["batch"])[0])
+        launches.append(launch_counts())
+        record_path()
+    equal = all(torch.equal(outs[0][k], outs[1][k])
+                for k in ("pred_logits", "pred_boxes", "hs_embed"))
+    phase("checkpoint", mode=tag, npz_mib=f"{path.stat().st_size / 2**20:.1f}",
+          save_s=f"{save_s:.3f}", load_s=f"{load_s:.3f}",
+          forward_bit_equal=equal,
+          launches=json.dumps({k: v for k, v in launches[1].items() if v},
+                              separators=(",", ":")))
+    check(equal, f"checkpoint {tag}: the reloaded model's forward differs")
+    check(launches[0] == launches[1], f"checkpoint {tag}: launches differ")
+    path.unlink()
+
+
+# moving rectangles of the evaluate phase: (x, y, w, h) at the original
+# 1080x1920 size on the first frame, and their (dx, dy) per frame
+RECTS = ((300.0, 250.0, 160.0, 320.0), (900.0, 400.0, 220.0, 180.0),
+         (1400.0, 600.0, 120.0, 260.0))
+RECT_STEP = ((12.0, 4.0), (-8.0, 6.0), (5.0, -10.0))
+ORIG_HW = (1080, 1920)
+
+
+def rect_frames(n_frames: int, seed: int):
+    """The drifting texture with `RECTS` painted on, moving by `RECT_STEP`
+    a frame: (blobs for the tracker and `evaluate`, ground truth per frame
+    as {id: xyxy at the original size})."""
+    scale = VALID_HW[0] / ORIG_HW[0]
+    frames, gts = [], []
+    for t, img in enumerate(synthetic_frames(n_frames, seed)):
+        gt = {}
+        for i, ((x, y, w, h), (dx, dy)) in enumerate(zip(RECTS, RECT_STEP)):
+            x, y = x + dx * t, y + dy * t
+            gt[i] = np.array([x, y, x + w, y + h], np.float32)
+            x0, y0, x1, y1 = (int(round(v * scale)) for v in gt[i])
+            img[:, y0:y1, x0:x1] = 2.0 * (i % 2) - 1.0
+        frames.append(img)
+        gts.append(gt)
+    return frames, gts
+
+
+def evaluate_run(cfg, seed: int, tag: str, per_frame: dict):
+    """`evaluate` on the full-width model in bfloat16 over 4 frames of
+    moving rectangles, their boxes the planted ground truth (seconds per
+    frame, the stats, each frame's launches); 6 frames of `Tracker` on the
+    moving rectangles, scored with `get_mot_accum` and `summarize` (MOTA,
+    IDF1: random weights, so the numbers are plumbing, not accuracy); then
+    `make_results` of the eval forward held on the card against the CPU's
+    (float32, the same weights, 4 frames at 128x192) within `SLICE_TOL`."""
+    import types
+
+    from trackformer_tpu_torch.engine.loop import evaluate, make_results
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.models.factory import train_configs
+    from trackformer_tpu_torch.structures import FrameBatch, empty_targets
+    from trackformer_tpu_torch.utils.track_utils import (evaluate_mot_accums,
+                                                         get_mot_accum)
+
+    n_frames = 4
+    model, post = smoke_model(cfg, seed, tag)
+    crit_cfg = train_configs(cfg)[0]
+    frames, gts = rect_frames(n_frames, seed)
+    valid = torch.tensor([VALID_HW])
+    packs, anns = [], {}
+    for i, (img, gt) in enumerate(zip(frames, gts)):
+        targets = empty_targets(1, cfg.max_objects, "cuda")
+        boxes = np.stack([gt[k] for k in sorted(gt)])
+        cxcywh = np.concatenate([(boxes[:, :2] + boxes[:, 2:]) / 2,
+                                 boxes[:, 2:] - boxes[:, :2]], 1)
+        cxcywh /= np.array([ORIG_HW[1], ORIG_HW[0]] * 2, np.float32)
+        targets.boxes[0, :len(gt)] = torch.from_numpy(cxcywh).cuda()
+        targets.valid[0, :len(gt)] = True
+        targets.orig_size[:] = torch.tensor(ORIG_HW)
+        targets.size[:] = torch.tensor(VALID_HW)
+        targets.image_id[:] = i
+        packs.append({"batch": FrameBatch.from_images(img, valid),
+                      "targets": targets})
+        anns[i] = [{"bbox": [float(b[0]), float(b[1]), float(b[2] - b[0]),
+                             float(b[3] - b[1])], "category_id": 1,
+                    "iscrowd": 0, "area": float((b[2] - b[0]) * (b[3] - b[1]))}
+                   for b in boxes]
+    gt_dataset = types.SimpleNamespace(anns_by_image=anns)
+    args = types.SimpleNamespace(num_queries=cfg.num_queries,
+                                 vis_and_log_interval=n_frames)
+    evaluate(model, crit_cfg, {"bbox": post}, packs[:1], lambda p: p,
+             gt_dataset, args)      # warm-up: first calls, cuBLAS plans
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = evaluate(model, crit_cfg, {"bbox": post}, packs, lambda p: p,
+                     gt_dataset, args)
+    torch.cuda.synchronize()
+    s_per_frame = (time.perf_counter() - t0) / n_frames
+    counts = launch_counts()
+    record_path()
+    phase("evaluate", mode=tag, frames=n_frames,
+          image=f"{BUCKET[0]}x{BUCKET[1]}", s_per_frame=f"{s_per_frame:.4f}",
+          AP=f"{stats['AP']:.4f}", AP50=f"{stats['AP50']:.4f}",
+          coco_eval_bbox=json.dumps([round(v, 4) for v in
+                                     stats["coco_eval_bbox"]]),
+          loss_ce=f"{stats['loss_ce']:.4f}",
+          launches=json.dumps({k: v for k, v in counts.items() if v},
+                              separators=(",", ":")))
+    check(all(np.isfinite(v) for k, v in stats.items()
+              if k != "coco_eval_bbox")
+          and len(stats["coco_eval_bbox"]) == 12,
+          f"evaluate {tag}: stats {stats}")
+    for name, n in counts.items():
+        want = per_frame.get(name, 0) * n_frames
+        check(n == want, f"evaluate {tag}: {n} {name} launches, want {want}")
+
+    # tracking of the moving rectangles, scored as the track CLI scores it
+    frames, gts = rect_frames(6, seed + 7)
+    blobs = [{"batch": FrameBatch.from_images(img, valid),
+              "orig_size": torch.tensor([ORIG_HW])} for img in frames]
+    _, results = tracker_run(f"evaluate_{tag}_tracker", cfg, model, post,
+                             len(blobs), seed, per_frame, blobs=blobs)
+    acc = get_mot_accum(results, _Sequence(gts, f"rectangles_{tag}"))
+    summary = evaluate_mot_accums([acc])["OVERALL"]
+    phase("evaluate", mode=tag, tracking="6 frames of 3 moving rectangles",
+          mota=f"{summary['mota']:.4f}", idf1=f"{summary['idf1']:.4f}",
+          num_switches=summary["num_switches"],
+          num_false_positives=summary["num_false_positives"],
+          num_misses=summary["num_misses"])
+    check(np.isfinite(summary["mota"]) and np.isfinite(summary["idf1"]),
+          f"evaluate {tag}: MOT summary {summary}")
+
+    # the same results on the card and on the CPU: float32, small frames
+    model32 = model.float()
+    rng = np.random.RandomState(seed)
+    small = [torch.from_numpy(rng.randn(1, 128, 192, 3).astype(np.float32))
+             for _ in range(n_frames)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        model32.to(dev)
+        got[dev] = []
+        for i, img in enumerate(small):
+            targets = empty_targets(1, 1, dev)
+            targets.orig_size[:] = torch.tensor([240, 360])
+            targets.image_id[:] = i
+            with torch.inference_mode():
+                out = model32(FrameBatch.from_images(
+                    img.to(dev), torch.tensor([[120, 180]])))[0]
+            got[dev].append(make_results(out, targets, post,
+                                         cfg.num_queries)[i])
+    worst, same_label, slots = 0.0, 0, 0
+    for a, b in zip(got["cuda"], got["cpu"]):
+        for key, norm in (("scores", 1.0), ("boxes", 360.0)):
+            err = np.abs(a[key] - b[key]) / (norm + np.abs(b[key]))
+            worst = max(worst, float(err.max()))
+        same_label += int((a["labels"] == b["labels"]).sum())
+        slots += a["labels"].size
+    agree = same_label / slots
+    phase("evaluate", mode=tag, held="make_results, float32 card vs CPU, "
+          f"128x192, {n_frames} frames", max_scaled_err=f"{worst:.3e}",
+          tol=SLICE_TOL, labels_agree=f"{same_label}/{slots}",
+          ok=worst <= SLICE_TOL and agree >= 0.99)
+    check(worst <= SLICE_TOL and agree >= 0.99,
+          f"evaluate {tag}: card vs CPU results differ: {worst}, "
+          f"{same_label}/{slots} labels")
+    del model, model32
+
+
+class _Sequence:
+    """What `get_mot_accum` reads of a sequence: its frames' ground truth,
+    its length and its name."""
+
+    def __init__(self, gts, name: str):
+        self.data = [{"gt": gt} for gt in gts]
+        self.name = name
+
+    def __len__(self):
+        return len(self.data)
+
+    def __str__(self):
+        return self.name
 
 
 PHASES = ("msda", "window", "msda_bwd", "dense_v2", "dense_v4", "dense_v3",
           "gather_rows", "patch_v6", "exact", "fast", "train",
-          "train_reference")
+          "train_reference", "train_fast", "checkpoint", "evaluate")
 # frames of the exact tracker's runs on the other routes
 ROUTE_FRAMES = 3
 
@@ -3328,12 +3717,26 @@ def main() -> int:
         if "fast" in phases:
             model, post = smoke_model(fast_cfg, args.seed, "fast")
             fast_counts = tracker_run("fast", fast_cfg, model, post,
-                                      args.frames, args.seed, FAST_PER_FRAME)
+                                      args.frames, args.seed,
+                                      FAST_PER_FRAME)[0]
             batched_counts = batched_run(fast_cfg, model, post, 8, 4,
                                          args.seed)
             reference_run("fast", model, 2)
             del model
 
+        if "train_fast" in phases or "checkpoint" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                fast_train_run(args.seed, "checkpoint" in phases,
+                               Path(tmp) / "run")
+                if "checkpoint" in phases:
+                    npz_round_trip(exact_cfg, args.seed, "exact", Path(tmp))
+                    npz_round_trip(fast_cfg, args.seed, "fast", Path(tmp))
+        if "train_fast" in phases:
+            train_reference_run(args.seed, fast=True)
+        if "evaluate" in phases:
+            evaluate_run(exact_cfg, args.seed, "exact",
+                         {"msda_patch": 12, "ms_deform_attn": 6})
+            evaluate_run(fast_cfg, args.seed, "fast", FAST_PER_FRAME)
         if "train" in phases:
             train_run(args.seed)
         if "train_reference" in phases:
@@ -3388,6 +3791,10 @@ def main() -> int:
          "8 levels, 500 queries, B = 2)",
          msda_src, dense_py + ":216", kmsda[("decoder_train_prev", bf16)],
          ("ms_deform_attn", TRAIN_BATCH, TRAIN_PREV_QUERIES, dec_levels)),
+        ("msda_fwd via ms_deform_attn (evaluate and single-frame forwards, "
+         "decoder, 8 levels, 500 queries, B = 1)",
+         msda_src, dense_py + ":216", kmsda[("decoder_eval", bf16)],
+         ("ms_deform_attn", 1, EVAL_DEC_QUERIES, dec_levels)),
         ("msda_fwd via ms_deform_attn (MSDA_DEC_SKIP: the decoder's other "
          "six levels, B = 1)",
          msda_src, dense_py + ":216", kmsda[("decoder_rest", bf16)],

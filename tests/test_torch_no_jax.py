@@ -3,8 +3,10 @@ and flax are absent, as on the machine with the card: every module of the
 package imports, and tiny tracker runs of both encoder modes (exact MSDA,
 and the TPU-fast windowed mode with the cached memory, through `Tracker`
 and `BatchedTracker`; the exact mode also on route "v4" and under
-`MSDA_DEC_SKIP`), the public MSDA ops that no route calls, and one
-two-frame training step of the exact mode go through on the CPU, in a subprocess in which
+`MSDA_DEC_SKIP`), the public MSDA ops that no route calls, one
+two-frame training step of the exact mode, a checkpoint round trip (an
+`.npz` in the JAX layout and the train state through `CheckpointManager`)
+and one `evaluate` go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -110,6 +112,35 @@ pack = {"batch": blob["batch"], "targets": targets,
 step = make_train_step(model, crit, optimizer, track, tracking=True)
 state, metrics = step(state, pack, gen)
 assert state.step == 1 and bool(torch.isfinite(metrics["loss"]))
+
+# checkpoints: the weights through an .npz in the JAX layout and the train
+# state through the manager, into a fresh model; then one evaluate
+import tempfile
+from trackformer_tpu_torch.engine.loop import evaluate
+from trackformer_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                    load_model_npz,
+                                                    save_model_npz)
+out_dir = tempfile.mkdtemp()
+save_model_npz(model, out_dir + "/w.npz", cfg)
+fresh, fresh_crit, fresh_post, _ = build_model(cfg, "cpu", train=True)
+load_model_npz(fresh, out_dir + "/w.npz")
+assert all(torch.equal(fresh.state_dict()[k], v)
+           for k, v in model.state_dict().items())
+CheckpointManager(out_dir + "/run").save(state, 1, {"AP": 0.5}, cfg)
+fresh_state = TrainState.create(fresh, make_optimizer(cfg, fresh))
+fresh_state, epoch = CheckpointManager(out_dir + "/run").restore(
+    fresh_state, fresh)
+assert epoch == 1 and fresh_state.step == 1
+
+class GT:
+    anns_by_image = {0: [{"bbox": [20.0, 20.0, 18.0, 12.0],
+                          "category_id": 1, "iscrowd": 0, "area": 216.0}]}
+
+targets.orig_size[:] = torch.tensor([64, 96], dtype=torch.int32)
+stats = evaluate(fresh, fresh_crit, {"bbox": fresh_post},
+                 [{"batch": blob["batch"], "targets": targets}],
+                 lambda p: p, GT(), cfg)
+assert len(stats["coco_eval_bbox"]) == 12 and "loss_ce" in stats
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax")
                for k in sys.modules)
 print("NO_JAX_OK")
@@ -134,9 +165,13 @@ def test_port_reads_no_file_of_the_jax_side(blocked_run):
 
 
 def test_no_jax_import_lines_in_port_sources():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b", re.M)
+    """No line of the port, chip_smoke.py or chip_profile.py imports JAX,
+    flax or any module of the JAX package (`trackformer_tpu`, not the
+    port's own `trackformer_tpu_torch`)."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
+                         r"trackformer_tpu)(?![\w])", re.M)
     files = sorted((REPO / "trackformer_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "chip_profile.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -21,6 +21,13 @@ carries a JAX gradient tree, or the params after an optimizer update, to
 the port's names: the training tests compare gradients and post-step
 weights name by name through it.
 
+`state_dict_to_jax_params` is the inverse: the port's `state_dict` (or any
+dict of its keys) back to the JAX param tree as numpy float32, without JAX
+and without a template tree. `jax_path_for` names each key's JAX path(s);
+every answer is checked against `torch_key_for`, so the two directions
+cannot drift apart. The round trip is exact: the map only transposes and
+splits.
+
 Layout changes:
 
   * Dense kernels (in, out) -> Linear weights (out, in);
@@ -208,3 +215,161 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         out[key] = np.concatenate([parts[0], parts[1], parts[2]], 0)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in out.items()}
+
+
+def _dense_leaf(leaf: str) -> Tuple[str, str]:
+    """(JAX leaf, transform) of a Linear's `weight` / `bias`."""
+    return ("kernel", "linear") if leaf == "weight" else ("bias", "copy")
+
+
+def _norm_leaf(leaf: str) -> Tuple[str, str]:
+    return ("scale" if leaf == "weight" else "bias"), "copy"
+
+
+def _attn_paths(prefix: str, rest: str):
+    """JAX paths under an attention module `prefix` for the port's `rest`
+    (MSDA projections, packed q/k/v, the out projection)."""
+    m = re.fullmatch(r"(sampling_offsets|attention_weights|value_proj|"
+                     r"output_proj|out_proj)\.(weight|bias)", rest)
+    if m:
+        leaf, t = _dense_leaf(m.group(2))
+        return [(f"{prefix}/{m.group(1)}/{leaf}", t)]
+    m = re.fullmatch(r"in_proj_(weight|bias)", rest)
+    if m:
+        leaf = "kernel" if m.group(1) == "weight" else "bias"
+        return [(f"{prefix}/{c}_proj/{leaf}", f"qkv_{c}") for c in "qkv"]
+    return None
+
+
+def _layer_paths(prefix: str, rest: str, attn: Tuple[str, ...]):
+    """JAX paths of an encoder or decoder layer's `rest`."""
+    head, _, tail = rest.partition(".")
+    if head in attn:
+        return _attn_paths(f"{prefix}/{head}", tail)
+    m = re.fullmatch(r"(linear\d)\.(weight|bias)", rest)
+    if m:
+        leaf, t = _dense_leaf(m.group(2))
+        return [(f"{prefix}/{m.group(1)}/{leaf}", t)]
+    m = re.fullmatch(r"(norm\d)\.(weight|bias)", rest)
+    if m:
+        leaf, t = _norm_leaf(m.group(2))
+        return [(f"{prefix}/{m.group(1)}/{leaf}", t)]
+    return None
+
+
+def _unchecked_jax_paths(key: str):
+    m = re.fullmatch(r"backbone\.0\.body\.(.*)", key)
+    if m:
+        rest = re.sub(r"layer(\d)\.(\d+)\.", r"layer\1_\2/", m.group(1))
+        rest = rest.replace("downsample.0.", "downsample_conv/")
+        rest = rest.replace("downsample.1.", "downsample_bn/")
+        module, _, leaf = rest.replace(".", "/").rpartition("/")
+        conv = re.search(r"(^|/)(conv\d|downsample_conv)$", module)
+        if conv and leaf == "weight":
+            return [(f"backbone/trunk/{module}/kernel", "conv")]
+        return [(f"backbone/trunk/{module}/{leaf}", "copy")]
+    m = re.fullmatch(r"input_proj\.(\d+)\.([01])\.(weight|bias)", key)
+    if m:
+        i, part, leaf = m.groups()
+        if part == "0":
+            return [(f"input_proj_{i}/conv/kernel", "conv") if leaf == "weight"
+                    else (f"input_proj_{i}/conv/bias", "copy")]
+        leaf, t = _norm_leaf(leaf)
+        return [(f"input_proj_{i}/norm/{leaf}", t)]
+    embeds = {"query_embed.weight": "query_embed",
+              "transformer.level_embed": "level_embed",
+              "transformer.frame_embed": "frame_embed"}
+    if key in embeds:
+        return [(embeds[key], "copy")]
+    m = re.fullmatch(r"transformer\.encoder\.layers\.(\d+)\.(.*)", key)
+    if m:
+        return _layer_paths(f"encoder/layer_{m.group(1)}", m.group(2),
+                            ("self_attn",))
+    m = re.fullmatch(r"transformer\.encoder\.fuse\.(\d+)\.(up|down|norm)\."
+                     r"(\d+)\.(weight|bias)", key)
+    if m:
+        i, mod, j, leaf = m.groups()
+        leaf, t = (_norm_leaf if mod == "norm" else _dense_leaf)(leaf)
+        return [(f"encoder/fuse_{i}/{mod}_{j}/{leaf}", t)]
+    m = re.fullmatch(r"transformer\.decoder\.layers\.(\d+)\.(.*)", key)
+    if m:
+        return _layer_paths(f"decoder_layers_{m.group(1)}", m.group(2),
+                            ("self_attn", "cross_attn"))
+    m = re.fullmatch(r"class_embed\.(\d+)\.(weight|bias)", key)
+    if m:
+        leaf, t = _dense_leaf(m.group(2))
+        return [(f"class_embed_{m.group(1)}/{leaf}", t)]
+    m = re.fullmatch(r"bbox_embed\.(\d+)\.layers\.(\d+)\.(weight|bias)", key)
+    if m:
+        leaf, t = _dense_leaf(m.group(3))
+        return [(f"bbox_embed_{m.group(1)}/layer_{m.group(2)}/{leaf}", t)]
+    m = re.fullmatch(r"transformer\.reference_points\.(weight|bias)", key)
+    if m:
+        leaf, t = _dense_leaf(m.group(1))
+        return [(f"reference_points/{leaf}", t)]
+    return None
+
+
+def jax_path_for(key: str):
+    """Port state-dict key -> [(JAX param path without "params/",
+    transform)]: one path, or three for a packed `in_proj_*` (q, k, v in
+    order). Raises KeyError for a key with no JAX path; every path is
+    checked to map back to `key` through `torch_key_for`."""
+    paths = _unchecked_jax_paths(key)
+    if not paths:
+        raise KeyError(f"no JAX param for port key {key}")
+    for path, transform in paths:
+        if torch_key_for("params/" + path) != (key, transform):
+            raise KeyError(f"no JAX param for port key {key}")
+    return paths
+
+
+def _check_layout(keys, cfg) -> None:
+    """Raise unless `keys` are those of a model built from `cfg`: its
+    encoder mode and its layer counts."""
+    def count(pattern):
+        return len({m.group(1) for k in keys
+                    for m in [re.match(pattern, k)] if m})
+
+    got = {"encoder layers": count(r"transformer\.encoder\.layers\.(\d+)\."),
+           "decoder layers": count(r"transformer\.decoder\.layers\.(\d+)\."),
+           "frame_embed": int("transformer.frame_embed" in keys)}
+    want = {"encoder layers": cfg.enc_layers,
+            "decoder layers": cfg.dec_layers,
+            "frame_embed": int(bool(cfg.cached_prev_memory))}
+    if got != want:
+        raise ValueError(f"state dict does not fit the config: {got} against "
+                         f"{want}")
+
+
+def state_dict_to_jax_params(state_dict: Mapping, cfg=None) -> Dict:
+    """The port's state dict (tensors or arrays by its keys) -> the JAX
+    param tree {"params": {...}} of numpy float32: Linear weights
+    transposed to (in, out), OIHW convolutions to HWIO, each packed
+    `in_proj_weight` / `in_proj_bias` split into q_proj, k_proj and v_proj.
+    The inverse of `jax_params_to_state_dict`. Raises on a key with no JAX
+    path and, given the `FlagshipConfig` of the model, on keys that are not
+    that model's."""
+    if cfg is not None:
+        _check_layout(set(state_dict), cfg)
+    tree: Dict = {}
+    for key, value in state_dict.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().to("cpu", torch.float32).numpy()
+        a = np.asarray(value, dtype=np.float32)
+        paths = jax_path_for(key)
+        parts = np.split(a, 3, 0) if len(paths) == 3 else [a]
+        for (path, transform), part in zip(paths, parts):
+            if transform == "conv":
+                part = part.transpose(2, 3, 1, 0)
+            elif transform == "linear" or (transform.startswith("qkv_")
+                                           and part.ndim == 2):
+                part = part.T
+            node = tree.setdefault("params", {})
+            *parents, leaf = path.split("/")
+            for name in parents:
+                node = node.setdefault(name, {})
+            if leaf in node:
+                raise KeyError(f"JAX param {path} written twice")
+            node[leaf] = np.ascontiguousarray(part)
+    return tree

@@ -144,7 +144,8 @@ def loss_boxes(outputs, targets: Targets, match_q, num_boxes,
 
 def loss_masks(outputs, targets: Targets, match_q, num_boxes,
                cfg: CriterionConfig):
-    raise NotImplementedError("the mask losses are not ported yet")
+    raise NotImplementedError("the mask losses are not ported yet "
+                              "(ROADMAP Queue 1, item 6)")
 
 
 LOSS_MAP = {
@@ -162,7 +163,7 @@ def compute_losses(outputs: Dict, targets: Targets, cfg: CriterionConfig,
     number of valid targets, at least 1."""
     if "enc_outputs" in outputs:
         raise NotImplementedError("two-stage encoder outputs are not ported "
-                                  "yet")
+                                  "yet (ROADMAP Queue 1, item 6)")
     if num_boxes is None:
         num_boxes = targets.valid.sum().float().clamp(min=1.0)
     label_fn = loss_labels_focal if cfg.focal_loss else loss_labels_ce

@@ -63,8 +63,8 @@ class DeformableDETR(nn.Module):
                  encoder_window: Optional[int] = None, dropout: float = 0.0):
         """`encoder_window` None: the exact-MSDA encoder; an int: the
         TPU-fast mode with a windowed encoder of that window side.
-        `dropout` acts in training mode only, in the exact-MSDA encoder and
-        the decoder (the windowed encoder's training is not ported)."""
+        `dropout` acts in training mode only, in either encoder and the
+        decoder."""
         super().__init__()
         self.cached_memory = encoder_window is not None
         self.num_queries = num_queries
@@ -168,7 +168,10 @@ class DeformableDETR(nn.Module):
         """The TPU-fast mode: encode the current frame only; the previous
         half of the memory is `prev_features[-1][0]`, the encoded memory
         this method appends to `feature_pairs` (the current frame's own on
-        the first frame)."""
+        the first frame). In training the previous frame's forward runs
+        without gradient (`tracking_train_forward`), so its memory comes in
+        detached, as the JAX package stops its gradient; the current
+        frame's memory carries the encoder's gradient."""
         srcs, masks, poses = self._project_frame(cur3, cur3_masks, batch.mask,
                                                  0)
         level_embed = self.transformer.level_embed

@@ -212,7 +212,7 @@ class DeformableTransformer(nn.Module):
         else:
             self.encoder = WindowedEncoder(d_model, enc_levels, enc_layers,
                                            n_heads, dim_feedforward,
-                                           encoder_window)
+                                           encoder_window, dropout)
             self.frame_embed = nn.Parameter(torch.empty(2, d_model))
         self.decoder = DeformableDecoder(d_model, total_levels, dec_layers,
                                          n_heads, dec_n_points,

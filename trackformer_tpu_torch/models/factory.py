@@ -60,7 +60,8 @@ def _check_supported(cfg: FlagshipConfig) -> None:
     if mode not in _ENCODER_MODES:
         bad.update(encoder_attention=mode[0], cached_prev_memory=mode[1])
     if bad:
-        raise NotImplementedError(f"not ported yet: {bad}")
+        raise NotImplementedError(f"not ported yet (ROADMAP Queue 1, item "
+                                  f"6): {bad}")
 
 
 def msda_offset_bias(n_heads: int, n_levels: int, n_points: int
@@ -173,12 +174,10 @@ def build_model(cfg: FlagshipConfig,
     With `train` the model carries the config's dropout and is returned in
     training mode, as (model, criterion config, postprocess, tracking
     config), the JAX factory's tuple; the float32 master weights that AdamW
-    updates live in the train state (`engine/train_step.py`)."""
+    updates live in the train state (`engine/train_step.py`). In the
+    TPU-fast mode a training call of the windowed encoder runs its module
+    path and an eval-mode call kernel #8 (`models/windowed_encoder.py`)."""
     _check_supported(cfg)
-    if train and cfg.cached_prev_memory:
-        raise NotImplementedError("training the TPU-fast mode is not ported "
-                                  "yet: its window-layer kernel has no "
-                                  "backward")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' "

@@ -189,9 +189,11 @@ def tracking_train_forward(apply_fn: Callable, batch, targets: Targets,
     ("match_augment")."""
     if prev_prev_batch is not None or prev_prev_targets is not None:
         raise NotImplementedError("the three-frame forward "
-                                  "(track_prev_prev_frame) is not ported yet")
+                                  "(track_prev_prev_frame) is not ported "
+                                  "yet (ROADMAP Queue 1, item 7)")
     if cfg.backprop_prev_frame:
-        raise NotImplementedError("backprop_prev_frame is not ported yet")
+        raise NotImplementedError("backprop_prev_frame is not ported yet "
+                                  "(ROADMAP Queue 1, item 7)")
     with torch.no_grad():
         prev_out, _, prev_feats, _, _ = apply_fn(prev_batch, None, None)
     if mark is not None:

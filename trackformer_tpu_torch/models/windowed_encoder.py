@@ -13,6 +13,14 @@ partition; `GATHER_LAYOUT` "0") with its default "perlevel" fusion; its
 gather layout and batched fusion are TPU A/B knobs and are not ported. The
 JAX code is NHWC; the port's projected features are NCHW, and the encoder
 takes them so and converts once at its boundary.
+
+A layer in eval mode (deterministic) goes through `window_layer`: kernel
+#8 on the card. The kernel has no backward, here as in JAX, so a layer in
+training mode runs the JAX module path instead (`_train_forward`, the
+`else:` branch of `trackformer_tpu/models/windowed_encoder.py:295-312`):
+attention, dropout, residual and `norm1`, then the FFN with dropout after
+the ReLU and after `linear2`, residual and `norm2`, in the windowed layout.
+The route follows the module's mode, never a kernel's failure.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ from torch.nn import functional as F
 
 from ..ops.window_attn import window_layer
 from ..ops.linear import dense
-from .attention import MultiHeadAttention
+from .attention import Dropout, MultiHeadAttention
 
 LN_EPS = 1e-6
 
@@ -83,17 +91,30 @@ def window_context(poses: Sequence[torch.Tensor],
 
 class WindowedEncoderLayer(nn.Module):
     """One shared-weight layer over all levels: one windowed-layer call on
-    the concatenation of every level's windows."""
+    the concatenation of every level's windows (module docstring: eval
+    mode through kernel #8, training mode through `_train_forward`)."""
 
     def __init__(self, d_model: int, nheads: int, dim_feedforward: int,
-                 window: int, shift: bool):
+                 window: int, shift: bool, dropout: float = 0.0):
         super().__init__()
         self.window, self.shift = window, shift
-        self.self_attn = MultiHeadAttention(d_model, nheads)
+        self.self_attn = MultiHeadAttention(d_model, nheads, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.drop = Dropout(dropout)
+
+    def _train_forward(self, xw: torch.Tensor, pw: torch.Tensor,
+                       kp: torch.Tensor) -> torch.Tensor:
+        """The layer over every window as modules, with dropout: the
+        training path, differentiable end to end."""
+        q = xw + pw
+        x = self.norm1(xw + self.drop(self.self_attn(q, q, xw, kp)))
+        hidden = self.drop(torch.relu(
+            dense(x, self.linear1.weight, self.linear1.bias)))
+        return self.norm2(x + self.drop(
+            dense(hidden, self.linear2.weight, self.linear2.bias)))
 
     def forward(self, levels: List[torch.Tensor],
                 ctx: Tuple[torch.Tensor, torch.Tensor]
@@ -110,7 +131,11 @@ class WindowedEncoderLayer(nn.Module):
             x, hp, wp = pad_hw(x, win)
             xw_all.append(window_partition(x, win))
             meta.append((b, h0, w0, hp, wp, xw_all[-1].shape[0]))
-        x = window_layer(torch.cat(xw_all, 0), ctx[0], ctx[1], self)
+        xw = torch.cat(xw_all, 0)
+        if self.training:
+            x = self._train_forward(xw, ctx[0], ctx[1])
+        else:
+            x = window_layer(xw, ctx[0], ctx[1], self)
         out, off = [], 0
         for b, h0, w0, hp, wp, n in meta:
             a = window_merge(x[off:off + n], b, hp, wp, win)[:, :h0, :w0]
@@ -185,12 +210,13 @@ class WindowedEncoder(nn.Module):
     `fuse.{i}.{up,down,norm}.{j}`."""
 
     def __init__(self, d_model: int, n_levels: int, num_layers: int,
-                 nheads: int, dim_feedforward: int, window: int):
+                 nheads: int, dim_feedforward: int, window: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.window = window
         self.layers = nn.ModuleList(
             WindowedEncoderLayer(d_model, nheads, dim_feedforward, window,
-                                 shift=bool(li % 2))
+                                 shift=bool(li % 2), dropout=dropout)
             for li in range(num_layers))
         self.fuse = nn.ModuleList(CrossLevelFusion(d_model, n_levels)
                                   for _ in range(num_layers))
