@@ -33,7 +33,8 @@ setup(
                                     "trackformer_tpu_torch",
                                     "trackformer_tpu_torch.*"]),
     package_data={"trackformer_tpu": ["cfgs/*.yaml"],
-                  "trackformer_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "trackformer_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                            "cfgs/*.yaml"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "pyyaml",

@@ -5,8 +5,10 @@ and the TPU-fast windowed mode with the cached memory, through `Tracker`
 and `BatchedTracker`; the exact mode also on route "v4" and under
 `MSDA_DEC_SKIP`), the public MSDA ops that no route calls, one
 two-frame training step of the exact mode, a checkpoint round trip (an
-`.npz` in the JAX layout and the train state through `CheckpointManager`)
-and one `evaluate` go through on the CPU, in a subprocess in which
+`.npz` in the JAX layout and the train state through `CheckpointManager`),
+one `evaluate` and the tracking CLI over a small PNG sequence (its
+configs, the native preprocessing, the port's PNG reader) go through on
+the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -46,7 +48,8 @@ for mod in pkgutil.walk_packages(trackformer_tpu_torch.__path__,
                                  "trackformer_tpu_torch."):
     importlib.import_module(mod.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+chip_smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(chip_smoke)
 
 from trackformer_tpu_torch.models import build_model
 from trackformer_tpu_torch.structures import FrameBatch
@@ -141,6 +144,31 @@ stats = evaluate(fresh, fresh_crit, {"bbox": fresh_post},
                  [{"batch": blob["batch"], "targets": targets}],
                  lambda p: p, GT(), cfg)
 assert len(stats["coco_eval_bbox"]) == 12 and "loss_ce" in stats
+
+# the serving entry point over a small PNG sequence (written by
+# chip_smoke's own encoder), from a tiny checkpoint and its config.yaml
+from pathlib import Path
+from trackformer_tpu_torch.cli.track import main as track_main
+from trackformer_tpu_torch.utils.config import dump_config, load_config
+data = Path(out_dir) / "data"
+chip_smoke.write_mot_sequences(data, ["MOT17-02-FRCNN"], 2, hw=(54, 96))
+train_cfg = load_config("train.yaml", ["deformable", "tracking", "multi_frame"],
+                        {"enc_layers": 1, "dec_layers": 1, "hidden_dim": 96,
+                         "nheads": 4, "dim_feedforward": 64, "num_queries": 8,
+                         "img_transform.val_width": 64,
+                         "img_transform.max_size": 114,
+                         "tpu.compute_dtype": "float32"})
+cli_cfg = FlagshipConfig.from_config(train_cfg)
+cli_model, _ = build_model(cli_cfg, "cpu", torch.Generator().manual_seed(0))
+save_model_npz(cli_model, out_dir + "/cli/checkpoint.npz", cli_cfg)
+dump_config(train_cfg, out_dir + "/cli/config.yaml")
+summary = track_main(["with", "dataset_name=MOT17-02-FRCNN",
+                      f"data_root_dir={data}",
+                      f"obj_detect_checkpoint_file={out_dir}/cli/checkpoint.npz",
+                      f"output_dir={out_dir}/cli_out", "tpu.max_tracks=4"],
+                     device="cpu")
+assert summary["OVERALL"]["num_objects"] == 2 * 3
+assert os.path.exists(out_dir + "/cli_out/MOT17-02-FRCNN.txt")
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax")
                for k in sys.modules)
 print("NO_JAX_OK")

@@ -278,9 +278,10 @@ def jax_tracker_run():
                 results=jtracker.get_results(), num_reids=jtracker.num_reids)
 
 
-def port_tracker_matches(run):
+def port_tracker_matches(run, host_blobs=False):
     """The port's `Tracker` on the same weights and frames: identical ids
-    after every frame, boxes to 1e-3 pixels."""
+    after every frame, boxes to 1e-3 pixels. With `host_blobs` each blob
+    holds numpy arrays, as a sequence may yield them."""
     cfg = FlagshipConfig().replace(compute_dtype="float32", **TINY)
     tmodel, postprocess = build_model(cfg, "cpu")
     tmodel.load_state_dict(jax_params_to_state_dict(run["params"]))
@@ -290,9 +291,14 @@ def port_tracker_matches(run):
                            overflow_boxes=True)
     per_frame = []
     for t, img in enumerate(run["frames"]):
-        ttracker.step({"batch": FrameBatch.from_images(
-            torch.from_numpy(img), torch.from_numpy(run["valid_hw"])),
-            "orig_size": torch.from_numpy(run["orig_size"])})
+        batch = FrameBatch.from_images(torch.from_numpy(img),
+                                       torch.from_numpy(run["valid_hw"]))
+        orig_size = torch.from_numpy(run["orig_size"])
+        if host_blobs:
+            batch = FrameBatch(images=batch.images.numpy(),
+                               mask=batch.mask.numpy())
+            orig_size = run["orig_size"]
+        ttracker.step({"batch": batch, "orig_size": orig_size})
         tids = ttracker.state.ids[ttracker.state.active].numpy()
         assert np.array_equal(np.sort(tids), np.sort(run["ids"][t])), t
         per_frame.append(set(tids.tolist()))
@@ -314,6 +320,12 @@ def port_tracker_matches(run):
 
 def test_tracker_end_to_end_matches_jax(jax_tracker_run):
     port_tracker_matches(jax_tracker_run)
+
+
+def test_tracker_step_takes_host_blobs(jax_tracker_run):
+    """`Tracker.step` moves the blob's batch to the model's device itself:
+    numpy arrays give the results that tensors give."""
+    port_tracker_matches(jax_tracker_run, host_blobs=True)
 
 
 def reroute(monkeypatch, route, calls):

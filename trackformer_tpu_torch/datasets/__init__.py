@@ -1,1 +1,2 @@
-"""Datasets and their evaluation (so far the box COCO evaluator)."""
+"""Datasets and their evaluation: the box COCO evaluator, the eval-time
+transforms, frame reading and the tracking sequences (`tracking/`)."""

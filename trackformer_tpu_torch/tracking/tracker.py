@@ -387,9 +387,15 @@ class Tracker:
 
     def step(self, blob: dict) -> None:
         """blob: {"batch": FrameBatch (1, H, W, 3), "orig_size": (1, 2)
-        (h, w), optional "dets": (P, 4) public detections}."""
+        (h, w), optional "dets": (P, 4) public detections}. The batch may
+        hold numpy arrays or tensors on any device, as a sequence yields
+        them; it is moved to the model's device (no copy if already
+        there)."""
         dev = self.device
-        batch = blob["batch"]
+        batch = FrameBatch(images=torch.as_tensor(blob["batch"].images,
+                                                  device=dev),
+                           mask=torch.as_tensor(blob["batch"].mask,
+                                                device=dev))
         orig_size = torch.as_tensor(blob["orig_size"], device=dev)
         p_max = 128
         dets = np.asarray(blob.get("dets", np.zeros((0, 4), np.float32)),

@@ -2,18 +2,32 @@
 
 It holds the values that the JAX package's
 `load_config("train.yaml", ["deformable", "tracking", "multi_frame"])`
-gives, together with `cfgs/track.yaml`, so the port needs neither YAML nor
-the JAX package to build its main path. `FlagshipConfig.tpu_fast()` adds
+gives, together with `cfgs/track.yaml`, so a model of the main path can
+be built without a config file. `FlagshipConfig.tpu_fast()` adds
 the named config `tpu_fast` (`cfgs/tpu_fast.yaml`): the windowed encoder
 with the cached previous-frame memory. The training fields (optimizer,
 loss and matcher coefficients, track-query augmentation) are train.yaml's
 too. Tests hold every field of both against
 `trackformer_tpu.utils.config.load_config`.
+
+The YAML half is the port's copy of the JAX module's: the configs under
+`cfgs/` (copies of the JAX package's), `load_config` with named configs
+(`{base}_{name}.yaml` first, then `{name}.yaml`), the sacred-style
+`with name key=value` command line (`parse_cli`), `dump_config`, and the
+namespace helpers. `FlagshipConfig.from_config` maps a loaded train config
+onto the dataclass; `models.build_model` refuses what is not ported.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Dict, Tuple
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import yaml
+
+CFG_DIR = Path(__file__).resolve().parent.parent / "cfgs"
 
 
 def _default_tracker_cfg() -> Dict[str, Any]:
@@ -111,6 +125,32 @@ class FlagshipConfig:
     max_tracks: int = 150
     compute_dtype: str = "bfloat16"
 
+    @classmethod
+    def from_config(cls, cfg: Dict[str, Any]) -> "FlagshipConfig":
+        """A train config (`load_config("train.yaml", ...)`, or the
+        `config.yaml` saved beside a checkpoint) -> the dataclass: its
+        top-level keys by name, `img_transform.*`, the `tpu.*` knobs, and
+        the first of `tpu.image_buckets` that holds the eval transform's
+        largest frame. Keys the dataclass does not hold are ignored."""
+        tpu = cfg.get("tpu") or {}
+        img = cfg.get("img_transform") or {}
+        kw = {k: v for k, v in cfg.items()
+              if k in _FIELDS and k not in _NOT_TOP_LEVEL}
+        kw.update({k: tpu[k] for k in _TPU_KEYS if k in tpu})
+        kw.update({k: img[k] for k in ("val_width", "max_size") if k in img})
+        for k, v in kw.items():
+            default = _FIELDS[k]
+            if isinstance(default, float) and isinstance(v, int) \
+                    and not isinstance(v, bool):
+                kw[k] = float(v)
+        buckets = [tuple(b) for b in tpu.get("image_buckets") or ()]
+        if buckets:
+            h = kw.get("val_width", cls.val_width)
+            w = kw.get("max_size", cls.max_size)
+            fit = [b for b in buckets if b[0] >= h and b[1] >= w]
+            kw["image_bucket"] = fit[0] if fit else buckets[-1]
+        return cls(**kw)
+
     def replace(self, **changes) -> "FlagshipConfig":
         return dataclasses.replace(self, **changes)
 
@@ -122,3 +162,121 @@ class FlagshipConfig:
         return cls(encoder_attention="windowed", encoder_window=8,
                    decoder_attention="msda", cached_prev_memory=True,
                    lr_warmup_steps=1000, **changes)
+
+
+# field -> default (None for a field with a factory)
+_FIELDS = {f.name: (None if f.default is dataclasses.MISSING else f.default)
+           for f in dataclasses.fields(FlagshipConfig)}
+# fields a train config holds under `tpu:`
+_TPU_KEYS = ("encoder_attention", "decoder_attention", "scan_layers",
+             "cached_prev_memory", "encoder_window", "max_objects",
+             "lr_warmup_steps", "compute_dtype", "max_tracks")
+_NOT_TOP_LEVEL = set(_TPU_KEYS) | {"val_width", "max_size", "image_bucket",
+                                   "tracker_cfg"}
+
+
+# --------------------------------------------------------------------------
+# YAML configs and the command line
+# --------------------------------------------------------------------------
+
+def _deep_update(base: Dict[str, Any], upd: Dict[str, Any]) -> Dict[str, Any]:
+    for k, v in upd.items():
+        if isinstance(v, dict) and isinstance(base.get(k), dict):
+            _deep_update(base[k], v)
+        else:
+            base[k] = copy.deepcopy(v)
+    return base
+
+
+def _parse_value(text: str) -> Any:
+    """Parse a CLI override value: int, float ('1e-4' included; YAML 1.1
+    would keep it a string), then YAML scalar rules (true/null/lists)."""
+    try:
+        return int(text)
+    except ValueError:
+        pass
+    try:
+        return float(text)
+    except ValueError:
+        pass
+    try:
+        return yaml.safe_load(text)
+    except yaml.YAMLError:
+        return text
+
+
+def _set_dotted(cfg: Dict[str, Any], key: str, value: Any) -> None:
+    parts = key.split(".")
+    node = cfg
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+        if not isinstance(node, dict):
+            raise KeyError(f"cannot set {key}: {p} is not a mapping")
+    node[parts[-1]] = value
+
+
+def load_config(base: str = "train.yaml",
+                named_configs: Sequence[str] = (),
+                overrides: Optional[Dict[str, Any]] = None,
+                cfg_dir: Optional[Path] = None) -> Dict[str, Any]:
+    """Load the base YAML, apply named configs in order, then dotted
+    overrides."""
+    cfg_dir = Path(cfg_dir) if cfg_dir else CFG_DIR
+    with open(cfg_dir / base) as f:
+        cfg = yaml.safe_load(f) or {}
+    for name in named_configs:
+        path = cfg_dir / f"{base.split('.')[0]}_{name}.yaml"
+        if not path.exists():
+            path = cfg_dir / f"{name}.yaml"
+        if not path.exists():
+            raise FileNotFoundError(
+                f"named config '{name}' not found in {cfg_dir}")
+        with open(path) as f:
+            _deep_update(cfg, yaml.safe_load(f) or {})
+    for key, value in (overrides or {}).items():
+        _set_dotted(cfg, key, value)
+    return cfg
+
+
+def parse_cli(argv: Sequence[str], base: str = "train.yaml",
+              cfg_dir: Optional[Path] = None) -> Dict[str, Any]:
+    """Parse the `with name1 name2 key=value ...` command line."""
+    args = list(argv)
+    if args and args[0] == "with":
+        args = args[1:]
+    named: List[str] = []
+    overrides: Dict[str, Any] = {}
+    for a in args:
+        if "=" in a:
+            k, v = a.split("=", 1)
+            overrides[k] = _parse_value(v)
+        else:
+            named.append(a)
+    return load_config(base, named, overrides, cfg_dir)
+
+
+def dump_config(cfg: Dict[str, Any], path) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+
+
+def nested_namespace(cfg: Any) -> Any:
+    """dict -> nested SimpleNamespace."""
+    if isinstance(cfg, dict):
+        ns = SimpleNamespace()
+        for k, v in cfg.items():
+            setattr(ns, k, nested_namespace(v))
+        return ns
+    if isinstance(cfg, list):
+        return [nested_namespace(v) for v in cfg]
+    return cfg
+
+
+def namespace_to_dict(ns: Any) -> Any:
+    if isinstance(ns, SimpleNamespace):
+        return {k: namespace_to_dict(v) for k, v in vars(ns).items()}
+    if isinstance(ns, list):
+        return [namespace_to_dict(v) for v in ns]
+    return ns

@@ -4,11 +4,16 @@ The port's own copy of the numpy part of `trackformer_tpu/utils/
 track_utils.py`: `get_mot_accum` builds a per-sequence accumulator from a
 tracker's results and the sequence's ground truth, `evaluate_mot_accums`
 summarizes and prints them, `interpolate_tracks` fills frame gaps inside
-each track. `upscale_mask_results`, `plot_sequence` and `write_video` wait
-for masks and visualisation (ROADMAP Queue 1, items 6 and 8).
+each track; `plot_sequence` draws the tracked boxes onto the frames and
+`write_video` stitches the drawn frames into a video (matplotlib, and
+ffmpeg or Pillow, imported at the call). `upscale_mask_results` and the
+masks and attention maps of `plot_sequence` wait for masks (ROADMAP Queue
+1, item 6).
 """
 from __future__ import annotations
 
+import os
+import os.path as osp
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -73,3 +78,80 @@ def interpolate_tracks(tracks: Dict[int, Dict[int, dict]]) -> Dict:
                     "score": track[a].get("score", 1.0),
                 }
     return interpolated
+
+
+def upscale_mask_results(tracks, size_hw, orig_hw, pad_hw):
+    raise NotImplementedError("mask results are not ported yet (ROADMAP "
+                              "Queue 1, item 6)")
+
+
+def plot_sequence(tracks: Dict, seq, output_dir: str,
+                  write_images="pretty", generate_attention_maps=False):
+    """Draw the tracked boxes onto the sequence's frames and save them
+    under their own file names. `write_images`: 'debug' adds the score to
+    each label."""
+    if generate_attention_maps:
+        raise NotImplementedError("attention maps are not ported yet "
+                                  "(ROADMAP Queue 1, item 6)")
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    from matplotlib import colormaps
+
+    from ..datasets.image_io import read_frame
+
+    os.makedirs(output_dir, exist_ok=True)
+    cmap = colormaps["tab20"]
+    for frame_idx in range(len(seq)):
+        path = seq[frame_idx]["img_path"]
+        img = read_frame(path)
+        h, w = img.shape[:2]
+        fig, ax = plt.subplots(figsize=(w / 96, h / 96), dpi=96)
+        ax.imshow(img)
+        ax.axis("off")
+        for tid, track in tracks.items():
+            if frame_idx not in track:
+                continue
+            if "mask" in track[frame_idx]:
+                raise NotImplementedError("drawing masks is not ported yet "
+                                          "(ROADMAP Queue 1, item 6)")
+            x1, y1, x2, y2 = track[frame_idx]["bbox"][:4]
+            color = cmap(tid % 20)
+            ax.add_patch(plt.Rectangle((x1, y1), x2 - x1, y2 - y1,
+                                       fill=False, color=color, lw=2))
+            label = str(tid)
+            if write_images == "debug":
+                label += f" {track[frame_idx].get('score', 0):.2f}"
+            ax.text(x1, y1 - 2, label, color=color, fontsize=8)
+        fig.savefig(osp.join(output_dir, osp.basename(path)),
+                    bbox_inches="tight", pad_inches=0)
+        plt.close(fig)
+
+
+def write_video(frame_dir: str, out_path: str, fps: float = 25.0) -> str:
+    """Stitch the frames written by `plot_sequence` into a video with the
+    ffmpeg binary when there is one, else into an animated GIF (Pillow).
+    Returns the path written (its extension may change to .gif)."""
+    import shutil
+    import subprocess
+
+    frames = sorted(p for p in os.listdir(frame_dir)
+                    if p.lower().endswith((".jpg", ".jpeg", ".png")))
+    if not frames:
+        raise ValueError(f"no frames in {frame_dir}")
+    if shutil.which("ffmpeg"):
+        subprocess.run(
+            ["ffmpeg", "-y", "-framerate", str(fps),
+             "-pattern_type", "glob",
+             "-i", osp.join(frame_dir, "*" + osp.splitext(frames[0])[1]),
+             "-c:v", "libx264", "-pix_fmt", "yuv420p", out_path],
+            check=True)
+        return out_path
+    from PIL import Image
+    gif_path = osp.splitext(out_path)[0] + ".gif"
+    imgs = [Image.open(osp.join(frame_dir, f)).convert("P") for f in frames]
+    imgs[0].save(gif_path, save_all=True, append_images=imgs[1:],
+                 duration=int(1000 / fps), loop=0)
+    for im in imgs:
+        im.close()
+    return gif_path
