@@ -16,7 +16,9 @@ last line marked "partial"; the kernels line needs all of them):
      lockstep step's B = 8 and at the training step's 611 and 500 queries,
      B = 2; the six levels that `MSDA_DEC_SKIP` leaves to the gather kernel;
      one decoder level; `cli.track`'s 768x1344 frames: the encoder at
-     B = 1, the decoder at B = 1 and 8), in float32 with TF32 off and in
+     B = 1, the decoder at B = 1 and 8; the training step's encoder and
+     decoder calls in `cli.train`'s 608x1088 and 1088x1920 buckets), in
+     float32 with TF32 off and in
      bfloat16, and
      times both; then three small calls for the kernel's other paths (D =
      6, a value one element off its alignment, 16-byte words with samples
@@ -28,8 +30,9 @@ last line marked "partial"; the kernels line needs all of them):
   window: holds the window layer's kernels (bfloat16: five stage kernels
      over all tokens; float32: a block per window) against its plain
      version at the fast mode's B = 1 and B = 8 shapes (380 and 3,040
-     windows of 64 tokens, C = 288; and at `cli.track`'s 768x1344
-     frames, 342 and 2,736), both shift parities, with the key
+     windows of 64 tokens, C = 288; at B = 2, 760, `cli.train`'s
+     validation; and at `cli.track`'s 768x1344 frames, 342 and 2,736),
+     both shift parities, with the key
      padding of the 750x1333 region in the 800x1344 bucket (fully-padded
      windows present), in float32 and bfloat16; at B = 8 each stage kernel
      against its plain stage, with its time, bound and the blocks per SM
@@ -41,7 +44,9 @@ last line marked "partial"; the kernels line needs all of them):
   msda_bwd: holds the backward kernel's three gradients against autograd
      through the plain version at the training step's encoder call (N = 2,
      Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
-     levels) and route v2's four single-level encoder calls, float32 and
+     levels), both in `cli.train`'s 608x1088 and 1088x1920 buckets, and
+     route v2's four
+     single-level encoder calls, float32 and
      bfloat16, with samples outside [0, 1]; then at two small calls that
      hold the scalar path (D = 6) and a plan with one level in shared
      memory and one not; prints each call's plan (`msda.bwd_plan`) and the
@@ -172,6 +177,19 @@ last line marked "partial"; the kernels line needs all of them):
      lockstep) and at B = 1, and the ground truth read back as results
      (MOTA = IDF1 = 1); every frame runs at 768x1344, whose shapes the
      msda and window phases hold (their `_cli` cases).
+  train_cli: the training entry point, `cli.train.main` as a user calls
+     it, over 2 MOTChallenge-layout sequences of 8 1080x1920 JPEGs
+     converted by the port's `generate_coco_from_mot`: the full-width
+     exact flagship in bf16 at B = 2 trained 2 epochs (batches in the
+     608x1088, 800x1344 and, for an upright crop, 1088x1920 buckets), each
+     validated (box AP of 4 frames,
+     MOTA / IDF1 of the in-process tracking eval at 768x1344), resumed
+     with `resume_optim` for a third, `eval_only` from its checkpoint (AP
+     equal to the last validation's), then the fast mode one epoch (its
+     validation launches kernel #8 at B = 2); step seconds, the share of
+     a step spent waiting on the `Loader`, peak memory, the caches' entries
+     and the memory left after each step, validation seconds a frame, the
+     tracking eval's Hz and the launches by shape.
 Then one JSON line with the kernels, each with the launches that the main
 paths made at exactly its shape (it fails if a path launched a kernel at a
 shape that no kernel phase held), and last the device line
@@ -202,6 +220,14 @@ VALID_HW = (750, 1333)         # a 1080x1920 video under the eval transform
 # by the eval transform to 750x1333 and padded to multiples of 64
 CLI_BUCKET = (768, 1344)
 CLI_LEVELS = ((96, 168), (48, 84), (24, 42), (12, 21))
+# the training CLI's other buckets (`tpu.image_buckets`): its transforms
+# take a 1080x1920 frame to at most 800 on the short side and 1333 on the
+# long one, into 608x1088 where every frame of a batch fits it, and into
+# 1088x1920 where a crop stands upright (taller than 800)
+TRAIN_BUCKETS = {"608": ((608, 1088), ((76, 136), (38, 68), (19, 34),
+                                       (10, 17))),
+                 "1088": ((1088, 1920), ((136, 240), (68, 120), (34, 60),
+                                         (17, 30)))}
 M, D, P = 8, 36, 4
 C, FF = 288, 1024
 DEC_QUERIES = 650  # 150 track slots + 500 object queries
@@ -440,6 +466,12 @@ def kernel_phase_msda(seed: int):
     def cli_dec_kernel(v, lo, a):
         return msda.ms_deform_attn(v, cli_dec_levels, lo, a)
 
+    def enc_kernel_of(shapes):
+        return lambda v, lo, a: msda_patch(v, shapes, lo, a)
+
+    def dec_kernel_of(shapes):
+        return lambda v, lo, a: msda.ms_deform_attn(v, shapes, lo, a)
+
     def levels_kernel(shapes, out_f32=False):
         return lambda v, lo, a: msda.msda_cuda(v, shapes, lo, a,
                                                "ms_deform_attn", out_f32)
@@ -457,7 +489,8 @@ def kernel_phase_msda(seed: int):
     # through `evaluate` or a single-frame forward (the object queries
     # alone, B = 1); the _cli cases those of `cli.track` on 768x1344
     # frames (the exact encoder at B = 1, the decoder at B = 1 and in the
-    # lockstep step at B = 8)
+    # lockstep step at B = 8); the _608 and _1088 cases the training
+    # step's in the train CLI's other buckets
     cases = [
         ("encoder", LEVELS, s_enc, 1, enc_kernel, plain_of(LEVELS)),
         ("decoder", dec_levels, DEC_QUERIES, 1, dec_kernel,
@@ -486,6 +519,15 @@ def kernel_phase_msda(seed: int):
          lambda v, lo, a: msda.level_plain(v, lo[:, :, :, 0],
                                             a[:, :, :, 0], *mid)),
     ]
+    for tag, (_, levels) in TRAIN_BUCKETS.items():
+        both = levels * 2
+        cases += [
+            (f"encoder_train_{tag}", levels, sum(h * w for h, w in levels),
+             TRAIN_BATCH, enc_kernel_of(levels), plain_of(levels)),
+            (f"decoder_train_{tag}", both, TRAIN_DEC_QUERIES, TRAIN_BATCH,
+             dec_kernel_of(both), plain_of(both)),
+            (f"decoder_train_prev_{tag}", both, TRAIN_PREV_QUERIES,
+             TRAIN_BATCH, dec_kernel_of(both), plain_of(both))]
     inputs = {}
     for name, shapes, lq, n, _, _ in cases:
         inputs[name] = msda_inputs(shapes, lq, name.startswith("encoder"),
@@ -868,7 +910,8 @@ def stage_library(name, qkv, kp):
 
 def kernel_phase_window(seed: int):
     """The layer's kernels against its plain version at the shapes of both
-    fast paths (B = 1: 380 windows, B = 8: 3,040), float32 and bfloat16,
+    fast paths (B = 1: 380 windows, B = 8: 3,040) and of the train CLI's
+    validation (B = 2: 760), float32 and bfloat16,
     both shift parities; each of the five bfloat16 stage kernels against
     its plain stage at B = 8 (`stage_cases`), with its time, bound and the
     blocks per SM the card grants it; times of the layer through the
@@ -895,7 +938,7 @@ def kernel_phase_window(seed: int):
             layer = window_layer_module(gen, dtype)
             shapes = (CLI_BUCKET, CLI_LEVELS) if cli else (BUCKET, LEVELS)
             image = "x".join(map(str, shapes[0]))
-            for batch in (1, 8):
+            for batch in ((1, 8) if cli else (1, 2, 8)):
                 key = ("cli", batch) if cli else batch
                 for shift in (False, True):
                     xw, pw, kp, full_pad = window_inputs(batch, shift, dtype,
@@ -954,7 +997,7 @@ def kernel_phase_window(seed: int):
                           batch=batch, image=image, windows=xw.shape[0],
                           **{k: (f"{v:.4f}" if isinstance(v, float) else v)
                              for k, v in results[key].items()})
-        for key in (1, 8, ("cli", 1), ("cli", 8)):
+        for key in (1, 2, 8, ("cli", 1), ("cli", 8)):
             results[key]["max_abs_err"] = max(errs[(bf16, key, False)],
                                               errs[(bf16, key, True)])
     finally:
@@ -1171,7 +1214,8 @@ def kernel_phase_msda_bwd(seed: int):
     """The backward kernel's three gradients against autograd through
     `ms_deform_attn_plain`, at the training step's encoder call (N = 2,
     Lq = S = 22,323, 4 levels), its decoder call (N = 2, Lq = 611, 8
-    levels) and the four single-level calls that route v2 makes per encoder
+    levels), both again in the train CLI's 608x1088 and 1088x1920 buckets
+    (S = 13,736 and 43,350) and the four single-level calls that route v2 makes per encoder
     layer (N = 2, all 22,323 tokens query one level), float32 and bfloat16,
     with samples outside [0, 1]; then two small calls: D = 6, whose head
     rows are not 16-byte aligned (the scalar path), and two levels of
@@ -1187,6 +1231,11 @@ def kernel_phase_msda_bwd(seed: int):
     # levels and vector path where the case is there to hold them)
     cases = [("encoder", LEVELS, s_enc, True, M, D, None),
              ("decoder", LEVELS * 2, TRAIN_DEC_QUERIES, False, M, D, None)]
+    for tag, (_, levels) in TRAIN_BUCKETS.items():
+        cases += [(f"encoder_{tag}", levels, sum(h * w for h, w in levels),
+                   True, M, D, None),
+                  (f"decoder_{tag}", levels * 2, TRAIN_DEC_QUERIES, False, M,
+                   D, None)]
     cases += [(f"encoder_l{i}", (hw,), s_enc, True, M, D, None)
               for i, hw in enumerate(LEVELS)]
     cases += [("unaligned_d6", ((30, 40), (5, 7)), 3000, False, 2, 6,
@@ -1196,8 +1245,10 @@ def kernel_phase_msda_bwd(seed: int):
     results = {}
     for name, shapes, lq, encoder, m, d, want_plan in cases:
         if (m, d) == (M, D):
-            value, loc, attn = msda_inputs(shapes, lq, encoder, gen,
-                                           TRAIN_BATCH, ref_shapes=LEVELS)
+            value, loc, attn = msda_inputs(
+                shapes, lq, encoder, gen, TRAIN_BATCH,
+                ref_shapes=shapes if name.startswith("encoder_") and len(
+                    shapes) > 1 else LEVELS)
         else:
             value = torch.randn(TRAIN_BATCH, sum(h * w for h, w in shapes),
                                 m, d, device="cuda", generator=gen)
@@ -3722,12 +3773,14 @@ def read_frame_ms(path: Path, reps: int = 5) -> float:
 
 
 def write_mot_sequences(root: Path, names, n_frames: int, hw=ORIG_HW,
-                        seed: int = 0) -> None:
+                        seed: int = 0, ext: str = "png") -> None:
     """MOTChallenge-layout sequences under root/MOT17/train/<name>: PNG
-    frames (a seeded blocky texture drifting a few pixels a frame, with the
-    three rectangles of `RECTS` scaled to `hw`, each with its own seeded
-    colour and texture, moving by `RECT_STEP`), `seqinfo.ini`, `gt/gt.txt`
-    (the rectangles, 1-based ids) and `det/det.txt` (the same boxes)."""
+    frames written by `png_bytes` (or, with `ext="jpg"`, JPEGs written by
+    Pillow, MOT17's format) of a seeded blocky texture drifting a few
+    pixels a frame, with the three rectangles of `RECTS` scaled to `hw`,
+    each with its own seeded colour and texture, moving by `RECT_STEP`;
+    `seqinfo.ini`, `gt/gt.txt` (the rectangles, 1-based ids) and
+    `det/det.txt` (the same boxes)."""
     h, w = hw
     sy, sx = h / ORIG_HW[0], w / ORIG_HW[1]
     for k, name in enumerate(names):
@@ -3756,15 +3809,19 @@ def write_mot_sequences(root: Path, names, n_frames: int, hw=ORIG_HW,
                                 f"{bh},1,1,1.0")
                 det_lines.append(f"{t + 1},-1,{x0 + 1},{y0 + 1},{bw},{bh},"
                                  f"0.9")
-            (seq_dir / "img1" / f"{t + 1:06d}.png").write_bytes(
-                png_bytes(img))
+            frame = seq_dir / "img1" / f"{t + 1:06d}.{ext}"
+            if ext == "png":
+                frame.write_bytes(png_bytes(img))
+            else:
+                from PIL import Image
+                Image.fromarray(img).save(frame, quality=95)
         (seq_dir / "gt" / "gt.txt").write_text("\n".join(gt_lines) + "\n")
         (seq_dir / "det" / "det.txt").write_text("\n".join(det_lines)
                                                  + "\n")
         (seq_dir / "seqinfo.ini").write_text(
             f"[Sequence]\nname = {name}\nimDir = img1\nframeRate = 30\n"
             f"seqLength = {n_frames}\nimWidth = {w}\nimHeight = {h}\n"
-            f"imExt = .png\n")
+            f"imExt = .{ext}\n")
 
 
 def nonzero(counts: dict) -> str:
@@ -4048,6 +4105,277 @@ def track_cli_run(seed: int, exact_cfg, fast_cfg, tmp: Path) -> dict:
     return {"exact": exact_counts, "fast_b8": fast_b8, "fast_b1": fast_b1}
 
 
+# the training CLI: 2 sequences of 8 1080x1920 JPEG frames (16 training
+# samples, 8 steps an epoch at B = 2), validated on the second half of
+# each sequence (the first 4 of those 8 frames: `tpu.eval_subset`)
+TRAIN_CLI_SEQS = ("MOT17-02-FRCNN", "MOT17-04-FRCNN")
+TRAIN_CLI_FRAMES = 8
+TRAIN_CLI_EVAL_SUBSET = 4
+# launches per exact train step, validation batch and tracked frame
+EXACT_STEP = {"msda_patch": 24, "ms_deform_attn": 12, "msda_bwd": 18}
+EXACT_FORWARD = {"msda_patch": 12, "ms_deform_attn": 6}
+
+
+def train_cli_run(seed: int, tmp: Path, card: str) -> dict:
+    """`cli.train.main` on the card as a user runs it: a MOTChallenge-layout
+    dataset of 1080x1920 JPEGs (`TRAIN_CLI_SEQS`, one of them named as the
+    tracking registry knows it), converted by the port's
+    `generate_coco_from_mot` (the three splits of its `main`); then the
+    full-width exact flagship (`deformable tracking multi_frame`, bf16,
+    B = 2) trained 2 epochs with a validation each (box AP of
+    `tpu.eval_subset` frames of the cross-validation half, and MOTA / IDF1
+    of the in-process tracking eval over MOT17-02-FRCNN's second half),
+    resumed with `resume_optim` to a third (the step count goes on), then
+    `eval_only` from the saved weights (its AP equals the last
+    validation's); the batches fall in the 608x1088 and 800x1344 buckets
+    and, where a crop stands upright, in 1088x1920 (`TRAIN_BUCKETS`);
+    then the fast mode (`tpu_fast`) one epoch, without the
+    tracking eval, so that every window-layer launch is the validation
+    pass's (B = 2, 800x1344). Every training step's bucket, the seconds the
+    step waited on the `Loader` and the seconds of the step itself, the
+    memory allocated after it and the entries of the per-shape caches;
+    each validation's seconds a frame; the tracking evals' Hz; peak memory
+    and the launches by shape of each run. MOTA and IDF1 of random weights
+    are plumbing, not accuracy. Each run's line carries `card`, the
+    card's nvidia-smi name and power limit. -> the runs' launch counts by
+    run."""
+    import contextlib
+    import io
+    import re
+
+    from trackformer_tpu_torch.cli import train as cli_train
+    from trackformer_tpu_torch.engine import loop
+    from trackformer_tpu_torch.models.deformable_transformer import \
+        _shapes_tensor
+    from trackformer_tpu_torch.models.windowed_encoder import _idx_tensor
+    from trackformer_tpu_torch.ops import msda
+    from trackformer_tpu_torch.tools import generate_coco_from_mot
+
+    t0 = time.perf_counter()
+    write_mot_sequences(tmp, TRAIN_CLI_SEQS, TRAIN_CLI_FRAMES, seed=seed + 2,
+                        ext="jpg")
+    root = tmp / "MOT17"
+    with contextlib.redirect_stdout(io.StringIO()):
+        generate_coco_from_mot.main(["mot17", "--data-root", str(root)])
+    ann = json.loads((root / "annotations" / "mot17_train_coco.json")
+                     .read_text())
+    n_train = len(TRAIN_CLI_SEQS) * TRAIN_CLI_FRAMES
+    check(len(ann["images"]) == n_train
+          and len(ann["annotations"]) == n_train * len(RECTS),
+          f"train_cli: the converter wrote {len(ann['images'])} images and "
+          f"{len(ann['annotations'])} annotations")
+    phase("train_cli", frames=f"{ORIG_HW[0]}x{ORIG_HW[1]} JPEG",
+          sequences=f"{len(TRAIN_CLI_SEQS)}x{TRAIN_CLI_FRAMES}",
+          write_and_convert_s=f"{time.perf_counter() - t0:.2f}")
+
+    steps, evals = [], []
+    caches = (_shapes_tensor, _idx_tensor)
+    loader_cls, evaluate, tracking_eval = (cli_train.Loader, loop.evaluate,
+                                           loop.tracking_eval)
+
+    class TimedLoader(loader_cls):
+        """The CLI's Loader; of the training loader (the shuffled one) each
+        batch's wait (the consumer asked, the batch came) and step (the
+        consumer had it until it asked again), with the bucket, the memory
+        allocated after the step and the caches' entries."""
+
+        def __iter__(self):
+            it = super().__iter__()
+            if not self.shuffle:
+                yield from it
+                return
+            while True:
+                t1 = time.perf_counter()
+                try:
+                    pack = next(it)
+                except StopIteration:
+                    return
+                t2 = time.perf_counter()
+                cached = sum(c.cache_info().currsize for c in caches)
+                yield pack
+                t3 = time.perf_counter()
+                steps[-1].append(dict(
+                    bucket=tuple(pack["batch"].images.shape[1:3]),
+                    wait=t2 - t1, step=t3 - t2,
+                    allocated=torch.cuda.memory_allocated(),
+                    built=sum(c.cache_info().currsize for c in caches)
+                    - cached))
+
+    def timed_evaluate(*args, **kw):
+        t1 = time.perf_counter()
+        stats = evaluate(*args, **kw)
+        evals[-1]["evaluate_s"].append(time.perf_counter() - t1)
+        return stats
+
+    def timed_tracking_eval(*args, **kw):
+        t1 = time.perf_counter()
+        got = tracking_eval(*args, **kw)
+        evals[-1]["tracking_s"].append(time.perf_counter() - t1)
+        return got
+
+    base = ["with", "deformable", "tracking", "multi_frame", "dataset=mot",
+            f"mot_path_train={root}", f"mot_path_val={root}",
+            "train_split=mot17_train_coco",
+            "val_split=mot17_train_cross_val_frame_0_5_to_1_0_coco",
+            f"tpu.eval_subset={TRAIN_CLI_EVAL_SUBSET}", "val_interval=1",
+            f"val_track_dataset={TRAIN_CLI_SEQS[0]}", f"data_root_dir={tmp}",
+            "tracking_eval=true"]
+    track_frames = TRAIN_CLI_FRAMES - TRAIN_CLI_FRAMES // 2
+    val_batches = TRAIN_CLI_EVAL_SUBSET // TRAIN_BATCH
+    steps_per_epoch = n_train // TRAIN_BATCH
+    counts_by_run = {}
+
+    def run(tag: str, argv: list, want_steps: int):
+        steps.append([])
+        evals.append({"evaluate_s": [], "tracking_s": []})
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = cli_train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        counts = counts_by_run[tag] = launch_counts()
+        shapes = msda.launch_shapes()
+        record_path()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.startswith(("EVAL SUBSET", "RESUME", "tpu.remat",
+                                "NUM TRAINABLE", "TRAINING DONE", "EVAL:",
+                                "RUNTIME ALL SEQS")) \
+                    or re.match(r"Epoch: \[\d+\] step 0 ", line):
+                print(f"[{tag}] cli: {line[:400]}", flush=True)
+        hz = [float(h) for h in re.findall(
+            r"RUNTIME ALL SEQS[^:]*: [\d.]+ s for \d+ frames \(([\d.]+) Hz\)",
+            text)]
+        ran = steps[-1]
+        check(len(ran) == want_steps,
+              f"{tag}: {len(ran)} training steps, want {want_steps}")
+        ev = evals[-1]
+        val_s = [e - t for e, t in zip(ev["evaluate_s"], ev["tracking_s"]
+                                       + [0.0] * len(ev["evaluate_s"]))]
+        fields = dict(
+            card=json.dumps(card), seconds=f"{seconds:.2f}", steps=len(ran),
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            validations=len(ev["evaluate_s"]),
+            val_s_per_frame=json.dumps([round(v / TRAIN_CLI_EVAL_SUBSET, 4)
+                                        for v in val_s]),
+            tracking_eval_s=json.dumps([round(t, 3)
+                                        for t in ev["tracking_s"]]),
+            tracking_eval_hz=json.dumps(hz),
+            launches=nonzero(counts),
+            launches_by_shape=json.dumps(
+                {f"{k[0]} N={k[1]} Lq={k[2]} levels={list(k[3])}": n
+                 for k, n in sorted(shapes.items())},
+                separators=(",", ":")))
+        if ran:
+            share = sum(r["wait"] for r in ran) / sum(
+                r["wait"] + r["step"] for r in ran)
+            fields.update(
+                step_s_median=f"{statistics.median(r['step'] for r in ran):.4f}",
+                wait_s_median=f"{statistics.median(r['wait'] for r in ran):.4f}",
+                loader_wait_share=f"{share:.3f}",
+                buckets=json.dumps({f"{b[0]}x{b[1]}": sum(
+                    r["bucket"] == b for r in ran) for b in sorted(
+                        {r["bucket"] for r in ran})}))
+        phase(tag, **fields)
+        return out, counts, hz
+
+    cli_train.Loader = TimedLoader
+    loop.evaluate, loop.tracking_eval = timed_evaluate, timed_tracking_eval
+    try:
+        run_dir = tmp / "run"
+        exact = base + [f"output_dir={run_dir}"]
+        state, counts, hz = run("train_cli_exact", exact + ["epochs=2"],
+                                2 * steps_per_epoch)
+        n_steps = 2 * steps_per_epoch
+        check(state.step == n_steps,
+              f"train_cli_exact: state step {state.step}, want {n_steps}")
+        want = {k: EXACT_STEP.get(k, 0) * n_steps + EXACT_FORWARD.get(k, 0)
+                * 2 * (val_batches + track_frames) for k in counts}
+        check(counts == want, f"train_cli_exact: launches {counts}, want "
+                              f"{want}")
+        check(len(hz) == 2, f"train_cli_exact: {len(hz)} tracking evals")
+        for name in ("config.yaml", "checkpoint.pt", "checkpoint_params.npz",
+                     "checkpoint_best_AP.npz", "checkpoint_best_MOTA.npz"):
+            check((run_dir / name).exists(), f"train_cli_exact: no {name}")
+        # (d): after each bucket's first step no step builds a cache entry,
+        # and the memory left after a step does not grow
+        ran = steps[0]
+        first = {}
+        for r in ran:
+            first.setdefault(r["bucket"], r)
+        rebuilt = sum(r["built"] for r in ran
+                      if r is not first[r["bucket"]])
+        buckets = {BUCKET} | {b for b, _ in TRAIN_BUCKETS.values()}
+        check(TRAIN_BUCKETS["608"][0] in first and BUCKET in first
+              and set(first) <= buckets,
+              f"train_cli_exact: trained at buckets {sorted(first)}")
+        later = [r["allocated"] for r in ran[2:]]
+        phase("train_cli_caches", buckets_in_order=json.dumps(
+            ["x".join(map(str, r["bucket"])) for r in ran]),
+            entries_built_by_each_step=json.dumps([r["built"] for r in ran]),
+            allocated_mib_after_each_step=json.dumps(
+                [round(r["allocated"] / 2**20, 1) for r in ran]),
+            rebuilt_on_a_seen_bucket=rebuilt)
+        check(rebuilt == 0, "train_cli_exact: a step built a cache entry on "
+                            "a bucket seen before")
+        check(max(later) - min(later) <= 64 * 2**20,
+              f"train_cli_exact: allocated memory after a step moved by "
+              f"{(max(later) - min(later)) / 2**20:.1f} MiB")
+
+        state, counts, _ = run("train_cli_resume", exact + [
+            "epochs=3", "resume_optim=true"], steps_per_epoch)
+        check(state.step == 3 * steps_per_epoch,
+              f"train_cli_resume: state step {state.step}, want "
+              f"{3 * steps_per_epoch}")
+        check(json.loads((run_dir / "meta.json").read_text())["epoch"] == 3,
+              "train_cli_resume: meta.json is not at epoch 3")
+        epochs = [json.loads(line) for line in (
+            run_dir / "vis" / "epoch_metrics.jsonl").read_text().splitlines()]
+        check([e["epoch"] for e in epochs] == [1, 2, 3]
+              and all({"AP", "AP50", "MOTA", "IDF1", "loss"} <= set(e)
+                      for e in epochs),
+              f"train_cli: epoch_metrics {[sorted(e) for e in epochs]}")
+        last = epochs[-1]
+
+        stats, counts, _ = run("train_cli_eval_only", base + [
+            "eval_only=true", f"resume={run_dir / 'checkpoint_params.npz'}"],
+            0)
+        losses = [k for k in stats if k.startswith("loss_")]
+        rel = max(abs(stats[k] - last[k]) / max(abs(last[k]), 1e-6)
+                  for k in losses)
+        phase("train_cli_eval_only", ap=stats["AP"], last_val_ap=last["AP"],
+              mota=stats["MOTA"], idf1=stats["IDF1"],
+              last_val_mota=last["MOTA"], last_val_idf1=last["IDF1"],
+              losses_max_rel_diff=f"{rel:.3e}", stats_keys=json.dumps(
+                  sorted(stats)), note=json.dumps(
+                  "MOTA and IDF1 of random weights: plumbing, not accuracy"))
+        check(stats["AP"] == last["AP"],
+              f"train_cli_eval_only: AP {stats['AP']}, the last validation's "
+              f"{last['AP']}")
+        check(rel <= 1e-3, f"train_cli_eval_only: losses {rel:.3e} apart "
+                           f"from the last validation's")
+
+        fast_dir = tmp / "run_fast"
+        state, counts, _ = run("train_cli_fast", base + [
+            "tpu_fast", "epochs=1", "tracking_eval=false",
+            f"output_dir={fast_dir}"], steps_per_epoch)
+        check(state.step == steps_per_epoch,
+              f"train_cli_fast: state step {state.step}")
+        want_window = 6 * val_batches
+        check(counts["fused_window_layer"] == want_window
+              and counts["msda_bwd"] == 6 * steps_per_epoch,
+              f"train_cli_fast: launches {nonzero(counts)}")
+        phase("train_cli", card=json.dumps(card),
+              phase_seconds=f"{time.perf_counter() - t0:.2f}")
+    finally:
+        cli_train.Loader = loader_cls
+        loop.evaluate, loop.tracking_eval = evaluate, tracking_eval
+    return counts_by_run
+
+
 class _Sequence:
     """What `get_mot_accum` reads of a sequence: its frames' ground truth,
     its length and its name."""
@@ -4066,7 +4394,7 @@ class _Sequence:
 PHASES = ("msda", "window", "msda_bwd", "dense_v2", "dense_v4", "dense_v3",
           "gather_rows", "patch_v6", "exact", "fast", "train",
           "train_reference", "train_fast", "checkpoint", "evaluate",
-          "track_cli")
+          "track_cli", "train_cli")
 # frames of the exact tracker's runs on the other routes
 ROUTE_FRAMES = 3
 
@@ -4189,7 +4517,7 @@ def main() -> int:
     exact_cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
     fast_cfg = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
     kmsda = kwin = kbwd = kv2 = kv4 = kv3 = krows = kv6 = None
-    fast_counts = batched_counts = cli_counts = None
+    fast_counts = batched_counts = cli_counts = train_cli_counts = None
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4251,6 +4579,9 @@ def main() -> int:
             with tempfile.TemporaryDirectory() as tmp:
                 cli_counts = track_cli_run(args.seed, exact_cfg, fast_cfg,
                                            Path(tmp))
+        if "train_cli" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                train_cli_counts = train_cli_run(args.seed, Path(tmp), smi)
 
         if "train_fast" in phases or "checkpoint" in phases:
             with tempfile.TemporaryDirectory() as tmp:
@@ -4302,7 +4633,8 @@ def main() -> int:
         ("msda_fwd via msda_patch (exact encoder, all levels, B = 1)",
          msda_src, patch_py + ":108", kmsda[("encoder", bf16)],
          ("msda_patch", 1, s_enc, LEVELS)),
-        ("msda_fwd via msda_patch (training, encoder, all levels, B = 2)",
+        ("msda_fwd via msda_patch (training, and the train CLI's "
+         "validation, encoder, all levels, B = 2)",
          msda_src, patch_py + ":108", kmsda[("encoder_train", bf16)],
          ("msda_patch", TRAIN_BATCH, s_enc, LEVELS)),
         ("msda_fwd via ms_deform_attn (decoder, 8 levels, B = 1)",
@@ -4316,7 +4648,7 @@ def main() -> int:
          msda_src, dense_py + ":216", kmsda[("decoder_train", bf16)],
          ("ms_deform_attn", TRAIN_BATCH, TRAIN_DEC_QUERIES, dec_levels)),
         ("msda_fwd via ms_deform_attn (training, previous frame's decoder, "
-         "8 levels, 500 queries, B = 2)",
+         "and the train CLI's validation, 8 levels, 500 queries, B = 2)",
          msda_src, dense_py + ":216", kmsda[("decoder_train_prev", bf16)],
          ("ms_deform_attn", TRAIN_BATCH, TRAIN_PREV_QUERIES, dec_levels)),
         ("msda_fwd via ms_deform_attn (evaluate and single-frame forwards, "
@@ -4401,6 +4733,32 @@ def main() -> int:
          msda_src, dense_py + ":216", kmsda[("decoder_cli_b8", bf16)],
          ("ms_deform_attn", 8, DEC_QUERIES, cli_dec_levels)),
     ]
+    for tag, (bucket, levels) in TRAIN_BUCKETS.items():
+        s_lv, both = sum(h * w for h, w in levels), levels * 2
+        at = f"the train CLI's {bucket[0]}x{bucket[1]} bucket"
+        msda_entries += [
+            (f"msda_fwd via msda_patch (training, {at}, encoder, all "
+             f"levels, B = 2)",
+             msda_src, patch_py + ":108", kmsda[(f"encoder_train_{tag}",
+                                                 bf16)],
+             ("msda_patch", TRAIN_BATCH, s_lv, levels)),
+            (f"msda_fwd via ms_deform_attn (training, {at}, decoder, 8 "
+             f"levels, 611 queries, B = 2)",
+             msda_src, dense_py + ":216", kmsda[(f"decoder_train_{tag}",
+                                                 bf16)],
+             ("ms_deform_attn", TRAIN_BATCH, TRAIN_DEC_QUERIES, both)),
+            (f"msda_fwd via ms_deform_attn (training, {at}, previous "
+             f"frame's decoder, 8 levels, 500 queries, B = 2)",
+             msda_src, dense_py + ":216",
+             kmsda[(f"decoder_train_prev_{tag}", bf16)],
+             ("ms_deform_attn", TRAIN_BATCH, TRAIN_PREV_QUERIES, both)),
+            (f"msda_bwd (training, {at}, encoder call, all levels, B = 2)",
+             bwd_src, patch_py + ":367", kbwd[(f"encoder_{tag}", bf16)],
+             ("msda_bwd", TRAIN_BATCH, s_lv, levels)),
+            (f"msda_bwd (training, {at}, decoder call, 8 levels, B = 2)",
+             bwd_src, dense_py + ":780", kbwd[(f"decoder_{tag}", bf16)],
+             ("msda_bwd", TRAIN_BATCH, TRAIN_DEC_QUERIES, both)),
+        ]
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": PATH_SHAPES.get(key, 0),
                 **result}
@@ -4440,6 +4798,14 @@ def main() -> int:
          "replaces": "trackformer_tpu/ops/window_attn.py:56",
          "launches": cli_counts["fast_b8"][stage], **kwin[("cli", stage)]}
         for stage in STAGES]
+    kernels.append(
+        {"name": "window_layer_fwd via fused_window_layer (the train CLI's "
+                 "validation of the fast mode, 800x1344, B = 2: the five "
+                 "stage kernels)",
+         "route": "cuda", "source": win_src,
+         "replaces": "trackformer_tpu/ops/window_attn.py:56",
+         "launches": train_cli_counts["train_cli_fast"]["fused_window_layer"],
+         **kwin[2]})
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         print(f"chip_smoke: FAILED: no main path launched {idle}",

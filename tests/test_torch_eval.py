@@ -398,10 +398,9 @@ def test_evaluate_matches_jax(capsys):
     for key in set(want) - {"coco_eval_bbox"}:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
                                    atol=1e-4, err_msg=key)
+    # (the in-process tracking eval runs: tests/test_torch_train_cli.py)
     for flags, post_dict in (({"masks": True}, {"bbox": post}),
-                             ({}, {"bbox": post, "panoptic": post}),
-                             ({"tracking": True, "tracking_eval": True},
-                              {"bbox": post})):
+                             ({}, {"bbox": post, "panoptic": post})):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             loop.evaluate(model, crit, post_dict, packs, lambda p: p,
                           FakeGT(gts), types.SimpleNamespace(

@@ -6,9 +6,11 @@ and `BatchedTracker`; the exact mode also on route "v4" and under
 `MSDA_DEC_SKIP`), the public MSDA ops that no route calls, one
 two-frame training step of the exact mode, a checkpoint round trip (an
 `.npz` in the JAX layout and the train state through `CheckpointManager`),
-one `evaluate` and the tracking CLI over a small PNG sequence (its
-configs, the native preprocessing, the port's PNG reader) go through on
-the CPU, in a subprocess in which
+one `evaluate`, the tracking CLI over a small PNG sequence (its
+configs, the native preprocessing, the port's PNG reader), and the MOT ->
+COCO converter over a small JPEG sequence followed by one debug epoch of
+the training CLI on its JSON (the datasets, the training transforms, the
+loader, a validation) go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -169,6 +171,27 @@ summary = track_main(["with", "dataset_name=MOT17-02-FRCNN",
                      device="cpu")
 assert summary["OVERALL"]["num_objects"] == 2 * 3
 assert os.path.exists(out_dir + "/cli_out/MOT17-02-FRCNN.txt")
+
+# the training entry point: the converter over JPEG sequences, then one
+# debug epoch of the CLI on its JSON
+from trackformer_tpu_torch.cli.train import main as train_main
+from trackformer_tpu_torch.tools.generate_coco_from_mot import main as convert
+train_data = Path(out_dir) / "train_data"
+chip_smoke.write_mot_sequences(train_data, ["MOT17-02-FRCNN"], 3,
+                               hw=(54, 96), ext="jpg")
+convert(["mot17", "--data-root", str(train_data / "MOT17")])
+state = train_main(
+    ["with", "deformable", "tracking", "multi_frame", "enc_layers=1",
+     "dec_layers=1", "hidden_dim=96", "nheads=4", "dim_feedforward=64",
+     "num_queries=8", "dataset=mot", f"mot_path_train={train_data}/MOT17",
+     f"mot_path_val={train_data}/MOT17", "train_split=mot17_train_coco",
+     "val_split=mot17_train_coco", "img_transform.val_width=64",
+     "img_transform.max_size=114", "tpu.image_buckets=[[128,128]]",
+     "tpu.max_objects=4", "tpu.compute_dtype=float32", "tracking_eval=false",
+     "epochs=1", "debug=true", "batch_size=1",
+     f"output_dir={out_dir}/train_run"], device="cpu")
+assert state.step == 2
+assert os.path.exists(out_dir + "/train_run/checkpoint_params.npz")
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax")
                for k in sys.modules)
 print("NO_JAX_OK")
