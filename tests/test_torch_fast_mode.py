@@ -105,11 +105,16 @@ def test_fast_config_matches_yaml():
                           load_config("train.yaml", NAMED))
 
 
-@pytest.mark.parametrize("mode", [("windowed", False), ("msda", True)],
+@pytest.mark.parametrize("mode", [("windowed", False, 16),
+                                  ("msda", True, 8)],
                          ids=["windowed_uncached", "msda_cached"])
 def test_factory_rejects_other_encoder_modes(mode):
+    """Exact MSDA with the cached memory, and the windowed encoder without
+    it at a window side no kernel takes (the uncached windowed encoder at
+    window 8 is ported: `test_torch_variants.py`)."""
     cfg = FlagshipConfig().replace(encoder_attention=mode[0],
-                                   cached_prev_memory=mode[1])
+                                   cached_prev_memory=mode[1],
+                                   encoder_window=mode[2])
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(cfg, "cpu")
 

@@ -10,7 +10,9 @@ one `evaluate`, the tracking CLI over a small PNG sequence (its
 configs, the native preprocessing, the port's PNG reader), and the MOT ->
 COCO converter over a small JPEG sequence followed by one debug epoch of
 the training CLI on its JSON (the datasets, the training transforms, the
-loader, a validation) go through on the CPU, in a subprocess in which
+loader, a validation), the single-frame Deformable DETR family (exact and
+windowed encoder, shared heads, in a `Tracker` and a detection train
+step) and both agreement tools at the `small` scale go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -192,8 +194,40 @@ state = train_main(
      f"output_dir={out_dir}/train_run"], device="cpu")
 assert state.step == 2
 assert os.path.exists(out_dir + "/train_run/checkpoint_params.npz")
+
+# the single-frame family: exact, windowed without the cached memory, and
+# shared heads; a Tracker and a detection step each
+for named, over in ((["deformable", "tracking"], {}),
+                    (["deformable", "tracking", "tpu_fast"],
+                     {"with_box_refine": False})):
+    single = FlagshipConfig.from_config(load_config("train.yaml", named, {
+        "enc_layers": 2, "dec_layers": 2, "hidden_dim": 96, "nheads": 4,
+        "dim_feedforward": 64, "num_queries": 8, "dropout": 0.0,
+        "tpu.compute_dtype": "float32", **over})).replace(max_tracks=4)
+    model, post = build_model(single, "cpu", torch.Generator().manual_seed(0))
+    tracker = Tracker(model, post, {**single.tracker_cfg, "max_tracks": 4},
+                      single.hidden_dim, single.num_queries)
+    for _ in range(2):
+        tracker.step(blob)
+    model, crit, _, track = build_model(single, "cpu", gen, train=True)
+    optimizer = make_optimizer(single, model)
+    step = make_train_step(model, crit, optimizer, track, tracking=False)
+    _, metrics = step(TrainState.create(model, optimizer),
+                      {"batch": blob["batch"], "targets": targets}, gen)
+    assert bool(torch.isfinite(metrics["loss"]))
+
+# the agreement tools, two steps of each arm at the small scale
+from trackformer_tpu_torch.tools import fast_exact_agreement, tracking_agreement
+agree = fast_exact_agreement.main(["2", "small", "--device", "cpu", "--out",
+                                   out_dir + "/agree.json"])
+assert agree["steps_trained"] == 2 and "exact_map" in agree
+tracked = tracking_agreement.main(["2", "small", "--device", "cpu", "--out",
+                                   out_dir + "/agree.json"])
+assert "fast_idf1" in tracked
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax")
                for k in sys.modules)
+import shutil
+shutil.rmtree(out_dir)
 print("NO_JAX_OK")
 print("OPENED_OUTSIDE=" + repr(opened_outside))
 '''
@@ -216,13 +250,16 @@ def test_port_reads_no_file_of_the_jax_side(blocked_run):
 
 
 def test_no_jax_import_lines_in_port_sources():
-    """No line of the port, chip_smoke.py or chip_profile.py imports JAX,
+    """No line of the port or of the card's scripts (chip_smoke.py,
+    chip_profile.py, chip_trained_offsets.py, chip_resume_drift.py) imports JAX,
     flax or any module of the JAX package (`trackformer_tpu`, not the
     port's own `trackformer_tpu_torch`)."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
                          r"trackformer_tpu)(?![\w])", re.M)
     files = sorted((REPO / "trackformer_tpu_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "chip_profile.py"]
+    files += [REPO / name for name in ("chip_smoke.py", "chip_profile.py",
+                                       "chip_trained_offsets.py",
+                                       "chip_resume_drift.py")]
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert offenders == []

@@ -119,6 +119,26 @@ class Loader:
             t.join()
 
 
+def image_buckets(tpu_cfg: dict, img_cfg: dict):
+    """(`tpu.image_buckets` as (h, w) pairs, the fallback bucket or None).
+    The training crop can leave a frame taller than wide, which
+    `RandomResize` then takes to a long side of up to
+    `img_transform.max_size` (ROADMAP Queue 3). When no configured bucket
+    holds a `max_size` x `max_size` frame, a square bucket of `max_size`
+    rounded up to 64 (1344 x 1344 for 1333) takes the batches that no
+    configured bucket holds (`builder.bucket_for`); every other batch keeps
+    its bucket. Prints one line when it adds the bucket."""
+    buckets = [tuple(b) for b in tpu_cfg.get(
+        "image_buckets", [[608, 1088], [800, 1344], [1088, 1920]])]
+    side = int(img_cfg.get("max_size", 1333))
+    if any(h >= side and w >= side for h, w in buckets):
+        return buckets, None
+    square = -(-side // 64) * 64
+    print(f"tpu.image_buckets: added {square}x{square} for the batches no "
+          f"bucket holds (an upright crop of img_transform.max_size {side})")
+    return buckets, (square, square)
+
+
 def main(argv=None, device="cuda"):
     """Train (or with `eval_only` evaluate) as configured -> the train
     state (the stats with `eval_only`)."""
@@ -178,13 +198,12 @@ def main(argv=None, device="cuda"):
     dataset_train = build_dataset("train", args) \
         if not args.eval_only else None
     dataset_val = build_dataset("val", args)
-    buckets = [tuple(b) for b in tpu_cfg.get(
-        "image_buckets", [[608, 1088], [800, 1344], [1088, 1920]])]
+    buckets, fallback = image_buckets(tpu_cfg, cfg.get("img_transform") or {})
     max_objects = int(tpu_cfg.get("max_objects", 100))
 
     def collate(samples):
         return collate_fn(samples, buckets, max_objects,
-                          with_masks=args.masks)
+                          with_masks=args.masks, fallback=fallback)
 
     def device_put(pack):
         return pack_to(pack, device)

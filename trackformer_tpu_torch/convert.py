@@ -333,10 +333,18 @@ def _check_layout(keys, cfg) -> None:
 
     got = {"encoder layers": count(r"transformer\.encoder\.layers\.(\d+)\."),
            "decoder layers": count(r"transformer\.decoder\.layers\.(\d+)\."),
+           "class heads": count(r"class_embed\.(\d+)\."),
            "frame_embed": int("transformer.frame_embed" in keys)}
+    # the cached memory takes effect on a multi-frame model with a separate
+    # encoder (`models.factory.cached_mode`); without box refinement one
+    # head serves every decoder layer
+    cached = (cfg.cached_prev_memory and cfg.multi_frame_attention
+              and cfg.multi_frame_attention_separate_encoder
+              and not cfg.merge_frame_features)
     want = {"encoder layers": cfg.enc_layers,
             "decoder layers": cfg.dec_layers,
-            "frame_embed": int(bool(cfg.cached_prev_memory))}
+            "class heads": cfg.dec_layers if cfg.with_box_refine else 1,
+            "frame_embed": int(bool(cached))}
     if got != want:
         raise ValueError(f"state dict does not fit the config: {got} against "
                          f"{want}")

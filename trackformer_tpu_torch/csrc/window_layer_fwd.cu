@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernel trackformer_tpu/ops/window_attn.py::_kernel
 // (called through _fused_window_layer). For every 8x8 window of the call
-// (NW windows of WS = 64 tokens, C = 288 channels, 8 heads of 36):
+// (NW windows of WS = 64 tokens, C channels, 8 heads of DH = C / 8):
 //
 //   q, k = (x + pos) Wq + bq, (x + pos) Wk + bk;   v = x Wv + bv
-//   a    = softmax(q k^T / 6 with excluded keys at float32 min) v
+//   a    = softmax(q k^T / sqrt(DH) with excluded keys at float32 min) v
 //   x1   = LayerNorm(x + (a Wo + bo))
 //   out  = LayerNorm(x1 + (relu(x1 W1 + b1) W2 + b2))
 //
@@ -17,6 +17,12 @@
 // LayerNorm takes f32 statistics as E[x^2] - E[x]^2 with eps 1e-6. Which
 // keys are excluded (slots past a level's edge, and the un-masking of
 // fully-padded windows) is decided by the caller.
+//
+// Every kernel is a template on C, instantiated at the two widths the
+// models take: C = 288 (8 heads of 36, the flagship) and C = 256 (8 heads
+// of 32, the single-frame Deformable DETR family). The entry points take C
+// and refuse any other. The product tiles follow C (128 x C or 64 x C,
+// warp tiles C / 4 wide); the attention's head segments stay 40 wide.
 //
 // What bounds it on this card: arithmetic. At the fast mode's B = 8 call
 // (NW = 3,040, R = NW * 64 = 194,560 tokens) the five products are 359
@@ -30,16 +36,17 @@
 // window; the four projections and the FFN are per token. So they run as
 // five kernels over all R tokens, and only `window_layer_attn` is per
 // window. The intermediates go through device memory (ops/window_attn.py
-// allocates them): q|k|v (R x 864), the attention output (R x 288), x1
-// (R x 288) and the FFN hidden (R x ff).
+// allocates them): q|k|v (R x 3C), the attention output (R x C), x1
+// (R x C) and the FFN hidden (R x ff).
 //
-//   window_layer_qkv      R x 288 -> R x 864, tiles of 128 x 288 (q, k or
+//   window_layer_qkv      R x C -> R x 3C, tiles of 128 x C (q, k or
 //                         v); the q and k tiles take round(x + pos), formed
 //                         in shared memory as each slab lands (no x + pos
 //                         buffer), the v tiles take x.
 //   window_layer_attn     a block of 4 warps per (window, head): q, k, v
-//                         of the head in shared memory (d_head 36 padded to
-//                         40 with zeros), a warp per 16 query rows, the
+//                         of the head in shared memory (d_head 36 or 32
+//                         padded to 40 with zeros), a warp per 16 query
+//                         rows, the
 //                         logits, softmax and probabilities in registers
 //                         (the accumulator of q k^T is the A operand of
 //                         p v, as in FlashAttention-2).
@@ -61,7 +68,8 @@
 //
 // float32 (the reference path): one block per window, scalar FMAs, as
 // before (`window_layer_f32`); its q|k|v weights in the per-head layout
-// padded to 48 that ops/window_attn.py:padded_qkv makes.
+// padded to DHP (48 at d_head 36, 32 at d_head 32) that
+// ops/window_attn.py:padded_qkv makes.
 //
 // wgmma, TMA, a persistent tile scheduler and the FFN with h kept on chip
 // are later work.
@@ -77,17 +85,22 @@
 namespace {
 
 constexpr int WS = 64;                   // tokens per window
-constexpr int C = 288;                   // d_model
 constexpr int NH = 8;                    // heads
-constexpr int DH = 36;                   // d_head
-constexpr int DHP = 48;                  // d_head padded (float32 path)
-constexpr int QK_LD = NH * 2 * DHP;      // packed q|k columns of all heads
-constexpr int V_LD = NH * DHP;           // packed v columns of all heads
-constexpr int PACK_LD = QK_LD + V_LD;    // columns of the packed q|k|v
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int CT = C / 16;               // 16-wide column tiles of C
 constexpr float LN_EPS = 1e-6f;
+
+// the sizes that follow d_model C
+template <int C>
+struct Width {
+  static_assert(C % (NH * 4) == 0 && C % 32 == 0, "d_model");
+  static constexpr int DH = C / NH;                  // d_head
+  static constexpr int DHP = (DH + 15) / 16 * 16;    // padded (float32)
+  static constexpr int QK_LD = NH * 2 * DHP;  // packed q|k of all heads
+  static constexpr int V_LD = NH * DHP;       // packed v of all heads
+  static constexpr int PACK_LD = QK_LD + V_LD;
+  static constexpr int CT = C / 16;           // 16-wide column tiles of C
+};
 
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
@@ -113,7 +126,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // LayerNorm over C of each of the 64 rows of src (row stride lds) into dst
 // (row stride ldd; shared or global), one warp per row
-template <typename T>
+template <int C, typename T>
 __device__ __forceinline__ void layer_norm_rows(const T* src, int lds,
                                                 const T* g, const T* b,
                                                 T* dst, int ldd) {
@@ -437,16 +450,21 @@ __device__ __forceinline__ void store_tile(const float (&acc)[G::MT][G::NT][4],
 
 // ---- stage 1: q|k|v --------------------------------------------------------
 
-// 128 x 288: the three column tiles q, k, v; 16 warps of 32 x 72, one
+// 128 x C: the three column tiles q, k, v; 16 warps of 32 x C / 4, one
 // block per SM
-typedef Gemm<128, C, 4, 4, 4, 1, true> GQkv;
-static_assert((2 * C) % GQkv::BN == 0, "no q|k tile straddles column 576");
+template <int C>
+using GQkv = Gemm<128, C, 4, 4, 4, 1, true>;
+static_assert((2 * 288) % GQkv<288>::BN == 0,
+              "no q|k tile straddles column 2C = 576");
+static_assert((2 * 256) % GQkv<256>::BN == 0,
+              "no q|k tile straddles column 2C = 512");
 
 // x, pos: (rows, C); w: (C, 3C) = in_proj_weight^T, columns q | k | v of
 // all heads; b: (3C); out: (rows, 3C) = rnd(rnd(acc) + b). Grid
 // (3, ceil(rows / 128)): the column tiles of a row tile run side by side,
 // so that its rows are read from memory once and then from L2.
-__global__ void __launch_bounds__(GQkv::THREADS, GQkv::MINB)
+template <int C>
+__global__ void __launch_bounds__(GQkv<C>::THREADS, GQkv<C>::MINB)
     window_layer_qkv_kernel(const bf16* __restrict__ x,
                             const bf16* __restrict__ pos,
                             const bf16* __restrict__ w,
@@ -454,7 +472,7 @@ __global__ void __launch_bounds__(GQkv::THREADS, GQkv::MINB)
                             int rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  typedef GQkv G;
+  typedef GQkv<C> G;
   const int row0 = blockIdx.y * G::BM;
   const int col0 = blockIdx.x * G::BN;
   float acc[G::MT][G::NT][4];
@@ -470,34 +488,49 @@ __global__ void __launch_bounds__(GQkv::THREADS, GQkv::MINB)
 
 // ---- stage 2: attention ---------------------------------------------------
 
-constexpr int AT_SEG = 40;               // d_head 36 padded to 40 (zeros)
-constexpr int AT_LD = 3 * AT_SEG + 16;   // q | k | v | 16: 272-byte rows
+// each head's q, k and v segment in shared memory, d_head padded to 40
+// with zeros: 272-byte rows (17 16-byte units, odd: the 8 rows an ldmatrix
+// phase reads fall in distinct banks) at both widths
+constexpr int AT_SEG = 40;
+constexpr int AT_LD = 3 * AT_SEG + 16;   // q | k | v | 16
 constexpr int AT_THREADS = 128;          // a warp per 16 query rows
 
 // qkv: (NW * 64, 3C) from stage 1; kp: (NW, 64) uint8, 1 = exclude the
-// key; out: (NW * 64, C), head h at columns 36 h .. 36 h + 35. Block per
-// (window, head): blockIdx.x = window * 8 + head.
+// key; out: (NW * 64, C), head h at columns DH h .. DH h + DH - 1. Block
+// per (window, head): blockIdx.x = window * 8 + head.
+template <int C>
 __global__ void __launch_bounds__(AT_THREADS)
     window_layer_attn_kernel(const bf16* __restrict__ qkv,
                              const uint8_t* __restrict__ kp,
                              bf16* __restrict__ out) {
+  constexpr int DH = Width<C>::DH;
+  static_assert(DH % 4 == 0 && DH <= AT_SEG, "d_head fits its segment");
+  constexpr int WORDS = DH / 4;          // 8-byte words of a head segment
+  constexpr int PADW = (AT_SEG - DH) / 4;
+  constexpr int DH8 = (DH + 7) / 8 * 8;  // columns the products read
+  constexpr int KS = (DH + 15) / 16;     // k steps of q k^T
+  constexpr int NTO = (DH + 7) / 8;      // 8-wide column tiles of p v
   __shared__ __align__(128) bf16 s[WS * AT_LD];
   __shared__ bool excluded[WS];
   const int win = blockIdx.x / NH;
   const int h = blockIdx.x % NH;
   const int tid = threadIdx.x;
   const bf16* src = qkv + (size_t)win * WS * 3 * C + h * DH;
-  // the padding of each head segment, 8 bytes at d_head 36 .. 39: zeros,
-  // which the logits' last k step reads (its A columns 36 .. 39 are q's)
-  for (int i = tid; i < WS * 3; i += AT_THREADS)
-    *reinterpret_cast<uint2*>(s + (i / 3) * AT_LD + (i % 3) * AT_SEG + DH) =
-        make_uint2(0u, 0u);
-  // q, k, v of the head: 64 rows x 3 segments x 9 words of 8 bytes (a head
-  // starts 72 bytes after the last: 8-byte aligned only)
-  for (int i = tid; i < WS * 27; i += AT_THREADS) {
-    const int r = i / 27;
-    const int seg = (i % 27) / 9;
-    const int w = i % 9;
+  // the padding of each head segment, d_head .. 39: zeros, which the
+  // logits' last k step reads at d_head 36 (its A columns 36 .. 39 are
+  // q's)
+  for (int i = tid; i < WS * 3 * PADW; i += AT_THREADS) {
+    const int r = i / (3 * PADW);
+    const int seg = (i / PADW) % 3;
+    *reinterpret_cast<uint2*>(s + r * AT_LD + seg * AT_SEG + DH +
+                              4 * (i % PADW)) = make_uint2(0u, 0u);
+  }
+  // q, k, v of the head: 64 rows x 3 segments x DH / 4 words of 8 bytes (a
+  // head starts 2 DH bytes after the last: 8-byte aligned only at DH 36)
+  for (int i = tid; i < WS * 3 * WORDS; i += AT_THREADS) {
+    const int r = i / (3 * WORDS);
+    const int seg = (i % (3 * WORDS)) / WORDS;
+    const int w = i % WORDS;
     cp_async8(s + r * AT_LD + seg * AT_SEG + 4 * w,
               src + (size_t)r * 3 * C + seg * C + 4 * w);
   }
@@ -517,10 +550,10 @@ __global__ void __launch_bounds__(AT_THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 3; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     uint32_t a[4];
     ldsm_x4(a, s + (q0 + (lane & 15)) * AT_LD + 16 * ks + (lane >> 4) * 8);
-    if (ks == 2) {  // columns 40 .. 47 lie in the next segment
+    if (16 * ks + 8 >= DH8) {  // columns 40 .. 47 lie in the next segment
       a[2] = 0u;
       a[3] = 0u;
     }
@@ -563,9 +596,9 @@ __global__ void __launch_bounds__(AT_THREADS)
   }
   // p v: the probabilities, rounded to bf16, are the A operand straight
   // from the logits' registers (key tiles 2 ks and 2 ks + 1)
-  float o[5][4];
+  float o[NTO][4];
 #pragma unroll
-  for (int j = 0; j < 5; ++j)
+  for (int j = 0; j < NTO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 #pragma unroll
@@ -577,19 +610,21 @@ __global__ void __launch_bounds__(AT_THREADS)
     a[3] = pack_bf2(sc[2 * ks + 1][2] / sum[1], sc[2 * ks + 1][3] / sum[1]);
     const bf16* vrow = s + (16 * ks + (lane & 15)) * AT_LD + 2 * AT_SEG;
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
+    for (int p = 0; p < NTO / 2; ++p) {
       uint32_t vb[4];
       ldsm_x4_t(vb, vrow + 16 * p + (lane >> 4) * 8);
       mma_bf16(o[2 * p], a, vb[0], vb[1]);
       mma_bf16(o[2 * p + 1], a, vb[2], vb[3]);
     }
-    uint32_t vb[2];
-    ldsm_x2_t(vb, vrow + 32);
-    mma_bf16(o[4], a, vb[0], vb[1]);
+    if constexpr (NTO % 2 == 1) {
+      uint32_t vb[2];
+      ldsm_x2_t(vb, vrow + 16 * (NTO / 2));
+      mma_bf16(o[NTO - 1], a, vb[0], vb[1]);
+    }
   }
   const size_t row = (size_t)win * WS + q0 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < 5; ++j) {
+  for (int j = 0; j < NTO; ++j) {
     const int c = 8 * j + 2 * t;
     if (c < DH) {
       bf16* dst = out + row * C + h * DH + c;
@@ -601,18 +636,20 @@ __global__ void __launch_bounds__(AT_THREADS)
 
 // ---- stages 3 and 5: a product of whole rows, residual, LayerNorm ---------
 
-// 64 whole rows; 8 warps of 32 x 72, two blocks per SM
-typedef Gemm<64, C, 2, 4, 4, 2, false> GRow;
-constexpr int LDST = C + SPAD;           // staging tile of the epilogue
-static_assert(GRow::BM * LDST <= GRow::STAGES * GRow::STAGE_EL,
-              "the staging tile fits the ring");
+// 64 whole rows; 8 warps of 32 x C / 4, two blocks per SM
+template <int C>
+using GRow = Gemm<64, C, 2, 4, 4, 2, false>;
 
 // out = LayerNorm(res + rnd(rnd(A W) + b)) over the BM rows of this block:
 // A (rows, K), W (K, C), res and out (rows, C)
+template <int C>
 __device__ __forceinline__ void row_product_ln(
     const bf16* A, int K, const bf16* w, const bf16* b, const bf16* res,
     const bf16* g, const bf16* be, bf16* out, int rows, bf16* smem) {
-  typedef GRow G;
+  typedef GRow<C> G;
+  constexpr int LDST = C + SPAD;         // staging tile of the epilogue
+  static_assert(G::BM * LDST <= G::STAGES * G::STAGE_EL,
+                "the staging tile fits the ring");
   const int row0 = blockIdx.x * G::BM;
   float acc[G::MT][G::NT][4];
   gemm_main<G>(acc, A, nullptr, K, row0, rows, w, C, K, smem);
@@ -640,7 +677,7 @@ __device__ __forceinline__ void row_product_ln(
       }
   }
   __syncthreads();
-  // LayerNorm a warp per row, 9 columns a lane, in place
+  // LayerNorm a warp per row, C / 32 columns a lane, in place
   for (int r = warp; r < G::BM; r += G::THREADS / 32) {
     bf16* row = smem + r * LDST;
     float v[C / 32];
@@ -672,7 +709,8 @@ __device__ __forceinline__ void row_product_ln(
 
 // x1 = LayerNorm1(x + rnd(rnd(a Wo) + bo)); a, x, x1: (rows, C). Grid
 // ceil(rows / 64).
-__global__ void __launch_bounds__(GRow::THREADS, GRow::MINB)
+template <int C>
+__global__ void __launch_bounds__(GRow<C>::THREADS, GRow<C>::MINB)
     window_layer_proj_ln_kernel(const bf16* __restrict__ a,
                                 const bf16* __restrict__ wo,
                                 const bf16* __restrict__ bo,
@@ -681,13 +719,14 @@ __global__ void __launch_bounds__(GRow::THREADS, GRow::MINB)
                                 const bf16* __restrict__ be1,
                                 bf16* __restrict__ x1, int rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  row_product_ln(a, C, wo, bo, x, g1, be1, x1, rows,
+  row_product_ln<C>(a, C, wo, bo, x, g1, be1, x1, rows,
                  reinterpret_cast<bf16*>(smem_raw));
 }
 
 // out = LayerNorm2(x1 + rnd(rnd(h W2) + b2)); h: (rows, ff). Grid
 // ceil(rows / 64).
-__global__ void __launch_bounds__(GRow::THREADS, GRow::MINB)
+template <int C>
+__global__ void __launch_bounds__(GRow<C>::THREADS, GRow<C>::MINB)
     window_layer_ffn2_ln_kernel(const bf16* __restrict__ hid,
                                 const bf16* __restrict__ w2,
                                 const bf16* __restrict__ b2,
@@ -696,7 +735,7 @@ __global__ void __launch_bounds__(GRow::THREADS, GRow::MINB)
                                 const bf16* __restrict__ be2,
                                 bf16* __restrict__ out, int rows, int ff) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  row_product_ln(hid, ff, w2, b2, x1, g2, be2, out, rows,
+  row_product_ln<C>(hid, ff, w2, b2, x1, g2, be2, out, rows,
                  reinterpret_cast<bf16*>(smem_raw));
 }
 
@@ -707,6 +746,7 @@ typedef Gemm<128, 128, 2, 4, 4, 2, false> GFfn;
 
 // h = relu(rnd(rnd(x1 W1) + b1)); x1: (rows, C), w1: (C, ff), h: (rows,
 // ff). Grid (ff / 128, ceil(rows / 128)), column tiles side by side.
+template <int C>
 __global__ void __launch_bounds__(GFfn::THREADS, GFfn::MINB)
     window_layer_ffn1_kernel(const bf16* __restrict__ x1,
                              const bf16* __restrict__ w1,
@@ -781,15 +821,17 @@ __device__ __forceinline__ void gemm_scalar(const float* A, int lda,
     for (int j = 0; j < NJ; ++j) epi(rg * 4 + i, cg + 16 * j, acc[i][j]);
 }
 
+template <int C>
 constexpr size_t f32_smem_bytes() {
-  return (2 * WS * C + 3 * WS * DHP + 2 * WS * WS) * sizeof(float);
+  return (2 * WS * C + 3 * WS * Width<C>::DHP + 2 * WS * WS) * sizeof(float);
 }
 
 // x, pos, out: (NW, WS, C); kp: (NW, WS) uint8, 1 = exclude the key;
 // wqkv (C, PACK_LD), bqkv (PACK_LD): the q and k columns of each head side
-// by side, then the v columns of all heads, each head padded to 48; wo
+// by side, then the v columns of all heads, each head padded to DHP; wo
 // (C, C); w1 (C, ff); w2 (ff, C): row-major (in, out). One block per
 // window; no rounding between the steps.
+template <int C>
 __global__ void __launch_bounds__(THREADS, 1)
     window_layer_f32(const float* __restrict__ x,
                      const float* __restrict__ pos,
@@ -803,6 +845,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                      const float* __restrict__ w2, const float* __restrict__ b2,
                      const float* __restrict__ g2,
                      const float* __restrict__ be2, float* out, int ff) {
+  constexpr int DH = Width<C>::DH, DHP = Width<C>::DHP;
+  constexpr int QK_LD = Width<C>::QK_LD, PACK_LD = Width<C>::PACK_LD;
+  constexpr int CT = Width<C>::CT;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ bool excluded[WS];
   float* sX = reinterpret_cast<float*>(smem);  // x; later x1 + ffn
@@ -861,7 +906,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     sP[r * C + c] = sX[r * C + c] + (a + bo[c]);
   });
   __syncthreads();
-  layer_norm_rows(sP, C, g1, be1, sP, C);
+  layer_norm_rows<C>(sP, C, g1, be1, sP, C);
   __syncthreads();
 
   // FFN: thread (rg, cg) holds rows 4 rg.. of columns cg, cg + 16, ...
@@ -902,57 +947,45 @@ __global__ void __launch_bounds__(THREADS, 1)
       sX[r * C + c] = sP[r * C + c] + (acc[i][j] + b2[c]);
     }
   __syncthreads();
-  layer_norm_rows(sX, C, g2, be2, o_win, C);
+  layer_norm_rows<C>(sX, C, g2, be2, o_win, C);
 }
 
-}  // namespace
+// the launches of each stage at width C, called by the C entry points
+// below once they have checked the arguments
 
-// Plain C entry points, loaded with ctypes. Each launches on `stream` and
-// returns cudaGetLastError() (0 on success); shapes as in the kernels'
-// comments. Every bf16 operand is 16-byte aligned and row-major.
-
-extern "C" int window_layer_qkv(const void* x, const void* pos,
-                                const void* w, const void* b, void* out,
-                                int rows, void* stream) {
-  if (rows <= 0) return rows < 0 ? (int)cudaErrorInvalidValue : 0;
-  if (misaligned16({x, pos, w, b, out}))
-    return (int)cudaErrorMisalignedAddress;
-  int err = set_smem(window_layer_qkv_kernel, GQkv::SMEM);
+template <int C>
+int launch_qkv(const void* x, const void* pos, const void* w, const void* b,
+               void* out, int rows, cudaStream_t stream) {
+  typedef GQkv<C> G;
+  int err = set_smem(window_layer_qkv_kernel<C>, G::SMEM);
   if (err) return err;
-  if ((rows + GQkv::BM - 1) / GQkv::BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(3 * C / GQkv::BN, (rows + GQkv::BM - 1) / GQkv::BM);
-  window_layer_qkv_kernel<<<grid, GQkv::THREADS, GQkv::SMEM,
-                            static_cast<cudaStream_t>(stream)>>>(
+  if ((rows + G::BM - 1) / G::BM > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(3 * C / G::BN, (rows + G::BM - 1) / G::BM);
+  window_layer_qkv_kernel<C><<<grid, G::THREADS, G::SMEM, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(pos),
       static_cast<const bf16*>(w), static_cast<const bf16*>(b),
       static_cast<bf16*>(out), rows);
   return (int)cudaGetLastError();
 }
 
-extern "C" int window_layer_attn(const void* qkv, const void* kp, void* out,
-                                 int nw, void* stream) {
-  if (nw <= 0) return nw < 0 ? (int)cudaErrorInvalidValue : 0;
-  if (misaligned16({qkv, out})) return (int)cudaErrorMisalignedAddress;
-  window_layer_attn_kernel<<<nw * NH, AT_THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+template <int C>
+int launch_attn(const void* qkv, const void* kp, void* out, int nw,
+                cudaStream_t stream) {
+  window_layer_attn_kernel<C><<<nw * NH, AT_THREADS, 0, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(kp),
       static_cast<bf16*>(out));
   return (int)cudaGetLastError();
 }
 
-extern "C" int window_layer_proj_ln(const void* a, const void* wo,
-                                    const void* bo, const void* x,
-                                    const void* g1, const void* be1,
-                                    void* x1, int rows, void* stream) {
-  if (rows <= 0) return rows < 0 ? (int)cudaErrorInvalidValue : 0;
-  if (misaligned16({a, wo, bo, x, x1})) return (int)cudaErrorMisalignedAddress;
-  int err = set_smem(window_layer_proj_ln_kernel, GRow::SMEM);
+template <int C>
+int launch_proj_ln(const void* a, const void* wo, const void* bo,
+                   const void* x, const void* g1, const void* be1, void* x1,
+                   int rows, cudaStream_t stream) {
+  typedef GRow<C> G;
+  int err = set_smem(window_layer_proj_ln_kernel<C>, G::SMEM);
   if (err) return err;
-  window_layer_proj_ln_kernel<<<(rows + GRow::BM - 1) / GRow::BM,
-                                GRow::THREADS,
-                                GRow::SMEM,
-                                static_cast<cudaStream_t>(stream)>>>(
+  window_layer_proj_ln_kernel<C><<<(rows + G::BM - 1) / G::BM, G::THREADS,
+                                   G::SMEM, stream>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(wo),
       static_cast<const bf16*>(bo), static_cast<const bf16*>(x),
       static_cast<const bf16*>(g1), static_cast<const bf16*>(be1),
@@ -960,39 +993,29 @@ extern "C" int window_layer_proj_ln(const void* a, const void* wo,
   return (int)cudaGetLastError();
 }
 
-extern "C" int window_layer_ffn1(const void* x1, const void* w1,
-                                 const void* b1, void* hid, int rows, int ff,
-                                 void* stream) {
-  if (rows < 0 || ff <= 0 || ff % GFfn::BN) return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  if (misaligned16({x1, w1, b1, hid})) return (int)cudaErrorMisalignedAddress;
-  int err = set_smem(window_layer_ffn1_kernel, GFfn::SMEM);
+template <int C>
+int launch_ffn1(const void* x1, const void* w1, const void* b1, void* hid,
+                int rows, int ff, cudaStream_t stream) {
+  typedef GFfn G;
+  int err = set_smem(window_layer_ffn1_kernel<C>, G::SMEM);
   if (err) return err;
-  if ((rows + GFfn::BM - 1) / GFfn::BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(ff / GFfn::BN, (rows + GFfn::BM - 1) / GFfn::BM);
-  window_layer_ffn1_kernel<<<grid, GFfn::THREADS, GFfn::SMEM,
-                             static_cast<cudaStream_t>(stream)>>>(
+  if ((rows + G::BM - 1) / G::BM > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(ff / G::BN, (rows + G::BM - 1) / G::BM);
+  window_layer_ffn1_kernel<C><<<grid, G::THREADS, G::SMEM, stream>>>(
       static_cast<const bf16*>(x1), static_cast<const bf16*>(w1),
       static_cast<const bf16*>(b1), static_cast<bf16*>(hid), rows, ff);
   return (int)cudaGetLastError();
 }
 
-extern "C" int window_layer_ffn2_ln(const void* hid, const void* w2,
-                                    const void* b2, const void* x1,
-                                    const void* g2, const void* be2,
-                                    void* out, int rows, int ff,
-                                    void* stream) {
-  if (rows < 0 || ff <= 0 || ff % BK) return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  if (misaligned16({hid, w2, b2, x1, out}))
-    return (int)cudaErrorMisalignedAddress;
-  int err = set_smem(window_layer_ffn2_ln_kernel, GRow::SMEM);
+template <int C>
+int launch_ffn2_ln(const void* hid, const void* w2, const void* b2,
+                   const void* x1, const void* g2, const void* be2, void* out,
+                   int rows, int ff, cudaStream_t stream) {
+  typedef GRow<C> G;
+  int err = set_smem(window_layer_ffn2_ln_kernel<C>, G::SMEM);
   if (err) return err;
-  window_layer_ffn2_ln_kernel<<<(rows + GRow::BM - 1) / GRow::BM,
-                                GRow::THREADS,
-                                GRow::SMEM,
-                                static_cast<cudaStream_t>(stream)>>>(
+  window_layer_ffn2_ln_kernel<C><<<(rows + G::BM - 1) / G::BM, G::THREADS,
+                                   G::SMEM, stream>>>(
       static_cast<const bf16*>(hid), static_cast<const bf16*>(w2),
       static_cast<const bf16*>(b2), static_cast<const bf16*>(x1),
       static_cast<const bf16*>(g2), static_cast<const bf16*>(be2),
@@ -1000,43 +1023,40 @@ extern "C" int window_layer_ffn2_ln(const void* hid, const void* w2,
   return (int)cudaGetLastError();
 }
 
-// blocks per SM that the card grants stage `stage` (0 qkv, 1 attn, 2
-// proj_ln, 3 ffn1, 4 ffn2_ln) into *blocks, and its dynamic shared bytes
-// into *smem_bytes
-extern "C" int window_layer_occupancy(int stage, int* blocks,
-                                      int* smem_bytes) {
+template <int C>
+int occupancy(int stage, int* blocks, int* smem_bytes) {
   int err = 0;
   size_t smem = 0;
   const void* fn = nullptr;
   int threads = 0;
   switch (stage) {
     case 0:
-      threads = GQkv::THREADS;
-      smem = GQkv::SMEM;
-      err = set_smem(window_layer_qkv_kernel, smem);
-      fn = (const void*)window_layer_qkv_kernel;
+      threads = GQkv<C>::THREADS;
+      smem = GQkv<C>::SMEM;
+      err = set_smem(window_layer_qkv_kernel<C>, smem);
+      fn = (const void*)window_layer_qkv_kernel<C>;
       break;
     case 1:
       threads = AT_THREADS;
-      fn = (const void*)window_layer_attn_kernel;
+      fn = (const void*)window_layer_attn_kernel<C>;
       break;
     case 2:
-      threads = GRow::THREADS;
-      smem = GRow::SMEM;
-      err = set_smem(window_layer_proj_ln_kernel, smem);
-      fn = (const void*)window_layer_proj_ln_kernel;
+      threads = GRow<C>::THREADS;
+      smem = GRow<C>::SMEM;
+      err = set_smem(window_layer_proj_ln_kernel<C>, smem);
+      fn = (const void*)window_layer_proj_ln_kernel<C>;
       break;
     case 3:
       threads = GFfn::THREADS;
       smem = GFfn::SMEM;
-      err = set_smem(window_layer_ffn1_kernel, smem);
-      fn = (const void*)window_layer_ffn1_kernel;
+      err = set_smem(window_layer_ffn1_kernel<C>, smem);
+      fn = (const void*)window_layer_ffn1_kernel<C>;
       break;
     case 4:
-      threads = GRow::THREADS;
-      smem = GRow::SMEM;
-      err = set_smem(window_layer_ffn2_ln_kernel, smem);
-      fn = (const void*)window_layer_ffn2_ln_kernel;
+      threads = GRow<C>::THREADS;
+      smem = GRow<C>::SMEM;
+      err = set_smem(window_layer_ffn2_ln_kernel<C>, smem);
+      fn = (const void*)window_layer_ffn2_ln_kernel<C>;
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -1047,9 +1067,113 @@ extern "C" int window_layer_occupancy(int stage, int* blocks,
                                                             threads, smem);
 }
 
+template <int C>
+int launch_f32(const void* x, const void* pos, const void* kp,
+               const void* wqkv, const void* bqkv, const void* wo,
+               const void* bo, const void* g1, const void* be1,
+               const void* w1, const void* b1, const void* w2, const void* b2,
+               const void* g2, const void* be2, void* out, int nw, int ff,
+               cudaStream_t stream) {
+  int err = set_smem(window_layer_f32<C>, f32_smem_bytes<C>());
+  if (err) return err;
+  window_layer_f32<C><<<nw, THREADS, f32_smem_bytes<C>(), stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(pos),
+      static_cast<const uint8_t*>(kp), static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(wo),
+      static_cast<const float*>(bo), static_cast<const float*>(g1),
+      static_cast<const float*>(be1), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
+      static_cast<const float*>(b2), static_cast<const float*>(g2),
+      static_cast<const float*>(be2), static_cast<float*>(out), ff);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes. Each launches on `stream` and
+// returns cudaGetLastError() (0 on success); shapes as in the kernels'
+// comments, at d_model c, which is 288 or 256 (else cudaErrorInvalidValue).
+// Every bf16 operand is 16-byte aligned and row-major.
+
+#define WINDOW_LAYER_AT_WIDTH(c, call)                 \
+  switch (c) {                                         \
+    case 288: {                                        \
+      constexpr int C_ = 288;                          \
+      return call;                                     \
+    }                                                  \
+    case 256: {                                        \
+      constexpr int C_ = 256;                          \
+      return call;                                     \
+    }                                                  \
+    default:                                           \
+      return (int)cudaErrorInvalidValue;               \
+  }
+
+extern "C" int window_layer_qkv(const void* x, const void* pos,
+                                const void* w, const void* b, void* out,
+                                int rows, int c, void* stream) {
+  if (rows <= 0) return rows < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (misaligned16({x, pos, w, b, out}))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WINDOW_LAYER_AT_WIDTH(c, launch_qkv<C_>(x, pos, w, b, out, rows, st))
+}
+
+extern "C" int window_layer_attn(const void* qkv, const void* kp, void* out,
+                                 int nw, int c, void* stream) {
+  if (nw <= 0) return nw < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (misaligned16({qkv, out})) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WINDOW_LAYER_AT_WIDTH(c, launch_attn<C_>(qkv, kp, out, nw, st))
+}
+
+extern "C" int window_layer_proj_ln(const void* a, const void* wo,
+                                    const void* bo, const void* x,
+                                    const void* g1, const void* be1,
+                                    void* x1, int rows, int c,
+                                    void* stream) {
+  if (rows <= 0) return rows < 0 ? (int)cudaErrorInvalidValue : 0;
+  if (misaligned16({a, wo, bo, x, x1})) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WINDOW_LAYER_AT_WIDTH(
+      c, launch_proj_ln<C_>(a, wo, bo, x, g1, be1, x1, rows, st))
+}
+
+extern "C" int window_layer_ffn1(const void* x1, const void* w1,
+                                 const void* b1, void* hid, int rows, int ff,
+                                 int c, void* stream) {
+  if (rows < 0 || ff <= 0 || ff % GFfn::BN) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  if (misaligned16({x1, w1, b1, hid})) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WINDOW_LAYER_AT_WIDTH(c, launch_ffn1<C_>(x1, w1, b1, hid, rows, ff, st))
+}
+
+extern "C" int window_layer_ffn2_ln(const void* hid, const void* w2,
+                                    const void* b2, const void* x1,
+                                    const void* g2, const void* be2,
+                                    void* out, int rows, int ff, int c,
+                                    void* stream) {
+  if (rows < 0 || ff <= 0 || ff % BK) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  if (misaligned16({hid, w2, b2, x1, out}))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WINDOW_LAYER_AT_WIDTH(
+      c, launch_ffn2_ln<C_>(hid, w2, b2, x1, g2, be2, out, rows, ff, st))
+}
+
+// blocks per SM that the card grants stage `stage` (0 qkv, 1 attn, 2
+// proj_ln, 3 ffn1, 4 ffn2_ln) at d_model c into *blocks, and its dynamic
+// shared bytes into *smem_bytes
+extern "C" int window_layer_occupancy(int stage, int c, int* blocks,
+                                      int* smem_bytes) {
+  WINDOW_LAYER_AT_WIDTH(c, occupancy<C_>(stage, blocks, smem_bytes))
+}
+
 // The float32 layer, one block per window (window_layer_f32): x, pos, out
-// (nw, 64, 288), kp (nw, 64) uint8, the weights as in the kernel's
-// comment; the fixed sizes given for the kernel to check.
+// (nw, 64, c), kp (nw, 64) uint8, the weights as in the kernel's comment;
+// the fixed sizes given for the entry point to check.
 extern "C" int window_layer_f32_fwd(const void* x, const void* pos,
                                     const void* kp, const void* wqkv,
                                     const void* bqkv, const void* wo,
@@ -1060,21 +1184,11 @@ extern "C" int window_layer_f32_fwd(const void* x, const void* pos,
                                     const void* be2, void* out, int nw,
                                     int ws, int c, int n_heads, int ff,
                                     void* stream) {
-  if (ws != WS || c != C || n_heads != NH || ff < FC || ff % FC != 0 ||
-      nw < 0)
+  if (ws != WS || n_heads != NH || ff < FC || ff % FC != 0 || nw < 0)
     return (int)cudaErrorInvalidValue;
   if (nw == 0) return (int)cudaGetLastError();
-  int err = set_smem(window_layer_f32, f32_smem_bytes());
-  if (err) return err;
-  window_layer_f32<<<nw, THREADS, f32_smem_bytes(),
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(pos),
-      static_cast<const uint8_t*>(kp), static_cast<const float*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const float*>(wo),
-      static_cast<const float*>(bo), static_cast<const float*>(g1),
-      static_cast<const float*>(be1), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(g2),
-      static_cast<const float*>(be2), static_cast<float*>(out), ff);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  WINDOW_LAYER_AT_WIDTH(
+      c, launch_f32<C_>(x, pos, kp, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2,
+                        b2, g2, be2, out, nw, ff, st))
 }

@@ -11,7 +11,7 @@ raise `NotImplementedError` (ROADMAP Queue 1, item 6).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,19 @@ def pick_bucket(hw_list: Sequence[Tuple[int, int]],
     return tuple(max(buckets, key=lambda b: b[0] * b[1]))
 
 
+def bucket_for(hw_list: Sequence[Tuple[int, int]],
+               buckets: Sequence[Tuple[int, int]],
+               fallback: Optional[Tuple[int, int]] = None
+               ) -> Tuple[int, int]:
+    """`pick_bucket`, or `fallback` for frames that no bucket of `buckets`
+    holds (the train CLI's square bucket for an upright crop)."""
+    bucket = pick_bucket(hw_list, buckets)
+    if fallback is not None and (max(h for h, _ in hw_list) > bucket[0]
+                                 or max(w for _, w in hw_list) > bucket[1]):
+        return tuple(fallback)
+    return bucket
+
+
 def pad_image(img: np.ndarray, bucket: Tuple[int, int]) -> np.ndarray:
     h, w = img.shape[:2]
     bh, bw = bucket
@@ -107,16 +120,18 @@ def pad_targets(targets: List[Dict], max_objects: int) -> Targets:
 
 
 def collate_fn(samples: List[Dict], buckets: Sequence[Tuple[int, int]],
-               max_objects: int, with_masks: bool = False) -> Dict:
+               max_objects: int, with_masks: bool = False,
+               fallback: Optional[Tuple[int, int]] = None) -> Dict:
     """Dataset samples -> a pack: `batch` / `targets` and, for tracking,
-    `prev_batch` / `prev_targets`, every frame padded to one bucket."""
+    `prev_batch` / `prev_targets`, every frame padded to one bucket
+    (`bucket_for`)."""
     if with_masks:
         raise NotImplementedError("mask targets are not ported yet "
                                   "(ROADMAP Queue 1, item 6)")
     frames = [("image", "target", "batch", "targets"),
               ("prev_image", "prev_target", "prev_batch", "prev_targets")]
     all_hw = [s[k].shape[:2] for s in samples for k, *_ in frames if k in s]
-    bucket = pick_bucket(all_hw, buckets)
+    bucket = bucket_for(all_hw, buckets, fallback)
 
     pack = {}
     for img_key, tgt_key, batch_name, targets_name in frames:

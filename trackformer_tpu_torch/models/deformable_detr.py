@@ -1,23 +1,35 @@
 """Deformable DETR head for online tracking: input projections, the
-separate per-frame deformable encoder, the box-refinement decoder and
-track-query injection.
+deformable or windowed encoder, the decoder with or without box refinement,
+and track-query injection.
 
-Counterpart of `trackformer_tpu/models/deformable_detr.py`, for the
-flagship configuration in its two encoder modes: multi-frame attention with
-a separate encoder per frame and box refinement, where the encoder is
-either
+Counterpart of `trackformer_tpu/models/deformable_detr.py` for these
+configurations:
 
-  * exact MSDA, run on both frames every step; or
-  * the TPU-fast mode (`cfgs/tpu_fast.yaml`): the windowed encoder, run on
-    the current frame only, frame-symmetrically (frame-0 positions and the
-    first half of the level embeds); the previous step's encoded memory is
-    reused as the previous half, and a learned `frame_embed` restores frame
-    identity after the encoder.
+  * frames: multi-frame attention (the previous and the current frame's
+    levels, `total_levels` = 2 x `num_feature_levels`) or a single frame;
+    multi-frame positions 3-D (`multi_frame_encoding`) or 2-D; the
+    multi-frame encoder run once per frame with shared weights
+    (`multi_frame_attention_separate_encoder`) or once over both frames'
+    levels;
+  * encoder: exact MSDA, or the windowed encoder (kernel #8 in eval mode)
+    over the levels it is given, or the TPU-fast cached mode
+    (`cfgs/tpu_fast.yaml` on the multi-frame separate-encoder model): the
+    windowed encoder on the current frame only, frame-symmetrically
+    (frame-0 positions and the first half of the level embeds), the
+    previous step's encoded memory reused as the previous half, and a
+    learned `frame_embed` restoring frame identity after the encoder. On a
+    single frame `tpu_fast` is the windowed encoder over that frame, as in
+    JAX (`_cached_mode` is false there);
+  * decoder heads: one per layer with box refinement (each layer samples
+    around the previous layer's boxes), or one shared class and box head
+    without it (the reference points stay the queries' own).
 
-No two-stage, no scanned layers, no merged frame features. The
-concatenation order is the JAX package's: memory is [cur, prev], while
-spatial shapes, masks, positions and valid ratios of the exact mode are
-built prev frame first.
+No two-stage, no merged frame features, no learned positions. A
+`tpu.scan_layers` model runs the same math unrolled; its weights load
+through `utils/checkpoint.py:bridge_scan_layout`. The concatenation order
+is the JAX package's: memory is [cur, prev], while spatial shapes, masks,
+positions and valid ratios of the multi-frame model are built prev frame
+first.
 """
 from __future__ import annotations
 
@@ -32,7 +44,8 @@ from .deformable_transformer import (DeformableTransformer,
                                      decoder_reference_input,
                                      get_valid_ratio)
 from .detr import MLP
-from .position_encoding import sine_position_encoding_3d
+from .position_encoding import (sine_position_encoding,
+                                sine_position_encoding_3d)
 
 GN_EPS = 1e-6
 
@@ -60,19 +73,34 @@ class DeformableDETR(nn.Module):
                  num_feature_levels: int = 4, dec_n_points: int = 4,
                  enc_n_points: int = 4, backbone_name: str = "resnet50",
                  dilation: bool = False, aux_loss: bool = True,
-                 encoder_window: Optional[int] = None, dropout: float = 0.0):
-        """`encoder_window` None: the exact-MSDA encoder; an int: the
-        TPU-fast mode with a windowed encoder of that window side.
-        `dropout` acts in training mode only, in either encoder and the
-        decoder."""
+                 encoder_window: Optional[int] = None, dropout: float = 0.0,
+                 multi_frame: bool = True, multi_frame_encoding: bool = True,
+                 separate_encoder: bool = True, cached_memory: bool = True,
+                 with_box_refine: bool = True):
+        """`encoder_window` None: the exact-MSDA encoder; an int: a windowed
+        encoder of that window side, with the cached previous memory where
+        `cached_memory` and the model is multi-frame with a separate
+        encoder (the JAX `_cached_mode`). `multi_frame`,
+        `multi_frame_encoding` and `separate_encoder` are the config's
+        `multi_frame_attention*` switches; `with_box_refine` False shares
+        one class and box head across the decoder layers. `dropout` acts
+        in training mode only, in either encoder and the decoder."""
         super().__init__()
-        self.cached_memory = encoder_window is not None
+        self.multi_frame = multi_frame
+        self.frame_pos_3d = multi_frame and multi_frame_encoding
+        self.separate_encoder = multi_frame and separate_encoder
+        self.cached_memory = (encoder_window is not None and cached_memory
+                              and self.separate_encoder)
+        self.windowed = encoder_window is not None
+        self.with_box_refine = with_box_refine
         self.num_queries = num_queries
         self.hidden_dim = hidden_dim
         self.num_feature_levels = num_feature_levels
         self.dec_layers = dec_layers
         self.aux_loss = aux_loss
-        total_levels = 2 * num_feature_levels
+        total_levels = num_feature_levels * (2 if multi_frame else 1)
+        enc_levels = (num_feature_levels if self.separate_encoder
+                      else total_levels)
         # index 0 keeps the original checkpoint keys `backbone.0.body.*`
         self.backbone = nn.ModuleList([Backbone(backbone_name, dilation)])
         n_bb = min(3, num_feature_levels)
@@ -84,13 +112,16 @@ class DeformableDETR(nn.Module):
         self.input_proj = nn.ModuleList(projs)
         self.query_embed = nn.Embedding(num_queries, 2 * hidden_dim)
         self.transformer = DeformableTransformer(
-            hidden_dim, total_levels, num_feature_levels, enc_layers,
+            hidden_dim, total_levels, enc_levels, enc_layers,
             dec_layers, nheads, enc_n_points, dec_n_points, dim_feedforward,
-            encoder_window, dropout)
+            encoder_window, dropout, frame_embed=self.cached_memory)
+        # without box refinement one head serves every layer: index 0, the
+        # JAX package's `class_embed_0` / `bbox_embed_0`
+        n_heads = dec_layers if with_box_refine else 1
         self.class_embed = nn.ModuleList(
-            nn.Linear(hidden_dim, num_classes + 1) for _ in range(dec_layers))
+            nn.Linear(hidden_dim, num_classes + 1) for _ in range(n_heads))
         self.bbox_embed = nn.ModuleList(
-            MLP(hidden_dim, hidden_dim, 4, 3) for _ in range(dec_layers))
+            MLP(hidden_dim, hidden_dim, 4, 3) for _ in range(n_heads))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -111,55 +142,79 @@ class DeformableDETR(nn.Module):
                 mask = downsample_mask(batch_mask, src.shape[-2:])
             srcs.append(src)
             masks.append(mask)
-            poses.append(sine_position_encoding_3d(
-                mask, self.hidden_dim // 3, num_frames=2,
-                dtype=self.dtype)[:, frame_idx])
+            poses.append(self._level_pos(mask, frame_idx))
         return srcs, masks, poses
+
+    def _level_pos(self, mask, frame_idx):
+        """3-D sine positions of frame `frame_idx` where the model encodes
+        frames, else 2-D (JAX `_level_pos`)."""
+        if self.frame_pos_3d:
+            return sine_position_encoding_3d(
+                mask, self.hidden_dim // 3, num_frames=2,
+                dtype=self.dtype)[:, frame_idx]
+        return sine_position_encoding(mask, self.hidden_dim // 2,
+                                      dtype=self.dtype)
 
     def forward(self, batch: FrameBatch, targets: Optional[Targets] = None,
                 prev_features=None):
         """-> (out, targets, feature_pairs, memory_slices, hs), as the JAX
         module's `__call__`. `feature_pairs` (NCHW features and their
-        masks) is what the next frame takes as `prev_features`."""
+        masks) is what the next frame takes as `prev_features`; a
+        single-frame model ignores `prev_features`."""
         features, feat_masks = self.backbone[0](batch)
         feature_pairs = list(zip(features, feat_masks))
         cur3, cur3_masks = features[-3:], feat_masks[-3:]
         if self.cached_memory:
             return self._forward_cached(batch, targets, prev_features, cur3,
                                         cur3_masks, feature_pairs)
-        if prev_features is None:
-            prev3, prev3_masks = cur3, cur3_masks
+        if not self.multi_frame:
+            frame_sets = [(cur3, cur3_masks, 0)]
         else:
-            prev3 = [p[0] for p in prev_features[-3:]]
-            prev3_masks = [p[1] for p in prev_features[-3:]]
+            if prev_features is None:
+                prev3, prev3_masks = cur3, cur3_masks
+            else:
+                prev3 = [p[0] for p in prev_features[-3:]]
+                prev3_masks = [p[1] for p in prev_features[-3:]]
+            frame_sets = [(prev3, prev3_masks, 0), (cur3, cur3_masks, 1)]
 
         srcs, masks, poses = [], [], []
-        for feats_f, masks_f, fidx in ((prev3, prev3_masks, 0),
-                                       (cur3, cur3_masks, 1)):
+        for feats_f, masks_f, fidx in frame_sets:
             s, m, p = self._project_frame(feats_f, masks_f, batch.mask, fidx)
             srcs += s
             masks += m
             poses += p
 
         level_embed = self.transformer.level_embed
+        poses = [p + level_embed[i] for i, p in enumerate(poses)]
         spatial_shapes = tuple((s.shape[-2], s.shape[-1]) for s in srcs)
-        src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs], 1)
         mask_flat = torch.cat([m.flatten(1) for m in masks], 1)
-        pos_flat = torch.cat([p.flatten(1, 2) + level_embed[i]
-                              for i, p in enumerate(poses)], 1)
         valid_ratios = torch.stack([get_valid_ratio(m) for m in masks], 1)
-
-        # the separate encoder: one pass per frame with shared weights
-        half = src_flat.shape[1] // 2
-        hl = len(spatial_shapes) // 2
         encoder = self.transformer.encoder
-        prev_memory = encoder(src_flat[:, :half], spatial_shapes[:hl],
-                              valid_ratios[:, :hl], pos_flat[:, :half],
-                              mask_flat[:, :half])
-        cur_memory = encoder(src_flat[:, half:], spatial_shapes[hl:],
-                             valid_ratios[:, hl:], pos_flat[:, half:],
-                             mask_flat[:, half:])
-        memory = torch.cat([cur_memory, prev_memory], 1)
+        if self.windowed:
+            # the windowed encoder without the cached memory: one call per
+            # frame of a separate encoder, else one over every level
+            def encode(lo, hi):
+                return encoder(srcs[lo:hi], masks[lo:hi], poses[lo:hi])
+        else:
+            src_flat = torch.cat([s.flatten(2).transpose(1, 2)
+                                  for s in srcs], 1)
+            pos_flat = torch.cat([p.flatten(1, 2) for p in poses], 1)
+            starts = [0]
+            for h, w in spatial_shapes:
+                starts.append(starts[-1] + h * w)
+
+            def encode(lo, hi):
+                t0, t1 = starts[lo], starts[hi]
+                return encoder(src_flat[:, t0:t1], spatial_shapes[lo:hi],
+                               valid_ratios[:, lo:hi], pos_flat[:, t0:t1],
+                               mask_flat[:, t0:t1])
+        n_lv = len(spatial_shapes)
+        if self.separate_encoder:
+            # one pass per frame with shared weights; memory [cur, prev]
+            prev_memory = encode(0, n_lv // 2)
+            memory = torch.cat([encode(n_lv // 2, n_lv), prev_memory], 1)
+        else:
+            memory = encode(0, n_lv)
         return self._decode(batch, targets, memory, spatial_shapes,
                             mask_flat, valid_ratios, feature_pairs)
 
@@ -221,8 +276,9 @@ class DeformableDETR(nn.Module):
                                                 valid_ratios)
             out_t = layer(out_t, query_pos, ref_input, memory,
                           spatial_shapes, mask_flat, tgt_key_pad)
-            cls_i = self.class_embed[i](out_t).float()
-            tmp = self.bbox_embed[i](out_t).float()
+            head = i if self.with_box_refine else 0
+            cls_i = self.class_embed[head](out_t).float()
+            tmp = self.bbox_embed[head](out_t).float()
             if reference_points.shape[-1] == 4:
                 tmp = tmp + inverse_sigmoid(reference_points)
             else:
@@ -230,8 +286,9 @@ class DeformableDETR(nn.Module):
                                  + inverse_sigmoid(reference_points),
                                  tmp[..., 2:]], -1)
             coord_i = tmp.sigmoid()
-            # box refinement: the next layer samples around this layer's box
-            reference_points = coord_i.detach()
+            if self.with_box_refine:
+                # the next layer samples around this layer's box
+                reference_points = coord_i.detach()
             classes.append(cls_i)
             coords.append(coord_i)
             hs_list.append(out_t)

@@ -196,13 +196,15 @@ class DeformableDecoder(nn.Module):
 class DeformableTransformer(nn.Module):
     """Parameter group under the original `transformer.*` keys. With
     `encoder_window` the encoder is the TPU-fast `WindowedEncoder` of that
-    window side, and `frame_embed` (2, C) restores frame identity to the
-    cached memory (keys the original has not; `convert.py`)."""
+    window side; with `frame_embed` a (2, C) `frame_embed` restores frame
+    identity to the cached memory (keys the original has not;
+    `convert.py`)."""
 
     def __init__(self, d_model: int, total_levels: int, enc_levels: int,
                  enc_layers: int, dec_layers: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int, dim_feedforward: int,
-                 encoder_window: Optional[int] = None, dropout: float = 0.0):
+                 encoder_window: Optional[int] = None, dropout: float = 0.0,
+                 frame_embed: bool = False):
         super().__init__()
         self.level_embed = nn.Parameter(torch.empty(total_levels, d_model))
         if encoder_window is None:
@@ -213,6 +215,7 @@ class DeformableTransformer(nn.Module):
             self.encoder = WindowedEncoder(d_model, enc_levels, enc_layers,
                                            n_heads, dim_feedforward,
                                            encoder_window, dropout)
+        if frame_embed:
             self.frame_embed = nn.Parameter(torch.empty(2, d_model))
         self.decoder = DeformableDecoder(d_model, total_levels, dec_layers,
                                          n_heads, dec_n_points,

@@ -2,9 +2,14 @@
 or for training (model, criterion config, postprocessor, tracking config).
 
 Counterpart of the part of `trackformer_tpu/models/factory.py` that builds
-the tracking model and its training companions. Only the configurations this port supports are
-accepted: the flagship with the exact-MSDA encoder, or in the TPU-fast
-mode (`FlagshipConfig.tpu_fast()`). `init_params` draws every weight from
+the tracking model and its training companions. Only the configurations this
+port supports are accepted (`_check_supported`): the Deformable DETR family
+with sine positions, 4 feature levels and the MSDA decoder, single-frame or
+multi-frame (3-D or 2-D positions, a separate or a joint encoder), with or
+without box refinement, its encoder exact MSDA or windowed (window side 8;
+with the cached previous memory on the multi-frame separate-encoder model,
+`FlagshipConfig.tpu_fast()`); `tpu.scan_layers` builds the same model
+unrolled. `init_params` draws every weight from
 an explicit `torch.Generator` with the JAX package's initializers (flax
 defaults: lecun-normal kernels, zero biases; plus the model's own special
 inits), so a seed gives the same weights on every run of one device type.
@@ -41,24 +46,39 @@ DATASET_NUM_CLASSES = {
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-# the two encoder modes ported: exact MSDA over both frames, and the
-# TPU-fast windowed encoder over the current frame with the cached memory
-_ENCODER_MODES = {("msda", False), ("windowed", True)}
+# the encoder modes ported, (encoder, cached memory in effect): exact MSDA,
+# the windowed encoder over the levels it is given, and the TPU-fast
+# windowed encoder over the current frame with the cached memory
+_ENCODER_MODES = {("msda", False), ("windowed", False), ("windowed", True)}
+
+
+def cached_mode(cfg: FlagshipConfig) -> bool:
+    """Whether `tpu.cached_prev_memory` takes effect: on a multi-frame
+    model with a separate encoder and unmerged frames (JAX
+    `_cached_mode`)."""
+    return bool(cfg.cached_prev_memory and cfg.multi_frame_attention
+                and cfg.multi_frame_attention_separate_encoder
+                and not cfg.merge_frame_features)
 
 
 def _check_supported(cfg: FlagshipConfig) -> None:
-    wanted = dict(deformable=True, with_box_refine=True, two_stage=False,
-                  masks=False, focal_loss=True, multi_frame_attention=True,
-                  multi_frame_encoding=True,
-                  multi_frame_attention_separate_encoder=True,
-                  merge_frame_features=False, decoder_attention="msda",
-                  scan_layers=False, position_embedding="sine",
+    """Raise `NotImplementedError` naming the ROADMAP item for a switch the
+    port has not taken yet: two-stage, merged frame features, the dense
+    decoder, learned positions, other than 4 feature levels, vanilla DETR
+    (`deformable` false), masks, softmax classes, exact MSDA with the
+    cached memory, or a window side other than 8."""
+    wanted = dict(deformable=True, two_stage=False, masks=False,
+                  focal_loss=True, merge_frame_features=False,
+                  decoder_attention="msda", position_embedding="sine",
                   num_feature_levels=4)
     bad = {k: getattr(cfg, k) for k, v in wanted.items()
            if getattr(cfg, k) != v}
-    mode = (cfg.encoder_attention, cfg.cached_prev_memory)
+    mode = (cfg.encoder_attention, cached_mode(cfg))
     if mode not in _ENCODER_MODES:
-        bad.update(encoder_attention=mode[0], cached_prev_memory=mode[1])
+        bad.update(encoder_attention=mode[0],
+                   cached_prev_memory=cfg.cached_prev_memory)
+    if cfg.encoder_attention == "windowed" and cfg.encoder_window != 8:
+        bad.update(encoder_window=cfg.encoder_window)
     if bad:
         raise NotImplementedError(f"not ported yet (ROADMAP Queue 1, item "
                                   f"6): {bad}")
@@ -175,8 +195,10 @@ def build_model(cfg: FlagshipConfig,
     training mode, as (model, criterion config, postprocess, tracking
     config), the JAX factory's tuple; the float32 master weights that AdamW
     updates live in the train state (`engine/train_step.py`). In the
-    TPU-fast mode a training call of the windowed encoder runs its module
-    path and an eval-mode call kernel #8 (`models/windowed_encoder.py`)."""
+    windowed encoder a training call runs its module path and an eval-mode
+    call kernel #8 (`models/windowed_encoder.py`). A `tpu.scan_layers`
+    config builds the unrolled model (the same math); its checkpoints load
+    through `utils/checkpoint.py:bridge_scan_layout`."""
     _check_supported(cfg)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -195,7 +217,12 @@ def build_model(cfg: FlagshipConfig,
             aux_loss=cfg.aux_loss,
             encoder_window=(cfg.encoder_window
                             if cfg.encoder_attention == "windowed" else None),
-            dropout=cfg.dropout if train else 0.0)
+            dropout=cfg.dropout if train else 0.0,
+            multi_frame=cfg.multi_frame_attention,
+            multi_frame_encoding=cfg.multi_frame_encoding,
+            separate_encoder=cfg.multi_frame_attention_separate_encoder,
+            cached_memory=cfg.cached_prev_memory,
+            with_box_refine=cfg.with_box_refine)
     model.to_empty(device=device)
     if generator is not None:
         init_params(model, generator)

@@ -53,7 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -92,16 +92,21 @@ LAUNCHES: Dict[str, int] = {"ms_deform_attn": 0, "msda_patch": 0,
                             "ms_deform_attn_pallas": 0,
                             "ms_deform_attn_pallas_corners": 0,
                             "msda_patch_v6": 0}
-# The same launches by shape, (count name, items, queries per item, levels):
-# they show which shapes a run gave each kernel, the backward's split over
-# the encoder's and the decoder's calls included.
+# The same launches by shape, (count name, items, queries per item, levels)
+# and, where the wrapper gives it, the channels of a head (the gather
+# kernel and the backward: 36 at hidden 288, 32 at hidden 256): they show
+# which shapes a run gave each kernel, the backward's split over the
+# encoder's and the decoder's calls included.
 LAUNCH_SHAPES: Dict[tuple, int] = {}
 
 
-def count_launch(name: str, n: int, lq: int, spatial_shapes) -> None:
+def count_launch(name: str, n: int, lq: int, spatial_shapes,
+                 channels: Optional[int] = None) -> None:
     """Adds one launch to `name`; called where a kernel was launched."""
     LAUNCHES[name] += 1
     key = (name, n, lq, tuple(tuple(hw) for hw in spatial_shapes))
+    if channels is not None:
+        key += (channels,)
     LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
 
 
@@ -262,7 +267,7 @@ def msda_fwd_cuda(value: torch.Tensor,
                           plan.word, plan.warps, *plan.grid, stream)
     if rc != 0:
         raise RuntimeError(f"msda_fwd launch failed: cudaError {rc}")
-    count_launch(wrapper, n, lq, spatial_shapes)
+    count_launch(wrapper, n, lq, spatial_shapes, d)
     return out
 
 
@@ -368,7 +373,7 @@ def msda_bwd_cuda(grad_out: torch.Tensor, value: torch.Tensor,
                           plan.smem_bytes, int(vector), BWD_THREADS, stream)
     if rc != 0:
         raise RuntimeError(f"msda_bwd launch failed: cudaError {rc}")
-    count_launch("msda_bwd", n, lq, spatial_shapes)
+    count_launch("msda_bwd", n, lq, spatial_shapes, d)
     return grad_value.to(value.dtype), grad_loc, grad_attn
 
 

@@ -30,8 +30,11 @@ each beside its plain version here (`qkv_plain`, ...; chained by
 `window_layer_staged_plain`), with the same operands, layout and rounding.
 In float32 it launches one kernel per call, a block per window. The kernels
 are built at first use (`cuda_build.py`); they are forward only, and take
-the flagship's layer shape: windows of 64 tokens, C = 288, 8 heads, an FFN
-width that is a multiple of 128.
+windows of 64 tokens (window side 8), 8 heads, an FFN width that is a
+multiple of 128, and C = 288 (the flagship, heads of 36) or C = 256 (the
+single-frame Deformable DETR family, heads of 32): each kernel is a
+template on C, instantiated at those two widths. Any other width or window
+raises `NotImplementedError` (ROADMAP Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -45,8 +48,26 @@ from torch.nn import functional as F
 from .linear import dense
 from .cuda_build import CudaLib
 
-WS, C, N_HEADS, D_HEAD_PAD, FF_CHUNK = 64, 288, 8, 48, 128
+WS, N_HEADS, FF_CHUNK = 64, 8, 128
+# the widths the kernels are instantiated at
+WIDTHS = (288, 256)
 LN_EPS = 1e-6
+UNPORTED = "not ported yet (ROADMAP Queue 1, item 6)"
+
+
+def d_head_pad(c: int) -> int:
+    """The float32 kernel's head width: d_head rounded up to 16 (48 at C =
+    288, 32 at C = 256)."""
+    return -(-(c // N_HEADS) // 16) * 16
+
+
+def check_width(c: int, heads: int = N_HEADS, ws: int = WS) -> None:
+    """Raise unless a kernel is instantiated for this layer shape."""
+    if c not in WIDTHS or heads != N_HEADS or ws != WS:
+        raise NotImplementedError(
+            f"window layer kernel at C = {c}, {heads} heads, windows of "
+            f"{ws} tokens: {UNPORTED}; the kernels take C in {WIDTHS}, "
+            f"{N_HEADS} heads, windows of {WS}")
 
 # the bfloat16 path's kernels, in launch order
 STAGES = ("window_layer_qkv", "window_layer_attn", "window_layer_proj_ln",
@@ -59,12 +80,12 @@ LAUNCHES: Dict[str, int] = {"fused_window_layer": 0,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLib("window_layer_fwd.cu", {
-    "window_layer_qkv": (_I, [_P] * 5 + [_I, _P]),
-    "window_layer_attn": (_I, [_P] * 3 + [_I, _P]),
-    "window_layer_proj_ln": (_I, [_P] * 7 + [_I, _P]),
-    "window_layer_ffn1": (_I, [_P] * 4 + [_I, _I, _P]),
-    "window_layer_ffn2_ln": (_I, [_P] * 7 + [_I, _I, _P]),
-    "window_layer_occupancy": (_I, [_I, ctypes.POINTER(_I),
+    "window_layer_qkv": (_I, [_P] * 5 + [_I, _I, _P]),
+    "window_layer_attn": (_I, [_P] * 3 + [_I, _I, _P]),
+    "window_layer_proj_ln": (_I, [_P] * 7 + [_I, _I, _P]),
+    "window_layer_ffn1": (_I, [_P] * 4 + [_I, _I, _I, _P]),
+    "window_layer_ffn2_ln": (_I, [_P] * 7 + [_I, _I, _I, _P]),
+    "window_layer_occupancy": (_I, [_I, _I, ctypes.POINTER(_I),
                                     ctypes.POINTER(_I)]),
     "window_layer_f32_fwd": (_I, [_P] * 16 + [_I] * 5 + [_P])})
 
@@ -91,7 +112,8 @@ def window_layer_plain(xw: torch.Tensor, pw: torch.Tensor, kp: torch.Tensor,
 def pack_weights(layer, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
     """The kernels' weight operands, in `dtype`, every matrix as (in, out):
     `in_proj` as (C, 3C), the q columns of all heads, then k, then v (head
-    h at columns 36 h .. 36 h + 35 of each), with its bias alike; then the
+    h at columns d h .. d h + d - 1 of each, d = C / 8), with its bias
+    alike; then the
     out projection, the norms and the FFN."""
     mha = layer.self_attn
 
@@ -115,12 +137,13 @@ def padded_qkv(wqkv: torch.Tensor,
     """`pack_weights`' (C, 3C) q|k|v in the layout of the float32 kernel
     (a block per window): (C, heads * 2 * 48 + heads * 48), the q and k
     columns of each head side by side, then the v columns of all heads,
-    each head zero-padded from d_head to 48; its bias alike."""
-    pad = D_HEAD_PAD - C // N_HEADS
-    w = F.pad(wqkv.view(C, 3, N_HEADS, -1), (0, pad))  # (C, 3, nh, 48)
+    each head zero-padded from d_head to `d_head_pad`; its bias alike."""
+    c = wqkv.shape[0]
+    pad = d_head_pad(c) - c // N_HEADS
+    w = F.pad(wqkv.view(c, 3, N_HEADS, -1), (0, pad))  # (C, 3, nh, pad)
     b = F.pad(bqkv.view(3, N_HEADS, -1), (0, pad))
-    return (torch.cat([w[:, :2].permute(0, 2, 1, 3).reshape(C, -1),
-                       w[:, 2].reshape(C, -1)], 1).contiguous(),
+    return (torch.cat([w[:, :2].permute(0, 2, 1, 3).reshape(c, -1),
+                       w[:, 2].reshape(c, -1)], 1).contiguous(),
             torch.cat([b[:2].permute(1, 0, 2).reshape(-1),
                        b[2].reshape(-1)]).contiguous())
 
@@ -181,17 +204,17 @@ def attn_plain(qkv: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
     outputs side by side: float32 logits scaled after the product, excluded
     keys at float32's minimum, softmax as e / sum(e), the probabilities
     rounded before they multiply v, the sum rounded."""
-    r = qkv.shape[0]
+    r, c = qkv.shape[0], qkv.shape[1] // 3
     nw = kp.shape[0]
     q, k, v = qkv.view(nw, r // nw, 3, N_HEADS, -1).float().unbind(2)
-    scale = 1.0 / math.sqrt(C // N_HEADS)
+    scale = 1.0 / math.sqrt(c // N_HEADS)
     logits = torch.einsum("wqhd,wkhd->whqk", q, k) * scale
     logits = logits.masked_fill(kp[:, None, None, :],
                                 torch.finfo(torch.float32).min)
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     p = (e / e.sum(-1, keepdim=True)).to(qkv.dtype)
     out = torch.einsum("whqk,wkhd->wqhd", p.float(), v)
-    return out.to(qkv.dtype).reshape(r, C)
+    return out.to(qkv.dtype).reshape(r, c)
 
 
 def proj_ln_plain(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
@@ -268,30 +291,32 @@ def qkv_cuda(x: torch.Tensor, pos: torch.Tensor, wqkv: torch.Tensor,
              bqkv: torch.Tensor) -> torch.Tensor:
     """`qkv_plain` as one launch of `window_layer_qkv`."""
     _check_stage("window_layer_qkv", x, pos, wqkv, bqkv)
-    r = x.shape[0]
+    r, c = x.shape
+    check_width(c)
     _check_rows("window_layer_qkv", {
-        "x": (x, (r, C)), "pos": (pos, (r, C)), "wqkv": (wqkv, (C, 3 * C)),
-        "bqkv": (bqkv, (3 * C,))})
-    out = torch.empty(r, 3 * C, dtype=x.dtype, device=x.device)
+        "x": (x, (r, c)), "pos": (pos, (r, c)), "wqkv": (wqkv, (c, 3 * c)),
+        "bqkv": (bqkv, (3 * c,))})
+    out = torch.empty(r, 3 * c, dtype=x.dtype, device=x.device)
     _launch("window_layer_qkv", "window_layer_qkv", x.device, x.data_ptr(),
             pos.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), out.data_ptr(),
-            r)
+            r, c)
     return out
 
 
 def attn_cuda(qkv: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
     """`attn_plain` as one launch of `window_layer_attn`."""
     _check_stage("window_layer_attn", qkv)
-    nw = kp.shape[0]
+    nw, c = kp.shape[0], qkv.shape[1] // 3
+    check_width(c)
     if not (kp.is_cuda and kp.device == qkv.device
             and kp.dtype == torch.bool and kp.is_contiguous()):
         raise ValueError("window_layer_attn: the key mask must be a "
                          "contiguous bool CUDA tensor on the device of q|k|v")
-    _check_rows("window_layer_attn", {"qkv": (qkv, (nw * WS, 3 * C)),
+    _check_rows("window_layer_attn", {"qkv": (qkv, (nw * WS, 3 * c)),
                                       "kp": (kp, (nw, WS))})
-    out = torch.empty(nw * WS, C, dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty(nw * WS, c, dtype=qkv.dtype, device=qkv.device)
     _launch("window_layer_attn", "window_layer_attn", qkv.device,
-            qkv.data_ptr(), kp.data_ptr(), out.data_ptr(), nw)
+            qkv.data_ptr(), kp.data_ptr(), out.data_ptr(), nw, c)
     return out
 
 
@@ -300,14 +325,15 @@ def proj_ln_cuda(a: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
                  be1: torch.Tensor) -> torch.Tensor:
     """`proj_ln_plain` as one launch of `window_layer_proj_ln`."""
     _check_stage("window_layer_proj_ln", a, wo, bo, x, g1, be1)
-    r = a.shape[0]
+    r, c = a.shape
+    check_width(c)
     _check_rows("window_layer_proj_ln", {
-        "a": (a, (r, C)), "wo": (wo, (C, C)), "x": (x, (r, C)),
-        **{n: (t, (C,)) for n, t in (("bo", bo), ("g1", g1), ("be1", be1))}})
+        "a": (a, (r, c)), "wo": (wo, (c, c)), "x": (x, (r, c)),
+        **{n: (t, (c,)) for n, t in (("bo", bo), ("g1", g1), ("be1", be1))}})
     out = torch.empty_like(x)
     _launch("window_layer_proj_ln", "window_layer_proj_ln", a.device,
             a.data_ptr(), wo.data_ptr(), bo.data_ptr(), x.data_ptr(),
-            g1.data_ptr(), be1.data_ptr(), out.data_ptr(), r)
+            g1.data_ptr(), be1.data_ptr(), out.data_ptr(), r, c)
     return out
 
 
@@ -315,8 +341,9 @@ def ffn1_cuda(x1: torch.Tensor, w1: torch.Tensor,
               b1: torch.Tensor) -> torch.Tensor:
     """`ffn1_plain` as one launch of `window_layer_ffn1`."""
     _check_stage("window_layer_ffn1", x1, w1, b1)
-    r, ff = x1.shape[0], w1.shape[1]
-    _check_rows("window_layer_ffn1", {"x1": (x1, (r, C)), "w1": (w1, (C, ff)),
+    (r, c), ff = x1.shape, w1.shape[1]
+    check_width(c)
+    _check_rows("window_layer_ffn1", {"x1": (x1, (r, c)), "w1": (w1, (c, ff)),
                                       "b1": (b1, (ff,))})
     if ff % FF_CHUNK:
         raise ValueError(f"window_layer_ffn1: FFN width {ff} is not a "
@@ -324,7 +351,7 @@ def ffn1_cuda(x1: torch.Tensor, w1: torch.Tensor,
     out = torch.empty(r, ff, dtype=x1.dtype, device=x1.device)
     _launch("window_layer_ffn1", "window_layer_ffn1", x1.device,
             x1.data_ptr(), w1.data_ptr(), b1.data_ptr(), out.data_ptr(), r,
-            ff)
+            ff, c)
     return out
 
 
@@ -333,29 +360,32 @@ def ffn2_ln_cuda(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                  be2: torch.Tensor) -> torch.Tensor:
     """`ffn2_ln_plain` as one launch of `window_layer_ffn2_ln`."""
     _check_stage("window_layer_ffn2_ln", h, w2, b2, x1, g2, be2)
-    r, ff = h.shape
+    (r, ff), c = h.shape, x1.shape[1]
+    check_width(c)
     _check_rows("window_layer_ffn2_ln", {
-        "w2": (w2, (ff, C)), "x1": (x1, (r, C)),
-        **{n: (t, (C,)) for n, t in (("b2", b2), ("g2", g2), ("be2", be2))}})
+        "w2": (w2, (ff, c)), "x1": (x1, (r, c)),
+        **{n: (t, (c,)) for n, t in (("b2", b2), ("g2", g2), ("be2", be2))}})
     if ff % FF_CHUNK:
         raise ValueError(f"window_layer_ffn2_ln: FFN width {ff} is not a "
                          f"multiple of {FF_CHUNK}")
     out = torch.empty_like(x1)
     _launch("window_layer_ffn2_ln", "window_layer_ffn2_ln", h.device,
             h.data_ptr(), w2.data_ptr(), b2.data_ptr(), x1.data_ptr(),
-            g2.data_ptr(), be2.data_ptr(), out.data_ptr(), r, ff)
+            g2.data_ptr(), be2.data_ptr(), out.data_ptr(), r, ff, c)
     return out
 
 
-def stage_occupancy() -> Dict[str, Tuple[int, int]]:
+def stage_occupancy(c: int = 288) -> Dict[str, Tuple[int, int]]:
     """Each stage kernel's (blocks per SM that the card grants, dynamic
-    shared bytes a block), from `cudaOccupancyMaxActiveBlocksPerMultiprocessor`
-    on the current device."""
+    shared bytes a block) at width `c`, from
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor` on the current
+    device."""
+    check_width(c)
     lib = LIB.load()
     out = {}
     for i, name in enumerate(STAGES):
         blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-        rc = lib.window_layer_occupancy(i, ctypes.byref(blocks),
+        rc = lib.window_layer_occupancy(i, c, ctypes.byref(blocks),
                                         ctypes.byref(smem))
         if rc != 0:
             raise RuntimeError(f"window_layer_occupancy({name}): "
@@ -382,14 +412,17 @@ def _check_inputs(xw, pw, kp, layer) -> None:
                            "the JAX package does")
     nw = xw.shape[0]
     ff = layer.linear1.weight.shape[0]
-    if (xw.dim() != 3 or tuple(xw.shape[1:]) != (WS, C)
-            or pw.shape != xw.shape or tuple(kp.shape) != (nw, WS)
-            or layer.self_attn.num_heads != N_HEADS or ff % FF_CHUNK):
+    if xw.dim() != 3:
+        raise ValueError(f"window_layer_fwd takes (NW, WS, C) windows; got "
+                         f"{tuple(xw.shape)}")
+    check_width(xw.shape[2], layer.self_attn.num_heads, xw.shape[1])
+    if (pw.shape != xw.shape or tuple(kp.shape) != (nw, WS)
+            or ff % FF_CHUNK):
         raise ValueError(
-            f"window_layer_fwd takes (NW, {WS}, {C}) windows, {N_HEADS} "
-            f"heads and an FFN width divisible by {FF_CHUNK}; got "
-            f"{tuple(xw.shape)}, {tuple(kp.shape)}, "
-            f"{layer.self_attn.num_heads} heads, FFN {ff}")
+            f"window_layer_fwd takes (NW, {WS}, C) windows, positions of "
+            f"their shape, an (NW, {WS}) key mask and an FFN width "
+            f"divisible by {FF_CHUNK}; got {tuple(xw.shape)}, "
+            f"{tuple(pw.shape)}, {tuple(kp.shape)}, FFN {ff}")
     if any(p.device != xw.device for p in params):
         raise ValueError("window_layer_fwd: weights on another device")
     if not (xw.is_contiguous() and pw.is_contiguous()
@@ -419,7 +452,7 @@ def fused_window_layer(xw: torch.Tensor, pw: torch.Tensor, kp: torch.Tensor,
         out = torch.empty_like(xw)
         _launch("window_layer_f32_fwd", "window_layer_f32", xw.device,
                 xw.data_ptr(), pw.data_ptr(), kp.data_ptr(),
-                *[w.data_ptr() for w in weights], out.data_ptr(), nw, WS, C,
+                *[w.data_ptr() for w in weights], out.data_ptr(), nw, WS, c,
                 N_HEADS, layer.linear1.weight.shape[0])
     LAUNCHES["fused_window_layer"] += 1
     return out
