@@ -208,7 +208,22 @@ last line marked "partial"; the kernels line needs all of them):
      (192x256, float32), each arm 50 steps, its `Tracker` over the held-out
      sequences (kernel #8's float32 kernel at B = 1) and scored (MOTA,
      IDF1); every arm's loss must fall and every score be a number.
-  Every MSDA call shape those two phases launch that no phase above holds
+  masks: the MOTS20 recipe (`cli.train with mots20`: vanilla DETR with
+     the mask heads, softmax classes, hidden 256, FFN 2048, 100 queries,
+     bf16) and `DeformableDETRSegm` (`deformable tracking` with `masks:
+     true`), seeded weights: a synthetic MOTS20 layout (2 sequences of 4
+     1080x1920 JPEGs, the ground truth as MOTS lines), `cli.track` over it
+     with `Tracker` and `BatchedTracker` (150 track slots, 768x1344
+     frames; the MOTS result files read back; Hz, read and preprocess ms a
+     frame), the converter's MOTS mode, `cli.train` one epoch at B = 2
+     with a mask evaluation and `eval_only` (box and mask AP), a recipe
+     train step split into forward, criterion and backward with its peak
+     memory, each model's forward with and without its mask heads; the
+     Deformable masks model's `Tracker` over 800x1344 frames (kernels #1
+     and #2 counted) and 2 train steps at B = 2 (the backward counted);
+     each model's float32 forward card against CPU on `pred_masks`,
+     `pred_logits` and `pred_boxes`.
+  Every MSDA call shape those three phases launch that no phase above holds
   (D = 32 at hidden 256; the 8-level joint encoder; 416x544 at B = 4; the
   mid scale; 1344x1344) is then held at that shape against the plain
   version, forward and backward, float32 and bfloat16, and timed
@@ -3106,23 +3121,29 @@ def smoke_model(cfg, seed: int, tag: str):
     detector: random heads score every class alike near the focal prior
     (0.01), and the tracker keeps only label 0 ("person"); a class-0 bias
     of 1 (smoke only) scores most queries above the real thresholds, so
-    tracks are born on frame 0 and the track slots fill."""
+    tracks are born on frame 0 and the track slots fill. A softmax head
+    (vanilla DETR, 21 classes) gets a class-0 bias of 4, which puts the
+    person's probability near 0.6."""
     from trackformer_tpu_torch.models import build_model
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
     model, postprocess = build_model(cfg, "cuda", generator=gen)
+    heads = (model.class_embed if isinstance(model.class_embed,
+                                             torch.nn.ModuleList)
+             else [model.class_embed])
     with torch.no_grad():
-        for cls in model.class_embed:
-            cls.bias[0] = 1.0
+        for cls in heads:
+            cls.bias[0] = 1.0 if cfg.focal_loss else 4.0
     torch.cuda.synchronize()
-    phase(tag, model="flagship", encoder=cfg.encoder_attention,
+    phase(tag, model=type(model).__name__, encoder=cfg.encoder_attention,
           cached_memory=cfg.cached_prev_memory, hidden=cfg.hidden_dim,
           layers=f"{cfg.enc_layers}+{cfg.dec_layers}",
           queries=cfg.num_queries, dtype=cfg.compute_dtype,
           params=sum(p.numel() for p in model.parameters()),
           build_s=f"{time.perf_counter() - t0:.2f}",
-          override="class_embed.*.bias[0]=1 (smoke only)")
+          override=f"class_embed.*.bias[0]={heads[0].bias[0].item():g} "
+                   f"(smoke only)")
     return model, postprocess
 
 
@@ -3136,7 +3157,8 @@ def tracker_run(tag: str, cfg, model, postprocess, n_frames: int,
     tracker = Tracker(model, postprocess,
                       {**cfg.tracker_cfg, "max_tracks": cfg.max_tracks},
                       cfg.hidden_dim, cfg.num_queries,
-                      overflow_boxes=cfg.overflow_boxes)
+                      overflow_boxes=cfg.overflow_boxes,
+                      with_masks=cfg.masks)
     blobs = blobs or frame_blobs(n_frames, seed)
     torch.cuda.synchronize()
 
@@ -3230,11 +3252,12 @@ def batched_run(cfg, model, postprocess, n_seqs: int, n_frames: int,
     return counts
 
 
-def reference_run(tag: str, model, n_frames: int) -> float:
+def reference_run(tag: str, model, n_frames: int,
+                  keys=("pred_logits", "pred_boxes", "hs_embed")) -> float:
     """The same weights in float32: the forward on the card (CUDA kernels)
-    against the forward on the CPU (plain versions) on a small image; from
-    the second frame on, each device feeds its own previous frame's
-    features back."""
+    against the forward on the CPU (plain versions) on a small image, on
+    the outputs `keys`; from the second frame on, each device feeds its
+    own previous frame's features back."""
     from trackformer_tpu_torch.structures import FrameBatch
 
     model = model.float()
@@ -3253,13 +3276,14 @@ def reference_run(tag: str, model, n_frames: int) -> float:
                 outs[dev].append(out)
     worst = 0.0
     for a_out, b_out in zip(outs["cuda"], outs["cpu"]):
-        for key in ("pred_logits", "pred_boxes", "hs_embed"):
+        for key in keys:
             a, b = a_out[key].cpu(), b_out[key]
             check(bool(torch.isfinite(a).all()), f"{tag}: non-finite {key}")
             err = ((a - b).abs() / (1.0 + b.abs())).max().item()
             worst = max(worst, err)
     phase(tag, reference=f"float32 card vs CPU, 128x192 image, "
-          f"{n_frames} frame(s)", max_scaled_err=f"{worst:.3e}",
+          f"{n_frames} frame(s)", outputs=",".join(keys),
+          max_scaled_err=f"{worst:.3e}",
           tol=SLICE_TOL, ok=worst <= SLICE_TOL)
     check(worst <= SLICE_TOL, f"{tag}: card vs CPU forward differ by "
                               f"{worst}")
@@ -3308,7 +3332,8 @@ def synthetic_train_pack(cfg, seed: int, step: int, hw=BUCKET,
     """`TRAIN_BATCH` frame pairs of the drifting texture with
     `TRAIN_OBJECTS` (less two on the second image) drifting boxes each and
     their track ids, padded to `cfg.max_objects` slots; frames of `valid`
-    in the `hw` bucket."""
+    in the `hw` bucket. For a mask model (`cfg.masks`) each box's target
+    mask is its rectangle at the bucket's size (`box_masks`)."""
     from trackformer_tpu_torch.structures import FrameBatch, empty_targets
 
     b, t = TRAIN_BATCH, cfg.max_objects
@@ -3332,11 +3357,27 @@ def synthetic_train_pack(cfg, seed: int, step: int, hw=BUCKET,
             targets.track_ids[i, :n] = torch.arange(n, dtype=torch.int32)
         targets.size[:] = valid_hw
         targets.orig_size[:] = torch.tensor([[1080, 1920]] * b)
+        if cfg.masks:
+            targets.masks = box_masks(targets.boxes, valid, hw)
         batch = FrameBatch.from_images(
             torch.cat([p[frame] for p in pairs]), valid_hw)
         packs.append((batch, targets))
     return {"prev_batch": packs[0][0], "prev_targets": packs[0][1],
             "batch": packs[1][0], "targets": packs[1][1]}
+
+
+def box_masks(boxes: torch.Tensor, valid, hw) -> torch.Tensor:
+    """(B, T, H, W) bool masks at the bucket size `hw`: each normalized
+    cxcywh box's rectangle in an image of `valid` (h, w) at the top left."""
+    h, w = valid
+    x0 = (boxes[..., 0] - boxes[..., 2] / 2) * w
+    x1 = (boxes[..., 0] + boxes[..., 2] / 2) * w
+    y0 = (boxes[..., 1] - boxes[..., 3] / 2) * h
+    y1 = (boxes[..., 1] + boxes[..., 3] / 2) * h
+    ys = torch.arange(hw[0], device=boxes.device)[:, None] + 0.5
+    xs = torch.arange(hw[1], device=boxes.device)[None] + 0.5
+    rows = (ys >= y0[..., None, None]) & (ys < y1[..., None, None])
+    return rows & (xs >= x0[..., None, None]) & (xs < x1[..., None, None])
 
 
 def train_run(seed: int):
@@ -4025,26 +4066,32 @@ def read_frame_ms(path: Path, reps: int = 5) -> float:
 
 
 def write_mot_sequences(root: Path, names, n_frames: int, hw=ORIG_HW,
-                        seed: int = 0, ext: str = "png") -> None:
+                        seed: int = 0, ext: str = "png",
+                        mots: bool = False) -> None:
     """MOTChallenge-layout sequences under root/MOT17/train/<name>: PNG
     frames written by `png_bytes` (or, with `ext="jpg"`, JPEGs written by
     Pillow, MOT17's format) of a seeded blocky texture drifting a few
     pixels a frame, with the three rectangles of `RECTS` scaled to `hw`,
     each with its own seeded colour and texture, moving by `RECT_STEP`;
     `seqinfo.ini`, `gt/gt.txt` (the rectangles, 1-based ids) and
-    `det/det.txt` (the same boxes)."""
+    `det/det.txt` (the same boxes). With `mots` the layout is MOTS20's,
+    root/MOTS20/train/<name>, without `det/`, and `gt/gt.txt` holds each
+    rectangle's mask (its top-left corner cut off) as a MOTS line of a
+    pedestrian 2001.., written by the port's `mots_line`."""
     h, w = hw
     sy, sx = h / ORIG_HW[0], w / ORIG_HW[1]
+    if mots:
+        from trackformer_tpu_torch.datasets.tracking.mots20_sequence import \
+            mots_line
     for k, name in enumerate(names):
         rng = np.random.RandomState(seed + 1000 * k)
         base = np.repeat(np.repeat(rng.randint(
             0, 256, (h // 8 + 1, w // 8 + 1, 3), dtype=np.uint8), 8, 0),
             8, 1)[:h, :w]
         colours = rng.randint(0, 256, (len(RECTS), 3))
-        seq_dir = root / "MOT17" / "train" / name
+        seq_dir = root / ("MOTS20" if mots else "MOT17") / "train" / name
         (seq_dir / "img1").mkdir(parents=True)
         (seq_dir / "gt").mkdir()
-        (seq_dir / "det").mkdir()
         gt_lines, det_lines = [], []
         for t in range(n_frames):
             img = np.roll(base, (3 * t, 5 * t), (0, 1))
@@ -4057,8 +4104,15 @@ def write_mot_sequences(root: Path, names, n_frames: int, hw=ORIG_HW,
                 patch = img[y0:y0 + bh, x0:x0 + bw].astype(np.int32)
                 img[y0:y0 + bh, x0:x0 + bw] = (
                     colours[i] * 3 + patch) // 4
-                gt_lines.append(f"{t + 1},{i + 1},{x0 + 1},{y0 + 1},{bw},"
-                                f"{bh},1,1,1.0")
+                if mots:
+                    mask = np.zeros((h, w), bool)
+                    mask[y0:y0 + bh, x0:x0 + bw] = True
+                    mask[y0:y0 + bh // 4, x0:x0 + bw // 4] = False
+                    gt_lines.append(mots_line(t + 1, 2001 + i, 2,
+                                              mask).rstrip("\n"))
+                else:
+                    gt_lines.append(f"{t + 1},{i + 1},{x0 + 1},{y0 + 1},"
+                                    f"{bw},{bh},1,1,1.0")
                 det_lines.append(f"{t + 1},-1,{x0 + 1},{y0 + 1},{bw},{bh},"
                                  f"0.9")
             frame = seq_dir / "img1" / f"{t + 1:06d}.{ext}"
@@ -4068,8 +4122,10 @@ def write_mot_sequences(root: Path, names, n_frames: int, hw=ORIG_HW,
                 from PIL import Image
                 Image.fromarray(img).save(frame, quality=95)
         (seq_dir / "gt" / "gt.txt").write_text("\n".join(gt_lines) + "\n")
-        (seq_dir / "det" / "det.txt").write_text("\n".join(det_lines)
-                                                 + "\n")
+        if not mots:
+            (seq_dir / "det").mkdir()
+            (seq_dir / "det" / "det.txt").write_text("\n".join(det_lines)
+                                                     + "\n")
         (seq_dir / "seqinfo.ini").write_text(
             f"[Sequence]\nname = {name}\nimDir = img1\nframeRate = 30\n"
             f"seqLength = {n_frames}\nimWidth = {w}\nimHeight = {h}\n"
@@ -4912,10 +4968,326 @@ def agreement_run(seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the MOTS20 recipe: vanilla DETR with masks, and the Deformable DETR masks
+# model
+# --------------------------------------------------------------------------
+
+MASKS_SEQS = ("MOTS20-02", "MOTS20-05")
+MASKS_FRAMES = 4               # 1080x1920 frames of each synthetic sequence
+MASKS_EVAL_SUBSET = 2          # frames of the train CLI's mask evaluation
+
+
+def recipe_config():
+    """`FlagshipConfig` of `train.yaml` + `mots20`, the MOTS20 recipe's
+    model (cfgs/track.yaml's tracker)."""
+    from trackformer_tpu_torch.utils.config import (FlagshipConfig,
+                                                    load_config)
+    return FlagshipConfig.from_config(load_config("train.yaml", ["mots20"]))
+
+
+def masks_step_split(cfg, seed: int, reps: int = 3) -> dict:
+    """A detection train step of the recipe model at B = 2 (800x1344, box
+    masks as targets) split by hand: the forward, the criterion (with
+    `loss_mask` / `loss_dice` on (2, 100, 800, 1344) targets) and the
+    backward, each timed with a synchronize around it, median of `reps`;
+    then the port's `make_train_step` on the same pack: its ms and the
+    peak memory."""
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.models.criterion import compute_losses
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, crit, _, track = build_model(cfg, "cuda", generator=gen,
+                                        train=True)
+    pack = synthetic_train_pack(cfg, seed, 0)
+    pack = {"batch": pack["batch"], "targets": pack["targets"]}
+    check(pack["targets"].masks is not None
+          and tuple(pack["targets"].masks.shape[-2:]) == BUCKET,
+          "masks: the train pack carries no bucket-sized masks")
+    split = {"forward": [], "criterion": [], "backward": []}
+    losses = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, targets, _, _, _ = model(pack["batch"], pack["targets"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses = compute_losses(out, targets, crit)
+        loss = sum(losses[k] * w for k, w in crit.weight_dict.items()
+                   if k in losses)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        for k, v in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[k].append(v * 1e3)
+        del out, targets, loss
+    losses = {k: v.detach() for k, v in losses.items()}
+    check(all(bool(torch.isfinite(losses[k])) and float(losses[k]) > 0
+              for k in ("loss_mask", "loss_dice")),
+          f"masks: mask losses {losses['loss_mask']}, {losses['loss_dice']}")
+    optimizer = make_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, crit, optimizer, track, tracking=False)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, pack, gen)
+        float(metrics["loss"])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(metrics["loss"])),
+          f"masks: train step loss {metrics['loss']}")
+    return {**{f"{k}_ms": f"{statistics.median(v):.2f}"
+               for k, v in split.items()},
+            "step_ms": f"{statistics.median(step_ms):.2f}",
+            "step_peak_gib": f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+            "loss_mask": f"{float(losses['loss_mask']):.4f}",
+            "loss_dice": f"{float(losses['loss_dice']):.4f}"}
+
+
+def mask_head_share(model, reps: int = 10) -> dict:
+    """The eval forward of a mask model at B = 1 (800x1344) with and
+    without its mask heads (the detector's own forward): ms each and the
+    heads' share."""
+    from trackformer_tpu_torch.models.deformable_detr import DeformableDETR
+    from trackformer_tpu_torch.models.detr import DETR
+
+    batch = frame_blobs(1, 0)[0]["batch"]
+    detector = DETR if isinstance(model, DETR) else DeformableDETR
+    with torch.inference_mode():
+        full = time_ms(lambda: model(batch), reps)
+        base = time_ms(lambda: detector.forward(model, batch), reps)
+    return {"forward_ms": f"{full:.2f}", "detector_ms": f"{base:.2f}",
+            "mask_head_share": f"{1 - base / full:.3f}"}
+
+
+def masks_run(seed: int, n_frames: int, tmp: Path, card: str) -> dict:
+    """The MOTS20 recipe and the Deformable DETR masks model on the card,
+    each line with `card`, the card's nvidia-smi name and power limit:
+      (a) the recipe's model (`train.yaml` + `mots20`: DETR, R50 FrozenBN,
+          hidden 256, 8 heads, 6 + 6 layers, FFN 2048, 100 queries, 21
+          softmax logits, aux loss, the mask heads, bf16) with seeded
+          weights: its forward with and without the mask heads;
+          `Tracker` over `n_frames` 800x1344 frames with masks (no
+          kernel launch); a synthetic MOTS20 layout (`MASKS_SEQS`,
+          `MASKS_FRAMES` 1080x1920 JPEGs each, the ground truth as MOTS
+          lines); `cli.track` over it
+          (150 track slots, 768x1344 frames) with `Tracker` and with
+          `BatchedTracker` (`tpu.batch_sequences=2`), its MOTS result
+          files read back through `load_results`, its box metrics, Hz
+          and the host's read + preprocess ms a frame; the layout
+          converted by `generate_coco_from_mot` in MOTS mode; `cli.train
+          with mots20` one epoch at B = 2 with a mask evaluation, then
+          `eval_only` from its checkpoint (box and mask AP); a train step
+          at B = 2 split into forward, criterion and backward, with its
+          peak memory;
+      (b) `DeformableDETRSegm` (`deformable tracking`, `masks: true`:
+          hidden 256, 300 queries, 4 levels, box refinement, bf16):
+          `Tracker` over `n_frames` 800x1344 frames with masks (6
+          `msda_patch` and 6 `ms_deform_attn` launches a frame), its
+          forward with and without the mask heads, 2 train steps at B = 2
+          (track queries, with the backward's launches);
+      (c) each model's float32 forward, card against CPU, on
+          `pred_masks`, `pred_logits` and `pred_boxes`.
+    MOTA, IDF1 and AP of random weights are plumbing, not accuracy. ->
+    the launches of the runs by tag."""
+    import contextlib
+    import io
+    import re
+    from types import SimpleNamespace
+
+    from trackformer_tpu_torch.cli import train as cli_train
+    from trackformer_tpu_torch.datasets.image_io import read_frame
+    from trackformer_tpu_torch.datasets.tracking import TrackDatasetFactory
+    from trackformer_tpu_torch.datasets.tracking.mot17_sequence import (
+        eval_resize, preprocess_frame)
+    from trackformer_tpu_torch.tools import generate_coco_from_mot
+
+    out = {}
+    cfg = recipe_config()
+    check((cfg.deformable, cfg.masks, cfg.focal_loss, cfg.hidden_dim,
+           cfg.nheads, cfg.enc_layers, cfg.dec_layers, cfg.dim_feedforward,
+           cfg.num_queries, cfg.dataset, cfg.aux_loss, cfg.compute_dtype)
+          == (False, True, False, 256, 8, 6, 6, 2048, 100, "mot", True,
+              "bfloat16"), f"masks: the recipe's config {cfg}")
+    t0 = time.perf_counter()
+    write_mot_sequences(tmp, MASKS_SEQS, MASKS_FRAMES, seed=seed + 3,
+                        ext="jpg", mots=True)
+    root = tmp / "MOTS20"
+    phase("masks_recipe", card=json.dumps(card),
+          frames=f"{ORIG_HW[0]}x{ORIG_HW[1]} JPEG",
+          sequences=f"{len(MASKS_SEQS)}x{MASKS_FRAMES}",
+          write_s=f"{time.perf_counter() - t0:.2f}")
+    model, post, ckpt = cli_checkpoint(cfg, ["mots20"], seed,
+                                       "masks_recipe", tmp)
+    check(type(model).__name__ == "DETRSegm"
+          and model.class_embed.out_features == 21,
+          f"masks: built {type(model).__name__}")
+    phase("masks_recipe", card=json.dumps(card), **mask_head_share(model))
+    out["masks_recipe"], results = tracker_run(
+        "masks_recipe", cfg, model, post, n_frames, seed, {})
+    shapes = {e["mask"].shape for v in results.values() for e in v.values()}
+    check(shapes == {(BUCKET[0] // 4, BUCKET[1] // 4)},
+          f"masks_recipe: tracker masks of shapes {shapes}")
+    reference_run("masks_recipe", model, 1,
+                  ("pred_masks", "pred_logits", "pred_boxes"))
+    del model
+
+    # (a) the serving entry point over the MOTS20 layout, both trackers
+    dataset = TrackDatasetFactory(
+        list(MASKS_SEQS), root_dir=str(tmp),
+        img_transform=SimpleNamespace(val_width=cfg.val_width,
+                                      max_size=cfg.max_size))
+    n_frames_cli = len(MASKS_SEQS) * MASKS_FRAMES
+    for tag, extra in (("masks_track_cli", []),
+                       ("masks_track_cli_b2", ["tpu.batch_sequences=2"])):
+        res_dir = tmp / tag
+        reset_launch_counts()
+        summary, runtime = cli_main(tag, track_argv(
+            MASKS_SEQS, tmp, ckpt, f"output_dir={res_dir}", *extra))
+        counts = out[tag] = launch_counts()
+        record_path()
+        check(not any(counts.values()),
+              f"{tag}: vanilla DETR launched {nonzero(counts)}")
+        check(runtime is not None and runtime[1] == n_frames_cli,
+              f"{tag}: runtime line {runtime}")
+        rows, tracks, shapes = 0, 0, set()
+        for seq in dataset:
+            loaded = seq.load_results(str(res_dir))
+            tracks += len(loaded)
+            for v in loaded.values():
+                for e in v.values():
+                    rows += 1
+                    shapes.add(e["mask"].shape)
+                    check(np.isfinite(e["bbox"]).all(),
+                          f"{tag}: non-finite box read back")
+        check(rows > 0 and shapes == {ORIG_HW},
+              f"{tag}: {rows} MOTS rows of shapes {shapes}")
+        overall = (summary or {}).get("OVERALL", {})
+        phase(tag, card=json.dumps(card), batch=1 if not extra else 2,
+              frames=runtime[1], image=f"{CLI_BUCKET[0]}x{CLI_BUCKET[1]}",
+              cli_hz=runtime[2], cli_hz_per_sequence=runtime[3],
+              mots_rows=rows, tracks=tracks,
+              mota=overall.get("mota"), idf1=overall.get("idf1"),
+              note=json.dumps("box metrics of random weights: plumbing"))
+        check("mota" in overall, f"{tag}: no MOT summary")
+    blobs = [seq[i] for seq in dataset for i in range(len(seq))]
+    check(all(tuple(b["batch"].images.shape[1:3]) == CLI_BUCKET
+              for b in blobs), "masks: a frame is not padded to 768x1344")
+    resize = eval_resize(SimpleNamespace(val_width=cfg.val_width,
+                                         max_size=cfg.max_size))
+    read_ms, pre_ms = [], []
+    for seq in dataset:
+        for d in seq.data:
+            t1 = time.perf_counter()
+            img = read_frame(d["im_path"])
+            t2 = time.perf_counter()
+            preprocess_frame(img, resize)
+            read_ms.append((t2 - t1) * 1e3)
+            pre_ms.append((time.perf_counter() - t2) * 1e3)
+    phase("masks_track_cli", card=json.dumps(card),
+          read_frame_ms=f"{statistics.median(read_ms):.2f}",
+          preprocess_frame_ms=f"{statistics.median(pre_ms):.2f}")
+
+    # (a) the training entry point: the converter in MOTS mode, one epoch
+    # with a mask evaluation, then `eval_only` from its checkpoint
+    with contextlib.redirect_stdout(io.StringIO()):
+        generate_coco_from_mot.main(["mots20", "--data-root", str(root)])
+    ann = json.loads((root / "annotations" / "mots20_train_coco.json")
+                     .read_text())
+    n_train = len(MASKS_SEQS) * MASKS_FRAMES
+    check(len(ann["images"]) == n_train
+          and len(ann["annotations"]) == n_train * len(RECTS)
+          and all(isinstance(a["segmentation"], dict)
+                  for a in ann["annotations"]),
+          f"masks: the converter wrote {len(ann['images'])} images and "
+          f"{len(ann['annotations'])} mask annotations")
+    run_dir = tmp / "masks_run"
+    base = ["with", "mots20", f"mot_path_train={root}",
+            f"mot_path_val={root}", f"tpu.eval_subset={MASKS_EVAL_SUBSET}"]
+    for tag, argv in (
+            ("masks_train_cli", base + ["epochs=1",
+                                        f"output_dir={run_dir}"]),
+            ("masks_train_cli_eval_only", base + [
+                "eval_only=true",
+                f"resume={run_dir / 'checkpoint_params.npz'}"])):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = cli_train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        counts = out[tag] = launch_counts()
+        record_path()
+        for line in buf.getvalue().splitlines():
+            if line.startswith(("EVAL", "RESUME", "NUM TRAINABLE",
+                                "TRAINING DONE")) \
+                    or re.match(r"Epoch: \[\d+\] step \d+ ", line):
+                print(f"[{tag}] cli: {line[:300]}", flush=True)
+        check(not any(counts.values()),
+              f"{tag}: vanilla DETR launched {nonzero(counts)}")
+        fields = dict(card=json.dumps(card), seconds=f"{seconds:.2f}",
+                      peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+        if tag == "masks_train_cli":
+            want = n_train // TRAIN_BATCH
+            check(result.step == want,
+                  f"{tag}: {result.step} steps, want {want}")
+            epochs = [json.loads(line) for line in (
+                run_dir / "vis" / "epoch_metrics.jsonl").read_text()
+                .splitlines()]
+            fields.update(steps=result.step, last_epoch=json.dumps(
+                {k: v for k, v in epochs[-1].items()
+                 if k in ("loss", "loss_mask", "loss_dice", "AP")}))
+        else:
+            check({"AP", "AP_masks", "coco_eval_masks"} <= set(result)
+                  and len(result["coco_eval_masks"]) == 12,
+                  f"{tag}: stats {sorted(result)}")
+            fields.update(ap=result["AP"], ap_masks=result["AP_masks"],
+                          loss_mask=f"{result['loss_mask']:.4f}",
+                          loss_dice=f"{result['loss_dice']:.4f}")
+        phase(tag, **fields)
+    phase("masks_train_step", card=json.dumps(card), batch=TRAIN_BATCH,
+          image=f"{BUCKET[0]}x{BUCKET[1]}", **masks_step_split(cfg, seed))
+
+    # (b) the Deformable DETR masks model: tracker, train steps, forward
+    dcfg = variant_config(["deformable", "tracking"], masks=True)
+    check((dcfg.hidden_dim, dcfg.num_queries, dcfg.num_feature_levels,
+           dcfg.with_box_refine, dcfg.masks, dcfg.multi_frame_attention)
+          == (256, 300, 4, True, True, False),
+          f"masks: the deformable masks config {dcfg}")
+    model, dpost = smoke_model(dcfg, seed, "masks_deformable")
+    out["masks_deformable"], results = tracker_run(
+        "masks_deformable", dcfg, model, dpost, n_frames, seed,
+        SINGLE_PER_FRAME)
+    note_new_shapes("masks_deformable")
+    shapes = {e["mask"].shape for v in results.values() for e in v.values()}
+    check(shapes == {(BUCKET[0] // 4, BUCKET[1] // 4)},
+          f"masks_deformable: tracker masks of shapes {shapes}")
+    phase("masks_deformable", card=json.dumps(card),
+          **mask_head_share(model))
+    reference_run("masks_deformable", model, 1,
+                  ("pred_masks", "pred_logits", "pred_boxes"))
+    del model
+    torch.cuda.reset_peak_memory_stats()
+    variant_train_steps("masks_deformable_train", dcfg, seed, [True, True],
+                        SINGLE_STEP)
+    phase("masks_deformable_train", card=json.dumps(card),
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return out
+
+
 PHASES = ("msda", "window", "msda_bwd", "dense_v2", "dense_v4", "dense_v3",
           "gather_rows", "patch_v6", "exact", "fast", "train",
           "train_reference", "train_fast", "checkpoint", "evaluate",
-          "track_cli", "train_cli", "variants", "agreement")
+          "track_cli", "train_cli", "variants", "agreement", "masks")
 # frames of the exact tracker's runs on the other routes
 ROUTE_FRAMES = 3
 
@@ -5128,6 +5500,9 @@ def main() -> int:
             variant_counts = variants_run(args.seed, args.frames)
         if "agreement" in phases:
             agree_counts = agreement_run(args.seed)
+        if "masks" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                masks_run(args.seed, args.frames, Path(tmp), smi)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -4,8 +4,8 @@ held against the JAX package's on the same inputs, on the CPU:
 
   * `CocoEvaluator`: the 12 box statistics within 1e-12 on the fixtures
     of tests/test_coco_eval.py and on 50 seeded random images with crowd
-    and ignored ground truth in every area range; `segm` and `keypoints`
-    raise `NotImplementedError`;
+    and ignored ground truth in every area range; `segm` on seeded
+    masks, and `keypoints` raising `NotImplementedError`;
   * `summarize` of `MOTAccumulator`s within 1e-12 on the cases of
     tests/test_mot_metrics.py and on seeded random sequences with
     switches, false positives and misses; `get_mot_accum` and
@@ -140,10 +140,57 @@ def test_coco_evaluator_matches_jax(case, capsys):
         assert np.isfinite(stats).all() and 0 < stats[0] < 1
 
 
+def segm_case(seed=0, n_images=12, hw=(40, 60)):
+    """Images with 0-4 ground-truth masks (rectangles, one in ten crowd),
+    detected masks near them (shifted a pixel or two, as RLE dicts and as
+    arrays) and false positives, with random scores."""
+    from trackformer_tpu_torch.utils import rle
+    rng = np.random.RandomState(seed)
+    gts, preds = {}, {}
+    for img in range(1, n_images + 1):
+        anns, boxes, scores, labels, masks = [], [], [], [], []
+        for _ in range(rng.randint(0, 5)):
+            y0, x0 = rng.randint(0, hw[0] - 8), rng.randint(0, hw[1] - 8)
+            h, w = rng.randint(4, hw[0] - y0), rng.randint(4, hw[1] - x0)
+            m = np.zeros(hw, bool)
+            m[y0:y0 + h, x0:x0 + w] = True
+            anns.append({**ann(x0, y0, w, h, crowd=int(rng.rand() < 0.1)),
+                         "area": int(m.sum()),
+                         "segmentation": rle.encode_mask(m)})
+            if rng.rand() < 0.8:
+                d = np.roll(m, tuple(rng.randint(-2, 3, 2)), (0, 1))
+                masks.append(rle.encode_mask(d) if rng.rand() < 0.5 else d)
+                boxes.append([x0, y0, x0 + w, y0 + h])
+                scores.append(rng.rand())
+                labels.append(1)
+        for _ in range(rng.randint(0, 3)):
+            d = rng.rand(*hw) > 0.97
+            masks.append(d)
+            boxes.append([0, 0, 5, 5])
+            scores.append(rng.rand())
+            labels.append(1)
+        gts[img] = anns
+        preds[img] = {"boxes": np.array(boxes, np.float64).reshape(-1, 4),
+                      "scores": np.array(scores), "labels": np.array(labels),
+                      "masks": masks}
+    return gts, preds
+
+
 def test_coco_evaluator_refuses_masks_and_keypoints():
-    for iou_type in ("segm", "keypoints"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            coco_eval.CocoEvaluator(FakeGT({}), ("bbox", iou_type))
+    """`keypoints` is still refused; `segm` (mask IoU, crowd ground truth,
+    the masks' areas in the area ranges) gives the JAX evaluator's 12
+    statistics of both iou types and its result list."""
+    with pytest.raises(NotImplementedError, match="item 6"):
+        coco_eval.CocoEvaluator(FakeGT({}), ("bbox", "keypoints"))
+    gts, preds = segm_case()
+    ours = coco_eval.CocoEvaluator(FakeGT(gts), ("bbox", "segm"))
+    theirs = jcoco.CocoEvaluator(FakeGT(gts), ("bbox", "segm"))
+    for ev in (ours, theirs):
+        ev.update(preds)
+    assert ours.prepare(preds, "segm") == theirs.prepare(preds, "segm")
+    got, want = ours.summarize(), theirs.summarize()
+    assert_stats_equal(got, want, 1e-12)
+    assert 0 < want["segm"][0] < 1 and want["segm"] != want["bbox"]
 
 
 def box(x, y, s=10):
@@ -322,9 +369,45 @@ def test_make_results_matches_jax():
         for key in ("boxes", "scores"):
             np.testing.assert_allclose(got[img][key], res[key], rtol=1e-6,
                                        atol=1e-6)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loop.make_results({}, None, postprocess_sigmoid, q,
-                          postprocess_segm=object())
+    # with masks: each object query's mask at the padded 64x96 size,
+    # cropped to 60x90 and resized to 120x180; equal wherever the
+    # probability after the resize is not within 1e-4 of 0.5
+    from PIL import Image
+
+    from trackformer_tpu.models import segmentation as jsegm
+    from trackformer_tpu_torch.models import segmentation as segm
+    from trackformer_tpu_torch.utils import rle
+    pred_masks = 4 * rng.randn(b, k + q, 16, 24).astype(np.float32)
+    img = np.zeros((b, 64, 96, 3), np.float32)
+    valid_hw = np.array([[60, 90]] * b, np.int32)
+    got = loop.make_results(
+        {"pred_logits": torch.from_numpy(logits),
+         "pred_boxes": torch.from_numpy(boxes),
+         "pred_masks": torch.from_numpy(pred_masks)},
+        Targets(**{k_: torch.from_numpy(v) for k_, v in tgt.items()}),
+        postprocess_sigmoid, q, postprocess_segm=segm.postprocess_segm,
+        batch=FrameBatch.from_images(torch.from_numpy(img),
+                                     torch.from_numpy(valid_hw)))
+    jout = {"pred_logits": jnp.asarray(logits),
+            "pred_boxes": jnp.asarray(boxes),
+            "pred_masks": jnp.asarray(pred_masks)}
+    want = jloop.make_results(
+        jout, JTargets(**{k_: jnp.asarray(v) for k_, v in tgt.items()}),
+        jpostprocess, q, postprocess_segm=jsegm.postprocess_segm,
+        batch=JFrameBatch.from_images(jnp.asarray(img),
+                                      jnp.asarray(valid_hw)))
+    probs = np.asarray(jsegm.postprocess_segm({}, jout, (64, 96),
+                                              return_probs=True)["masks"])
+    for i, img_id in enumerate((11, 42)):
+        assert len(got[img_id]["masks"]) == len(want[img_id]["masks"]) == q
+        for j, (g, w) in enumerate(zip(got[img_id]["masks"],
+                                       want[img_id]["masks"])):
+            p = np.asarray(Image.fromarray(probs[i, k + j, :60, :90])
+                           .resize((180, 120), Image.BILINEAR))
+            sure = np.abs(p - 0.5) > 1e-4
+            gm, wm = rle.decode_mask(g), rle.decode_mask(w)
+            assert gm.shape == (120, 180)
+            np.testing.assert_array_equal(gm[sure], wm[sure])
 
 
 NAMED = ["deformable", "tracking", "multi_frame"]
@@ -398,10 +481,8 @@ def test_evaluate_matches_jax(capsys):
     for key in set(want) - {"coco_eval_bbox"}:
         np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
                                    atol=1e-4, err_msg=key)
-    # (the in-process tracking eval runs: tests/test_torch_train_cli.py)
-    for flags, post_dict in (({"masks": True}, {"bbox": post}),
-                             ({}, {"bbox": post, "panoptic": post})):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            loop.evaluate(model, crit, post_dict, packs, lambda p: p,
-                          FakeGT(gts), types.SimpleNamespace(
-                              **{**vars(eval_args), **flags}))
+    # (the in-process tracking eval runs: tests/test_torch_train_cli.py;
+    # `masks: true` is evaluated on a mask model: tests/test_torch_mots.py)
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        loop.evaluate(model, crit, {"bbox": post, "panoptic": post}, packs,
+                      lambda p: p, FakeGT(gts), eval_args)

@@ -251,12 +251,30 @@ def test_compute_losses_match_jax(case, focal):
 
 
 def test_unported_losses_raise():
-    out, tgt = make_case(6, 1, 6, 3, 4, [2])
-    tout, ttgt = to_torch(out), Targets(**to_torch(tgt))
-    cfg = criterion.CriterionConfig(num_classes=3,
-                                    losses=("labels", "masks"))
-    with pytest.raises(NotImplementedError, match="mask"):
-        criterion.compute_losses(tout, ttgt, cfg)
+    """The mask losses (focal and DICE of the matched queries' masks,
+    upsampled 5x7 -> 17x26, with track queries and aux outputs) against
+    JAX; the two-stage encoder outputs still raise."""
+    out, tgt = make_case(6, 2, 6, 3, 4, [2, 3], k=4, n_aux=1)
+    rng = np.random.RandomState(6)
+    out["pred_masks"] = 2 * rng.randn(2, 10, 5, 7).astype(np.float32)
+    tgt["masks"] = rng.rand(2, 3, 17, 26) > 0.5
+    (jout, jtgt), (tout, ttgt) = both(out, tgt)
+    losses_ = ("labels", "masks", "boxes")
+    for focal in (False, True):
+        kw = dict(num_classes=3, losses=losses_, focal_loss=focal,
+                  tracking=True)
+        want = jcriterion.compute_losses(
+            jout, jtgt, jcriterion.CriterionConfig(
+                matcher=configs(focal)[0], **kw))
+        got = criterion.compute_losses(
+            tout, ttgt, criterion.CriterionConfig(
+                matcher=configs(focal)[1], **kw))
+        assert set(got) == set(want)
+        assert {"loss_mask", "loss_dice"} <= set(got)
+        assert "loss_dice_0" not in got
+        for key, value in want.items():
+            np.testing.assert_allclose(got[key].numpy(), np.asarray(value),
+                                       atol=TOL, rtol=TOL, err_msg=key)
     with pytest.raises(NotImplementedError, match="two-stage"):
         criterion.compute_losses({**tout, "enc_outputs": tout}, ttgt,
                                  criterion.CriterionConfig(num_classes=3))

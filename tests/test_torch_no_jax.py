@@ -10,7 +10,10 @@ one `evaluate`, the tracking CLI over a small PNG sequence (its
 configs, the native preprocessing, the port's PNG reader), and the MOT ->
 COCO converter over a small JPEG sequence followed by one debug epoch of
 the training CLI on its JSON (the datasets, the training transforms, the
-loader, a validation), the single-frame Deformable DETR family (exact and
+loader, a validation), the MOTS20 recipe (vanilla DETR with masks: the
+tracking CLI over a MOTS20 sequence, the converter's MOTS mode and a debug
+epoch of `with mots20` with a loaded mask head), the single-frame
+Deformable DETR family (exact and
 windowed encoder, shared heads, in a `Tracker` and a detection train
 step) and both agreement tools at the `small` scale go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
@@ -194,6 +197,40 @@ state = train_main(
      f"output_dir={out_dir}/train_run"], device="cpu")
 assert state.step == 2
 assert os.path.exists(out_dir + "/train_run/checkpoint_params.npz")
+
+# the MOTS20 recipe (`with mots20`, vanilla DETR with masks, softmax
+# classes): the tracking CLI over a MOTS20 sequence writing MOTS rows, the
+# converter's MOTS mode, and a debug epoch of the training CLI on its JSON
+# with a mask head loaded from an .npz and a mask evaluation
+mots_data = Path(out_dir) / "mots_data"
+chip_smoke.write_mot_sequences(mots_data, ["MOTS20-02"], 3, hw=(54, 96),
+                               ext="jpg", mots=True)
+mots_over = {"enc_layers": 1, "dec_layers": 1, "hidden_dim": 128,
+             "nheads": 8, "dim_feedforward": 64, "num_queries": 8,
+             "img_transform.val_width": 64, "img_transform.max_size": 114,
+             "tpu.compute_dtype": "float32"}
+mots_cfg = load_config("train.yaml", ["mots20"], mots_over)
+recipe = FlagshipConfig.from_config(mots_cfg)
+mots_model, _ = build_model(recipe, "cpu", torch.Generator().manual_seed(0))
+with torch.no_grad():
+    mots_model.class_embed.bias[0] = 10.0   # every query a person
+save_model_npz(mots_model, out_dir + "/mots/checkpoint.npz", recipe)
+dump_config(mots_cfg, out_dir + "/mots/config.yaml")
+track_main(["with", "dataset_name=MOTS20-02", f"data_root_dir={mots_data}",
+            f"obj_detect_checkpoint_file={out_dir}/mots/checkpoint.npz",
+            f"output_dir={out_dir}/mots_out", "tpu.max_tracks=4"],
+           device="cpu")
+rows = open(out_dir + "/mots_out/MOTS20-02.txt").read().splitlines()
+assert rows and all(r.split(" ")[2:5] == ["2", "54", "96"] for r in rows)
+convert(["mots20", "--data-root", str(mots_data / "MOTS20")])
+state = train_main(
+    ["with", "mots20", *(f"{k}={v}" for k, v in mots_over.items()),
+     f"mot_path_train={mots_data}/MOTS20", f"mot_path_val={mots_data}/MOTS20",
+     "resume=", f"load_mask_head_from_model={out_dir}/mots/checkpoint.npz",
+     "tpu.image_buckets=[[128,128]]", "tpu.max_objects=4", "epochs=1",
+     "debug=true", "batch_size=1", f"output_dir={out_dir}/mots_run"],
+    device="cpu")
+assert state.step == 2
 
 # the single-frame family: exact, windowed without the cached memory, and
 # shared heads; a Tracker and a detection step each

@@ -83,12 +83,14 @@ LOADS = [
     ("track.yaml", ["reid"], {}),
     ("train.yaml", NAMED, {"lr": 3e-5, "tpu.image_buckets": [[64, 96]],
                            "img_transform.val_width": 128}),
+    ("train.yaml", ["mots20"], {}),
+    ("train.yaml", ["coco_person_masks"], {}),
 ]
 
 
 @pytest.mark.parametrize("base,named,overrides", LOADS,
                          ids=["train", "train_fast", "track", "track_reid",
-                              "overrides"])
+                              "overrides", "mots20", "coco_person_masks"])
 def test_load_config_matches_jax(base, named, overrides):
     want = jconfig.load_config(base, named, overrides)
     assert tconfig.load_config(base, named, overrides) == want
@@ -120,11 +122,17 @@ def test_from_config_gives_the_flagship():
                               "img_transform.val_width": 128}))
     assert (cfg.hidden_dim, cfg.compute_dtype, cfg.max_size,
             cfg.val_width) == (96, "float32", 170, 128)
-    # what is not ported is refused by the factory, naming its item
+    # plain train.yaml builds vanilla DETR; what is not ported is refused
+    # by the factory, naming its item
     from trackformer_tpu_torch.models import build_model
-    vanilla = FlagshipConfig.from_config(tconfig.load_config("train.yaml"))
+    from trackformer_tpu_torch.models.detr import DETR
+    vanilla = FlagshipConfig.from_config(tconfig.load_config(
+        "train.yaml", [], {"enc_layers": 1, "dec_layers": 1,
+                           "tpu.compute_dtype": "float32"}))
+    assert not vanilla.deformable and not vanilla.focal_loss
+    assert type(build_model(vanilla, "cpu")[0]) is DETR
     with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(vanilla, "cpu")
+        build_model(vanilla.replace(position_embedding="learned"), "cpu")
 
 
 def test_dump_config_round_trips(tmp_path):
@@ -368,10 +376,21 @@ def test_demo_folder_matches_jax(mot_root, jax_native_route):
                               np.asarray(jb["batch"].images))
 
 
-def test_dataset_names_match_jax():
+def test_dataset_names_match_jax(tmp_path):
     assert sorted(DATASETS) == sorted(JDATASETS)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TrackDatasetFactory("MOTS20-TRAIN", root_dir="data")
+    # MOTS20-TRAIN reads a synthetic layout as the JAX factory does
+    from test_torch_mots import make_mots_layout
+    root = make_mots_layout(tmp_path, names=["MOTS20-02", "MOTS20-05",
+                                             "MOTS20-09", "MOTS20-11"],
+                            n_frames=2)
+    tseqs = TrackDatasetFactory("MOTS20-TRAIN", root_dir=str(root))
+    jseqs = JFactory("MOTS20-TRAIN", root_dir=str(root))
+    assert [str(q) for q in tseqs] == [str(q) for q in jseqs] == [
+        "MOTS20-02", "MOTS20-05", "MOTS20-09", "MOTS20-11"]
+    for tq, jq in zip(tseqs, jseqs):
+        assert len(tq) == len(jq) == 2 and not tq.no_gt
+        for i in range(2):
+            assert tq.data[i]["gt"].keys() == jq.data[i]["gt"].keys()
     with pytest.raises(KeyError, match="not found"):
         TrackDatasetFactory("MOT99-TRAIN", root_dir="data")
     with pytest.raises(FileNotFoundError, match="does not exist"):

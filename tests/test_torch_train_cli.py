@@ -155,7 +155,6 @@ def test_tracking_eval_matches_the_jax_cli(both_evals):
 def test_unported_options_raise(data, capsys):
     base = ["with", *TINY, *data[0], "eval_only=true", "tracking_eval=false"]
     for extra, item in ((["tpu.model_parallel=2"], "item 8"),
-                        (["load_mask_head_from_model=x.npz"], "item 6"),
                         (["track_prev_prev_frame=true"], "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             main(base + extra, device="cpu")
@@ -169,3 +168,36 @@ def test_unported_options_raise(data, capsys):
     printed = capsys.readouterr().out
     assert "tpu.remat: not applied" in printed
     assert "EVAL SUBSET: 2/8 images" in printed
+
+
+def test_load_mask_head_from_model(data, tmp_path, capsys):
+    """`with mots20` (vanilla DETR with masks) takes every `mask_head` /
+    `bbox_attention` tensor of a seeded `.npz` in the JAX layout (and no
+    other) into its train state; `freeze_detr` is announced as having no
+    effect."""
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.utils.checkpoint import save_model_npz
+    from trackformer_tpu_torch.utils.config import (FlagshipConfig,
+                                                    load_config)
+    tiny = {"enc_layers": 1, "dec_layers": 1, "hidden_dim": 128,
+            "nheads": 8, "dim_feedforward": 64, "num_queries": 8,
+            "tpu.compute_dtype": "float32"}
+    cfg = FlagshipConfig.from_config(load_config("train.yaml", ["mots20"],
+                                                 tiny))
+    donor, _ = build_model(cfg, "cpu", torch.Generator().manual_seed(5))
+    save_model_npz(donor, tmp_path / "mask_head.npz", cfg)
+    state = main(["with", "mots20", *(f"{k}={v}" for k, v in tiny.items()),
+                  *data[0], "resume=", "epochs=0", "freeze_detr=true",
+                  f"load_mask_head_from_model={tmp_path / 'mask_head.npz'}"],
+                 device="cpu")
+    fresh, _ = build_model(cfg, "cpu", torch.Generator().manual_seed(42))
+    want, other = donor.state_dict(), fresh.state_dict()
+    heads = [k for k in want if k.startswith(("mask_head.",
+                                               "bbox_attention."))]
+    assert len(heads) == 4 + 2 * 5 + 2 * 5 + 2 * 3 + 2   # lay, gn, adapter
+    for key, value in state.params.items():
+        ref = want[key] if key in heads else other[key]
+        assert torch.equal(value, ref.float()), key
+    printed = capsys.readouterr().out
+    assert "LOADED MASK HEAD" in printed and "freeze_detr: no effect" in \
+        printed

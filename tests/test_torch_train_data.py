@@ -4,8 +4,9 @@ through numpy: the training transforms (one draw of each from the same
 datasets' samples with their previous frames (the same `np.random.seed`),
 `collate_fn`'s packs, the weighted concatenation's sample weights, the
 `Loader`'s packs over an epoch with weighted sampling and prefetch, the
-MOT detection result files and the MOT -> COCO converter's JSON. All of
-them are equal bit for bit. Then the two places where the port differs:
+MOT detection result files and the MOT(S) -> COCO converter's JSON; with
+masks too, the transforms, the COCO dataset's mask targets, the collated
+masks and the MOTS converter. All of them are equal bit for bit. Then the two places where the port differs:
 its `Loader` raises an error of the dataset where the JAX one ends the
 epoch early without one, and its MOT dataset reads the images where the
 converter links them."""
@@ -148,13 +149,26 @@ def test_training_transform_matches_jax(name, port, jax_side):
 
 
 def test_transforms_refuse_masks():
-    img, target = sample()
-    target["masks"] = np.ones((4, 100, 160), bool)
-    for fn in (lambda: T.hflip(img, target),
-               lambda: T.crop(img, target, (0, 0, 10, 10)),
-               lambda: T.resize(img, target, 50)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fn()
+    """Every transform with masks in the target (a box-shaped mask per
+    object, a ragged one last): the crop, flip, resize (nearest) and pad
+    of the masks, and the filter of dropped objects, bit for bit against
+    the JAX pipeline."""
+    for name, port, jax_side in PAIRS:
+        for seed in range(3):
+            img, target = sample(seed=seed)
+            rs = np.random.RandomState(seed)
+            masks = np.zeros((4, 100, 160), bool)
+            for k, (x0, y0, x1, y1) in enumerate(target["boxes"]):
+                masks[k, max(0, int(y0)):int(y1), max(0, int(x0)):int(x1)] \
+                    = True
+            masks[3] |= rs.rand(100, 160) > 0.9
+            target["masks"] = masks
+            got = port(img.copy(), dict(target), np.random.default_rng(seed))
+            want = jax_side(img.copy(), dict(target),
+                            np.random.default_rng(seed))
+            assert_same(got[1], want[1], f"{name} seed {seed} target")
+            if "masks" in want[1] and len(want[1]["masks"]):
+                assert want[1]["masks"].shape[1:] == want[0].shape[:2], name
 
 
 def test_rle_matches_jax():
@@ -235,7 +249,7 @@ def test_mot_samples_match_jax(synth_root, image_set):
         assert abs(cur - prev) <= reach and cur // 6 == prev // 6
 
 
-def test_coco_detection_sample_matches_jax(synth_root):
+def test_coco_detection_sample_matches_jax(synth_root, tmp_path):
     """The synthetic previous frame of a COCO-style dataset: the same
     image, the jitter crop."""
     from trackformer_tpu.datasets import coco as jcoco
@@ -257,9 +271,49 @@ def test_coco_detection_sample_matches_jax(synth_root):
     for g, w in zip(got, want):
         assert_same(g, w)
     assert np.array_equal(port_ds.sample_weights, jax_ds.sample_weights)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        coco.CocoDetection(synth_root / "train", ann, None, T.Normalize(),
-                           return_masks=True)
+    # mask targets: each annotation's segmentation (polygons, RLE, none)
+    # decoded, through the dataset's transforms
+    coco_json = json.loads(ann.read_text())
+    images = {im["id"]: im for im in coco_json["images"]}
+    for k, a in enumerate(coco_json["annotations"]):
+        x, y, w, h = a["bbox"]
+        if k % 3 == 0:
+            a["segmentation"] = [[x, y, x + w, y, x + w, y + h, x, y + h]]
+        elif k % 3 == 1:
+            im = images[a["image_id"]]
+            m = np.zeros((im["height"], im["width"]), bool)
+            m[int(y):int(y + h), int(x):int(x + w)] = True
+            a["segmentation"] = rle.encode_mask(m)
+    masked = tmp_path / "masks.json"
+    masked.write_text(json.dumps(coco_json))
+    tf = T.make_coco_transforms("train", SimpleNamespace(max_size=200,
+                                                         val_width=96))
+    jtf = JT.make_coco_transforms("train", SimpleNamespace(max_size=200,
+                                                           val_width=96))
+    tf.transforms, jtf.transforms = tf.transforms[:-1], jtf.transforms[:-1]
+    port_ds = coco.CocoDetection(synth_root / "train", masked, tf,
+                                 T.Normalize(), return_masks=True)
+    jax_ds = jcoco.CocoDetection(synth_root / "train", masked, jtf,
+                                 JT.Normalize(), return_masks=True)
+    for seed in (3, 4):
+        np.random.seed(seed)
+        got = port_ds[2]
+        np.random.seed(seed)
+        want = jax_ds[2]
+        assert_same(got, want)
+        assert got["target"]["masks"].dtype == bool
+        assert got["target"]["masks"].any()
+    # collated with masks: padded to the bucket
+    samples = []
+    for seed in (5, 6):
+        np.random.seed(seed)
+        samples.append(port_ds[seed])
+    got = builder.collate_fn(samples, BUCKETS, MAX_OBJECTS, with_masks=True)
+    want = jbuilder.collate_fn(samples, BUCKETS, MAX_OBJECTS,
+                               with_masks=True)
+    assert got["targets"].masks.shape[2:] == got["batch"].images.shape[1:3]
+    assert np.array_equal(got["targets"].masks.numpy(),
+                          np.asarray(want["targets"].masks))
     with pytest.raises(NotImplementedError, match="item 7"):
         coco.CocoDetection(synth_root / "train", ann, None, T.Normalize(),
                            prev_prev_frame=True)
@@ -399,8 +453,32 @@ def test_converter_matches_jax(tmp_path, frame_range):
     assert any(a["ignore"] for a in got["annotations"])
     links = sorted(p.name for p in (root / "conv").iterdir())
     assert links == sorted(im["file_name"] for im in got["images"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        generate_coco_from_mot("conv", str(root), mots=True)
+    # MOTS: the same objects as masks (pedestrians 2001.., a car, an
+    # ignore region, an empty mask), written by the port's `mots_line`
+    from trackformer_tpu_torch.datasets.tracking.mots20_sequence import \
+        mots_line
+    h, w = 128, 160
+    for seq_gt in sorted((root / "train").glob("*/gt/gt.txt")):
+        out = []
+        for k, line in enumerate(seq_gt.read_text().splitlines()):
+            r = line.split(",")
+            x, y, bw, bh = (int(float(v)) for v in r[2:6])
+            m = np.zeros((h, w), bool)
+            m[y - 1:y - 1 + bh, x - 1:x - 1 + bw] = True
+            m[y - 1, x - 1] = k % 2 == 0
+            out.append(mots_line(int(r[0]), 2000 + int(r[1]), 2, m))
+        out += [mots_line(1, 1005, 1, m), mots_line(2, 10000, 10, m),
+                mots_line(2, 2009, 2, np.zeros((h, w), bool))]
+        seq_gt.write_text("".join(out))
+    jtool.generate_coco_from_mot("conv", str(root), frame_range=frame_range,
+                                 mots=True)
+    want = json.loads(ann.read_text())
+    generate_coco_from_mot("conv", str(root), frame_range=frame_range,
+                           mots=True)
+    got = json.loads(ann.read_text())
+    assert got == want
+    segms = [a["segmentation"] for a in got["annotations"]]
+    assert segms and all(isinstance(sg, dict) for sg in segms)
 
 
 def test_mot_reads_the_converted_split(tmp_path):

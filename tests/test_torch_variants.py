@@ -14,8 +14,8 @@ the same seeded frames with track queries:
     the cached memory;
 
 then the weight maps of shared heads and of the single-frame level embed
-both ways, and every still-unported switch raising `NotImplementedError`
-with its ROADMAP item.
+both ways, and every still-unported switch (the panoptic dataset among
+them) raising `NotImplementedError` with its ROADMAP item.
 
 Tolerance: float32 on both sides, summed in different orders through a
 ResNet-50 and a few transformer layers: outputs to 1e-4 absolute and
@@ -219,11 +219,11 @@ UNPORTED = {
     "dense_decoder": dict(decoder_attention="dense"),
     "learned_positions": dict(position_embedding="learned"),
     "three_levels": dict(num_feature_levels=3),
-    "vanilla_detr": dict(deformable=False),
-    "masks": dict(masks=True),
-    "softmax_classes": dict(focal_loss=False),
     "window_16": dict(encoder_attention="windowed", encoder_window=16),
     "msda_cached": dict(cached_prev_memory=True),
+    "coco_panoptic": dict(dataset="coco_panoptic", masks=True),
+    "masks_cached_memory": dict(masks=True, encoder_attention="windowed",
+                                cached_prev_memory=True),
 }
 
 

@@ -2,16 +2,19 @@
 
 Counterpart of `trackformer_tpu/cli/track.py`: load the detector from a
 checkpoint and the `config.yaml` saved beside it, run the tracker over
-every sequence of the named dataset, write MOTChallenge result files,
-optionally interpolate and render frames, accumulate CLEAR-MOT / IDF1
-metrics, and print each sequence's runtime and the overall Hz. With
+every sequence of the named dataset, write MOTChallenge (or, for a mask
+model on MOTS20, MOTS) result files, optionally interpolate and render
+frames, accumulate CLEAR-MOT / IDF1 metrics, and print each sequence's
+runtime and the overall Hz. With
 `tpu.batch_sequences` > 1 the sequences run in lockstep groups of equal
 frame shape through `BatchedTracker`.
 
 Usage: python -m trackformer_tpu_torch.cli.track with [named_cfgs...] k=v ...
 
 The model runs on the card unless the caller of `main` passes
-`device="cpu"`. Attention maps, mask models and several processes raise
+`device="cpu"`. A mask model (`masks` in its train config) tracks with
+masks, rescaled to each sequence's frames (`upscale_mask_results`) before
+they are written. Attention maps and several processes raise
 `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -84,7 +87,18 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
     tpu_cfg = namespace_to_dict(getattr(args, "tpu", None)) or {}
     tracker_cfg["max_tracks"] = tpu_cfg.get("max_tracks", 150)
     tracker_args = (model, postprocess, tracker_cfg, train_args.hidden_dim,
-                    train_args.num_queries, train_args.overflow_boxes)
+                    train_args.num_queries, train_args.overflow_boxes,
+                    train_args.masks)
+
+    def upscale(results, seq, first: int):
+        """A mask model's results with their masks at the frame's size."""
+        if not train_args.masks:
+            return results
+        blob = seq[first]
+        return track_utils.upscale_mask_results(
+            results, np.asarray(blob["size"]).reshape(-1),
+            np.asarray(blob["orig_size"]).reshape(-1),
+            blob["batch"].images.shape[1:3])
 
     dataset = TrackDatasetFactory(
         args.dataset_name, root_dir=args.data_root_dir,
@@ -109,6 +123,8 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
             print(f"BATCHED GROUP x{len(group)}: {t:.2f} s "
                   f"({n / max(t, 1e-9):.2f} Hz)")
             for seq, results in zip(group, group_results):
+                results = upscale(results, seq,
+                                  int(len(seq) * args.frame_range.start))
                 if args.interpolate:
                     results = track_utils.interpolate_tracks(results)
                 if args.output_dir is not None:
@@ -145,6 +161,7 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
             print(f"NUM TRACKS: {len(results)} ReIDs: {tracker.num_reids}")
             print(f"RUNTIME: {t:.2f} s ({(end - start) / max(t, 1e-9):.2f} "
                   f"Hz)")
+            results = upscale(results, seq, start)
 
         if args.interpolate:
             results = track_utils.interpolate_tracks(results)

@@ -8,15 +8,20 @@ train state and its checkpoints (`resume_optim` continues from the epoch
 after the last saved one), `eval_only` / `eval_train`, the epoch loop with
 a validation every `val_interval` epochs (box AP, and MOTA / IDF1 of the
 in-process tracking eval), the best checkpoints by AP, AP50, MOTA and
-IDF1, and the resolved config dumped into `output_dir`.
+IDF1, and the resolved config dumped into `output_dir`. A mask model
+(`masks`, e.g. `with mots20`) loads mask targets, takes its mask head's
+weights from `load_mask_head_from_model` (an `.npz` in the JAX layout:
+every `mask_head` / `bbox_attention` tensor of matching shape) and is
+evaluated on masks too (`segm`). `freeze_detr` has no effect, as in the
+JAX package, which declares it and reads it nowhere.
 
 Usage: python -m trackformer_tpu_torch.cli.train with [named_cfgs...] k=v ...
 
 The model trains on the card unless the caller of `main` passes
-`device="cpu"`. Masks (`load_mask_head_from_model`, item 6), the
-previous-previous frame (item 7) and several processes or
-`tpu.model_parallel` > 1 (item 8) raise `NotImplementedError` naming their
-ROADMAP Queue 1 item; `tpu.remat` changes no number and is not applied.
+`device="cpu"`. The previous-previous frame (item 7) and several processes
+or `tpu.model_parallel` > 1 (item 8) raise `NotImplementedError` naming
+their ROADMAP Queue 1 item; `tpu.remat` changes no number and is not
+applied.
 """
 from __future__ import annotations
 
@@ -151,6 +156,7 @@ def main(argv=None, device="cuda"):
     from ..engine import TrainState, make_optimizer, make_train_step
     from ..engine.loop import evaluate, train_one_epoch
     from ..models import build_model
+    from ..models.factory import postprocessors as model_postprocessors
     from ..utils.checkpoint import CheckpointManager, load_and_adapt
     from ..utils.config import (FlagshipConfig, dump_config,
                                 namespace_to_dict, nested_namespace,
@@ -168,12 +174,12 @@ def main(argv=None, device="cuda"):
     if int(tpu_cfg.get("model_parallel", 1) or 1) > 1:
         raise NotImplementedError("tpu.model_parallel > 1 is not ported yet "
                                   "(ROADMAP Queue 1, item 8)")
-    if args.load_mask_head_from_model:
-        raise NotImplementedError("load_mask_head_from_model: mask heads are "
-                                  "not ported yet (ROADMAP Queue 1, item 6)")
     if args.track_prev_prev_frame:
         raise NotImplementedError("track_prev_prev_frame is not ported yet "
                                   "(ROADMAP Queue 1, item 7)")
+    if getattr(args, "freeze_detr", False):
+        print("freeze_detr: no effect; the JAX package declares it and "
+              "freezes nothing either")
     if tpu_cfg.get("remat"):
         print("tpu.remat: not applied, the port keeps every activation "
               "(ROADMAP Queue 1, item 7)")
@@ -191,7 +197,7 @@ def main(argv=None, device="cuda"):
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model, criterion_cfg, postprocess, tracking_cfg = build_model(
         model_cfg, device, generator=generator, train=True)
-    postprocessors = {"bbox": postprocess}
+    postprocessors = model_postprocessors(model_cfg)
     vis = build_visualizers(args)
 
     # datasets + loaders
@@ -228,6 +234,10 @@ def main(argv=None, device="cuda"):
             args.resume, own, resume_shift_neuron=args.resume_shift_neuron))
         model.load_state_dict(resumed)
         print(f"RESUME: {args.resume}")
+    if args.load_mask_head_from_model and os.path.exists(
+            args.load_mask_head_from_model):
+        resumed = load_mask_head(model, args.load_mask_head_from_model)
+        print(f"LOADED MASK HEAD: {args.load_mask_head_from_model}")
 
     steps_per_epoch = (len(dataset_train) // max(args.batch_size, 1)
                        if dataset_train else 1)
@@ -296,6 +306,28 @@ def main(argv=None, device="cuda"):
     total = time.time() - start_time
     print(f"TRAINING DONE in {total / 3600:.2f} h")
     return state
+
+
+def load_mask_head(model, path) -> dict:
+    """Every `mask_head` / `bbox_attention` tensor of the `.npz` at `path`
+    (the JAX layout) whose shape is the model's, copied into the model ->
+    the model's whole state dict in float32 (the train state's master
+    weights start from it)."""
+    import torch
+
+    from ..convert import jax_params_to_state_dict, state_dict_to_jax_params
+    from ..utils.checkpoint import (flatten_params, load_params_npz,
+                                    unflatten_params)
+
+    own = flatten_params(state_dict_to_jax_params(model.state_dict()))
+    for key, value in flatten_params(load_params_npz(path)).items():
+        if ("mask_head" in key or "bbox_attention" in key) and key in own \
+                and own[key].shape == value.shape:
+            own[key] = value
+    weights = jax_params_to_state_dict(unflatten_params(own))
+    with torch.no_grad():
+        model.load_state_dict(weights)
+    return weights
 
 
 class _EvalSubset:

@@ -14,7 +14,15 @@ extended with the TPU-fast mode's params, which have no original key:
     `linear1/2` map as in the deformable encoder;
   * `encoder/fuse_i/{up,down,norm}_j` ->
     `transformer.encoder.fuse.{i}.{up,down,norm}.{j}.{weight,bias}`;
-  * `frame_embed` -> `transformer.frame_embed`.
+  * `frame_embed` -> `transformer.frame_embed`;
+
+and with vanilla DETR's (`input_proj`, `transformer/{encoder,decoder,
+track_attention}_layer_i`, `transformer/{encoder,decoder}_norm`,
+`class_embed`, `bbox_embed/layer_j`) and the mask heads' of both families
+(`bbox_attention/{q,k}_linear`, `mask_head/lay1..5`, `gn1..5`,
+`adapter1..3`, `out_lay`). Several JAX paths of the two families share a
+port key (an encoder layer's `linear1`, say); the inverse tells them apart
+by the state dict's own keys (`input_proj.weight` is vanilla DETR's).
 
 The map is linear (transposes and the q/k/v packing), so the same function
 carries a JAX gradient tree, or the params after an optimizer update, to
@@ -150,15 +158,47 @@ def torch_key_for(path: str) -> KeyMap:
                 or _mha(rest, "self_attn", tk + ".self_attn")
                 or _ffn_norm(rest, tk))
 
-    m = re.fullmatch(r"class_embed_(\d+)/(kernel|bias)", p)
+    m = re.fullmatch(r"input_proj/(kernel|bias)", p)
     if m:
-        name, t = _dense(m.group(2))
-        return f"class_embed.{m.group(1)}.{name}", t
-    m = re.fullmatch(r"bbox_embed_(\d+)/layer_(\d+)/(kernel|bias)", p)
+        return (("input_proj.weight", "conv") if m.group(1) == "kernel"
+                else ("input_proj.bias", "copy"))
+    m = re.fullmatch(r"transformer/(encoder|decoder|track_attention)_layer_"
+                     r"(\d+)/(.*)", p)
+    if m:
+        which, i, rest = m.groups()
+        tk = (f"transformer.decoder.layers_track_attention.{i}"
+              if which == "track_attention"
+              else f"transformer.{which}.layers.{i}")
+        return (_mha(rest, "self_attn", tk + ".self_attn")
+                or _mha(rest, "multihead_attn", tk + ".multihead_attn")
+                or _ffn_norm(rest, tk))
+    m = re.fullmatch(r"transformer/(encoder|decoder)_norm/(scale|bias)", p)
+    if m:
+        return (f"transformer.{m.group(1)}.norm.{_norm(m.group(2))}",
+                "copy")
+
+    m = re.fullmatch(r"class_embed(?:_(\d+))?/(kernel|bias)", p)
+    if m:
+        i, kind = m.groups()
+        name, t = _dense(kind)
+        return f"class_embed.{i + '.' if i else ''}{name}", t
+    m = re.fullmatch(r"bbox_embed(?:_(\d+))?/layer_(\d+)/(kernel|bias)", p)
     if m:
         i, j, kind = m.groups()
         name, t = _dense(kind)
-        return f"bbox_embed.{i}.layers.{j}.{name}", t
+        return f"bbox_embed.{i + '.' if i else ''}layers.{j}.{name}", t
+    m = re.fullmatch(r"bbox_attention/(q_linear|k_linear)/(kernel|bias)", p)
+    if m:
+        name, t = _dense(m.group(2))
+        return f"bbox_attention.{m.group(1)}.{name}", t
+    m = re.fullmatch(r"mask_head/(lay\d|adapter\d|out_lay)/(kernel|bias)", p)
+    if m:
+        mod, kind = m.groups()
+        return (f"mask_head.{mod}.weight", "conv") if kind == "kernel" \
+            else (f"mask_head.{mod}.bias", "copy")
+    m = re.fullmatch(r"mask_head/(gn\d)/(scale|bias)", p)
+    if m:
+        return f"mask_head.{m.group(1)}.{_norm(m.group(2))}", "copy"
     m = re.fullmatch(r"reference_points/(kernel|bias)", p)
     if m:
         name, t = _dense(m.group(1))
@@ -257,7 +297,65 @@ def _layer_paths(prefix: str, rest: str, attn: Tuple[str, ...]):
     return None
 
 
-def _unchecked_jax_paths(key: str):
+def _vanilla_jax_paths(key: str):
+    """JAX paths of a vanilla DETR key that the Deformable family's keys
+    do not share."""
+    if key in ("input_proj.weight", "input_proj.bias"):
+        return [("input_proj/kernel", "conv") if key.endswith("weight")
+                else ("input_proj/bias", "copy")]
+    m = re.fullmatch(r"transformer\.(encoder|decoder)\.norm\.(weight|bias)",
+                     key)
+    if m:
+        leaf, t = _norm_leaf(m.group(2))
+        return [(f"transformer/{m.group(1)}_norm/{leaf}", t)]
+    m = re.fullmatch(r"transformer\.(encoder|decoder)\.layers\.(\d+)\.(.*)",
+                     key)
+    if m:
+        which, i, rest = m.groups()
+        return _layer_paths(f"transformer/{which}_layer_{i}", rest,
+                            ("self_attn", "multihead_attn"))
+    m = re.fullmatch(r"transformer\.decoder\.layers_track_attention\.(\d+)"
+                     r"\.(.*)", key)
+    if m:
+        return _layer_paths(f"transformer/track_attention_layer_{m.group(1)}",
+                            m.group(2), ("self_attn",))
+    m = re.fullmatch(r"class_embed\.(weight|bias)", key)
+    if m:
+        leaf, t = _dense_leaf(m.group(1))
+        return [(f"class_embed/{leaf}", t)]
+    m = re.fullmatch(r"bbox_embed\.layers\.(\d+)\.(weight|bias)", key)
+    if m:
+        leaf, t = _dense_leaf(m.group(2))
+        return [(f"bbox_embed/layer_{m.group(1)}/{leaf}", t)]
+    return None
+
+
+def _segm_jax_paths(key: str):
+    """JAX paths of a mask-head key (both families)."""
+    m = re.fullmatch(r"bbox_attention\.(q_linear|k_linear)\.(weight|bias)",
+                     key)
+    if m:
+        leaf, t = _dense_leaf(m.group(2))
+        return [(f"bbox_attention/{m.group(1)}/{leaf}", t)]
+    m = re.fullmatch(r"mask_head\.(lay\d|adapter\d|out_lay)\.(weight|bias)",
+                     key)
+    if m:
+        mod, leaf = m.groups()
+        return [(f"mask_head/{mod}/kernel", "conv") if leaf == "weight"
+                else (f"mask_head/{mod}/bias", "copy")]
+    m = re.fullmatch(r"mask_head\.(gn\d)\.(weight|bias)", key)
+    if m:
+        leaf, t = _norm_leaf(m.group(2))
+        return [(f"mask_head/{m.group(1)}/{leaf}", t)]
+    return None
+
+
+def _unchecked_jax_paths(key: str, vanilla: bool = False):
+    paths = _segm_jax_paths(key)
+    if paths or vanilla:
+        paths = paths or _vanilla_jax_paths(key)
+        if paths:
+            return paths
     m = re.fullmatch(r"backbone\.0\.body\.(.*)", key)
     if m:
         rest = re.sub(r"layer(\d)\.(\d+)\.", r"layer\1_\2/", m.group(1))
@@ -310,12 +408,13 @@ def _unchecked_jax_paths(key: str):
     return None
 
 
-def jax_path_for(key: str):
+def jax_path_for(key: str, vanilla: bool = False):
     """Port state-dict key -> [(JAX param path without "params/",
     transform)]: one path, or three for a packed `in_proj_*` (q, k, v in
-    order). Raises KeyError for a key with no JAX path; every path is
-    checked to map back to `key` through `torch_key_for`."""
-    paths = _unchecked_jax_paths(key)
+    order); `vanilla` for a key of a vanilla DETR model. Raises KeyError for
+    a key with no JAX path; every path is checked to map back to `key`
+    through `torch_key_for`."""
+    paths = _unchecked_jax_paths(key, vanilla)
     if not paths:
         raise KeyError(f"no JAX param for port key {key}")
     for path, transform in paths:
@@ -326,7 +425,7 @@ def jax_path_for(key: str):
 
 def _check_layout(keys, cfg) -> None:
     """Raise unless `keys` are those of a model built from `cfg`: its
-    encoder mode and its layer counts."""
+    family, mask head, encoder mode and layer counts."""
     def count(pattern):
         return len({m.group(1) for k in keys
                     for m in [re.match(pattern, k)] if m})
@@ -334,7 +433,9 @@ def _check_layout(keys, cfg) -> None:
     got = {"encoder layers": count(r"transformer\.encoder\.layers\.(\d+)\."),
            "decoder layers": count(r"transformer\.decoder\.layers\.(\d+)\."),
            "class heads": count(r"class_embed\.(\d+)\."),
-           "frame_embed": int("transformer.frame_embed" in keys)}
+           "frame_embed": int("transformer.frame_embed" in keys),
+           "vanilla": int("input_proj.weight" in keys),
+           "mask head": int("mask_head.out_lay.weight" in keys)}
     # the cached memory takes effect on a multi-frame model with a separate
     # encoder (`models.factory.cached_mode`); without box refinement one
     # head serves every decoder layer
@@ -344,7 +445,12 @@ def _check_layout(keys, cfg) -> None:
     want = {"encoder layers": cfg.enc_layers,
             "decoder layers": cfg.dec_layers,
             "class heads": cfg.dec_layers if cfg.with_box_refine else 1,
-            "frame_embed": int(bool(cached))}
+            "frame_embed": int(bool(cached)),
+            "vanilla": int(not cfg.deformable),
+            "mask head": int(bool(cfg.masks))}
+    if not cfg.deformable:
+        # one class head, unindexed; no cached memory
+        want.update({"class heads": 0, "frame_embed": 0})
     if got != want:
         raise ValueError(f"state dict does not fit the config: {got} against "
                          f"{want}")
@@ -357,15 +463,17 @@ def state_dict_to_jax_params(state_dict: Mapping, cfg=None) -> Dict:
     `in_proj_weight` / `in_proj_bias` split into q_proj, k_proj and v_proj.
     The inverse of `jax_params_to_state_dict`. Raises on a key with no JAX
     path and, given the `FlagshipConfig` of the model, on keys that are not
-    that model's."""
+    that model's. A state dict with `input_proj.weight` is vanilla DETR's,
+    whose keys map to its own JAX paths."""
     if cfg is not None:
         _check_layout(set(state_dict), cfg)
+    vanilla = "input_proj.weight" in state_dict
     tree: Dict = {}
     for key, value in state_dict.items():
         if isinstance(value, torch.Tensor):
             value = value.detach().to("cpu", torch.float32).numpy()
         a = np.asarray(value, dtype=np.float32)
-        paths = jax_path_for(key)
+        paths = jax_path_for(key, vanilla)
         parts = np.split(a, 3, 0) if len(paths) == 3 else [a]
         for (path, transform), part in zip(paths, parts):
             if transform == "conv":

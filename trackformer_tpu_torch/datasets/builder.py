@@ -5,8 +5,9 @@ and `collate_fn`, which pads each batch's images to the smallest of a few
 static (H, W) buckets (`tpu.image_buckets`) that holds them, and its
 targets to `max_objects` slots, so that a step sees one of a few shapes.
 The packs hold the port's `FrameBatch` / `Targets` as CPU tensors;
-`pack_to` moves one onto the model's device. `coco_panoptic` and masks
-raise `NotImplementedError` (ROADMAP Queue 1, item 6).
+`pack_to` moves one onto the model's device. With masks each target's
+masks are padded to the batch's bucket (`Targets.masks` (B, T, H, W)).
+`coco_panoptic` raises `NotImplementedError` (ROADMAP Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -89,9 +90,11 @@ def pad_image(img: np.ndarray, bucket: Tuple[int, int]) -> np.ndarray:
     return np.pad(img, ((0, bh - h), (0, bw - w), (0, 0)))
 
 
-def pad_targets(targets: List[Dict], max_objects: int) -> Targets:
+def pad_targets(targets: List[Dict], max_objects: int,
+                mask_hw: Optional[Tuple[int, int]] = None) -> Targets:
     """Ragged numpy targets -> `Targets` of `max_objects` slots (objects
-    past it dropped), boxes normalized cxcywh as the datasets give them."""
+    past it dropped), boxes normalized cxcywh as the datasets give them;
+    with `mask_hw` the masks padded (or cut) to it."""
     b, t = len(targets), max_objects
     labels = np.zeros((b, t), np.int32)
     boxes = np.zeros((b, t, 4), np.float32)
@@ -102,6 +105,8 @@ def pad_targets(targets: List[Dict], max_objects: int) -> Targets:
     orig_size = np.zeros((b, 2), np.int32)
     size = np.zeros((b, 2), np.int32)
     image_id = np.zeros((b,), np.int32)
+    masks = (np.zeros((b, t) + tuple(mask_hw), bool)
+             if mask_hw is not None else None)
     for i, tg in enumerate(targets):
         n = min(len(tg["labels"]), t)
         labels[i, :n] = tg["labels"][:n]
@@ -113,9 +118,15 @@ def pad_targets(targets: List[Dict], max_objects: int) -> Targets:
         orig_size[i] = tg["orig_size"]
         size[i] = tg["size"]
         image_id[i] = tg["image_id"]
+        if masks is not None and "masks" in tg and len(tg["masks"]):
+            mh = min(tg["masks"].shape[1], mask_hw[0])
+            mw = min(tg["masks"].shape[2], mask_hw[1])
+            masks[i, :n, :mh, :mw] = tg["masks"][:n, :mh, :mw]
     arrays = dict(labels=labels, boxes=boxes, valid=valid,
                   track_ids=track_ids, orig_size=orig_size, size=size,
                   image_id=image_id, area=area, iscrowd=iscrowd)
+    if masks is not None:
+        arrays["masks"] = masks
     return Targets(**{k: torch.from_numpy(v) for k, v in arrays.items()})
 
 
@@ -124,10 +135,8 @@ def collate_fn(samples: List[Dict], buckets: Sequence[Tuple[int, int]],
                fallback: Optional[Tuple[int, int]] = None) -> Dict:
     """Dataset samples -> a pack: `batch` / `targets` and, for tracking,
     `prev_batch` / `prev_targets`, every frame padded to one bucket
-    (`bucket_for`)."""
-    if with_masks:
-        raise NotImplementedError("mask targets are not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+    (`bucket_for`); with `with_masks` the targets carry masks at the
+    bucket's size."""
     frames = [("image", "target", "batch", "targets"),
               ("prev_image", "prev_target", "prev_batch", "prev_targets")]
     all_hw = [s[k].shape[:2] for s in samples for k, *_ in frames if k in s]
@@ -143,7 +152,8 @@ def collate_fn(samples: List[Dict], buckets: Sequence[Tuple[int, int]],
         pack[batch_name] = FrameBatch.from_images(torch.from_numpy(imgs),
                                                   torch.from_numpy(valid_hw))
         pack[targets_name] = pad_targets([s[tgt_key] for s in samples],
-                                         max_objects)
+                                         max_objects,
+                                         bucket if with_masks else None)
     return pack
 
 

@@ -8,9 +8,10 @@ off, `sample_weights`, and `build_coco`.
 
 Images load through `image_io.read_frame` (Pillow) as float32 HWC in
 [0, 1]; targets are numpy dicts of ragged arrays that
-`builder.collate_fn` pads into fixed-shape `Targets`. Masks and the
-previous-previous frame raise `NotImplementedError` naming their ROADMAP
-item.
+`builder.collate_fn` pads into fixed-shape `Targets`. With `return_masks`
+each annotation's segmentation (polygons or RLE, `utils/rle.py`) becomes an
+(H, W) bool mask. The previous-previous frame raises `NotImplementedError`
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -20,10 +21,11 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils import rle
 from . import transforms as T
 from .image_io import read_frame
 
-FIELDS = ("boxes", "labels", "area", "iscrowd", "track_ids")
+FIELDS = ("boxes", "labels", "area", "iscrowd", "track_ids", "masks")
 
 
 class CocoDetection:
@@ -32,9 +34,6 @@ class CocoDetection:
                  prev_prev_frame: bool = False, return_masks: bool = False,
                  min_num_objects: int = 0, overflow_boxes: bool = False,
                  remove_no_obj_imgs: bool = False):
-        if return_masks:
-            raise NotImplementedError("mask targets are not ported yet "
-                                      "(ROADMAP Queue 1, item 6)")
         if prev_prev_frame:
             raise NotImplementedError("the previous-previous frame "
                                       "(track_prev_prev_frame) is not ported "
@@ -42,6 +41,7 @@ class CocoDetection:
         self.root = Path(img_folder)
         self._transforms = transforms
         self._norm_transforms = norm_transforms
+        self.return_masks = return_masks
         self.overflow_boxes = overflow_boxes
         self._prev_frame = prev_frame
         self._prev_frame_rnd_augs = prev_frame_rnd_augs
@@ -91,12 +91,13 @@ class CocoDetection:
     def _prepare(self, image_id: int, img: np.ndarray) -> Dict:
         """The image's annotations as absolute xyxy boxes clipped to the
         image (unless `overflow_boxes`), 0-based labels, areas, crowd and
-        ignore flags and track ids (their index when none is given)."""
+        ignore flags, track ids (their index when none is given) and, with
+        `return_masks`, the (N, H, W) masks."""
         h, w = img.shape[:2]
         anns = [a for a in self.anns_by_image.get(image_id, [])
                 if a.get("iscrowd", 0) == 0 or a.get("ignore", 0)]
-        boxes, labels, areas, iscrowd, track_ids, ignore = \
-            [], [], [], [], [], []
+        boxes, labels, areas, iscrowd, track_ids, ignore, masks = \
+            [], [], [], [], [], [], []
         for a in anns:
             x, y, bw, bh = a["bbox"]
             x0, y0 = x, y
@@ -112,6 +113,10 @@ class CocoDetection:
             iscrowd.append(a.get("iscrowd", 0))
             track_ids.append(a.get("track_id", -1))
             ignore.append(a.get("ignore", 0))
+            if self.return_masks:
+                segm = a.get("segmentation")
+                masks.append(rle.segmentation_to_mask(segm, h, w)
+                             if segm else np.zeros((h, w), bool))
 
         target = {
             "image_id": np.int64(image_id),
@@ -126,6 +131,9 @@ class CocoDetection:
         }
         if all(t == -1 for t in target["track_ids"]):
             target["track_ids"] = np.arange(len(labels), dtype=np.int64)
+        if self.return_masks:
+            target["masks"] = (np.asarray(masks, bool) if masks
+                               else np.zeros((0, h, w), bool))
         return target
 
     def _getitem_from_id(self, idx: int, seed: int,

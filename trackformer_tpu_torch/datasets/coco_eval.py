@@ -1,14 +1,17 @@
-"""COCO-style detection mAP evaluation without pycocotools: the box part.
+"""COCO-style detection mAP evaluation without pycocotools: boxes and
+masks.
 
-The port's own copy of the box path of `trackformer_tpu/datasets/
+The port's own copy of the box and mask paths of `trackformer_tpu/datasets/
 coco_eval.py`: COCOeval's matching protocol per (image, category), greedy
 score-ordered matching against the ground truth at 10 IoU thresholds with
 crowd and ignore handling, 101-point interpolated precision-recall curves,
 the area-range and max-detection variants, and the 12 standard statistics.
-The merge of per-process predictions goes through `torch.distributed`
-when a process group is initialized. Mask (`segm`) and keypoint
-evaluation raise `NotImplementedError` until masks are ported (ROADMAP
-Queue 1, item 6).
+`segm` matches on mask IoU (RLE through `utils/rle.py`; a crowd ground
+truth divides by the detection's area, as pycocotools does) and takes the
+masks' areas for the area ranges. The merge of per-process predictions
+goes through `torch.distributed` when a process group is initialized.
+Keypoint evaluation raises `NotImplementedError` (ROADMAP Queue 1, item
+6).
 """
 from __future__ import annotations
 
@@ -28,11 +31,10 @@ AREA_RANGES = {
 
 
 def _check_iou_type(iou_type: str) -> None:
-    if iou_type in ("segm", "keypoints"):
-        raise NotImplementedError(
-            f"{iou_type} evaluation is not ported yet: it comes with the "
-            f"masks (ROADMAP Queue 1, item 6)")
-    if iou_type != "bbox":
+    if iou_type == "keypoints":
+        raise NotImplementedError("keypoints evaluation is not ported yet "
+                                  "(ROADMAP Queue 1, item 6)")
+    if iou_type not in ("bbox", "segm"):
         raise ValueError(f"Unknown iou type {iou_type}")
 
 
@@ -66,7 +68,7 @@ def box_iou_xywh(det: np.ndarray, gt: np.ndarray,
 
 class CocoEvaluator:
     """Accumulates per-image detections and computes COCO AP statistics
-    (`bbox` only)."""
+    (`bbox` and `segm`)."""
 
     def __init__(self, gt_dataset, iou_types: Sequence[str] = ("bbox",)):
         """gt_dataset: CocoDetection-like with `.anns_by_image`."""
@@ -77,12 +79,15 @@ class CocoEvaluator:
         self.predictions: Dict[int, dict] = {}
 
     def update(self, predictions: Dict[int, dict]) -> None:
-        """predictions: {image_id: {'boxes' xyxy, 'scores', 'labels'}}."""
+        """predictions: {image_id: {'boxes' xyxy, 'scores', 'labels'[,
+        'masks' (RLE dicts or (H, W) arrays)]}}."""
         self.predictions.update(predictions)
 
     def prepare(self, predictions: Dict[int, dict], iou_type: str):
         """The engine's prediction dict as COCO's result list."""
         _check_iou_type(iou_type)
+        if iou_type == "segm":
+            return self.prepare_for_coco_segmentation(predictions)
         return self.prepare_for_coco_detection(predictions)
 
     def prepare_for_coco_detection(self, predictions: Dict[int, dict]):
@@ -96,6 +101,26 @@ class CocoEvaluator:
             out.extend({"image_id": image_id, "category_id": labels[k],
                         "bbox": box, "score": scores[k]}
                        for k, box in enumerate(boxes))
+        return out
+
+    def prepare_for_coco_segmentation(self, predictions: Dict[int, dict]):
+        """Masks as compressed RLE (the port's codec), with their labels and
+        scores."""
+        from ..utils import rle as rle_codec
+
+        out = []
+        for image_id, pred in predictions.items():
+            if not len(pred.get("masks", ())):
+                continue
+            scores = np.asarray(pred["scores"]).tolist()
+            labels = np.asarray(pred["labels"]).tolist()
+            for k, m in enumerate(pred["masks"]):
+                enc = (m if isinstance(m, dict)
+                       else rle_codec.encode_mask(np.asarray(m) > 0.5))
+                if isinstance(enc.get("counts"), bytes):
+                    enc = dict(enc, counts=enc["counts"].decode())
+                out.append({"image_id": image_id, "category_id": labels[k],
+                            "segmentation": enc, "score": scores[k]})
         return out
 
     def synchronize_between_processes(self) -> None:
@@ -112,6 +137,35 @@ class CocoEvaluator:
         for shard in shards:
             merged.update(shard)
         self.predictions = merged
+
+    def _mask_iou(self, pred, det_idx, anns, g_crowd, img_id):
+        """Mask IoU matrix and the detections' mask areas (pycocotools'
+        `maskUtils.iou`: a crowd ground truth divides by the detection's
+        area)."""
+        from ..utils import rle
+
+        img_info = getattr(self.gt, "images", {}).get(img_id, {})
+        d_masks = []
+        for i in det_idx:
+            m = pred["masks"][int(i)]
+            d_masks.append(rle.decode_mask(m) if isinstance(m, dict)
+                           else np.asarray(m, bool))
+        if d_masks:
+            h, w = d_masks[0].shape
+        else:
+            h = img_info.get("height", 1)
+            w = img_info.get("width", 1)
+        g_masks = [rle.segmentation_to_mask(a["segmentation"], h, w)
+                   for a in anns]
+        d_area = np.array([m.sum() for m in d_masks], np.float64)
+        ious = np.zeros((len(d_masks), len(g_masks)))
+        for di, dm in enumerate(d_masks):
+            for gj, gm in enumerate(g_masks):
+                inter = np.logical_and(dm, gm).sum()
+                union = dm.sum() if g_crowd[gj] else \
+                    dm.sum() + gm.sum() - inter
+                ious[di, gj] = inter / max(union, 1e-12)
+        return ious, d_area
 
     def _evaluate_images(self, cat_id: Optional[int], area_rng, max_det,
                          iou_type: str = "bbox"):
@@ -152,7 +206,11 @@ class CocoEvaluator:
                 np.zeros(0)
 
             _check_iou_type(iou_type)
-            ious = box_iou_xywh(d_xywh, g_boxes, g_crowd)
+            if iou_type == "segm":
+                ious, d_area = self._mask_iou(pred, det_idx, anns, g_crowd,
+                                              img_id)
+            else:
+                ious = box_iou_xywh(d_xywh, g_boxes, g_crowd)
             t = len(IOU_THRS)
             tp = np.zeros((t, len(boxes)), bool)
             d_ig = np.zeros((t, len(boxes)), bool)

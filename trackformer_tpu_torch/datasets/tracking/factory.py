@@ -20,8 +20,6 @@ for split in ["TRAIN", "TEST", "ALL", "01", "02", "03", "04", "05", "06",
     DATASETS[f"MOT20-{split}"] = (
         lambda kw, s=split: MOT20Wrapper(s, **kw))
 
-# registered, as in the JAX package; building one raises until masks are
-# ported (ROADMAP Queue 1, item 6)
 for split in ["TRAIN", "TEST", "ALL", "01", "02", "05", "06", "07", "09",
               "11", "12"]:
     DATASETS[f"MOTS20-{split}"] = (

@@ -3,11 +3,14 @@ from __future__ import annotations
 
 from .mot17_sequence import MOT17Sequence
 from .mot20_sequence import MOT20Sequence
+from .mots20_sequence import MOTS20Sequence
 
 MOT17_TRAIN = ["02", "04", "05", "09", "10", "11", "13"]
 MOT17_TEST = ["01", "03", "06", "07", "08", "12", "14"]
 MOT20_TRAIN = ["01", "02", "03", "05"]
 MOT20_TEST = ["04", "06", "07", "08"]
+MOTS20_TRAIN = ["02", "05", "09", "11"]
+MOTS20_TEST = ["01", "06", "07", "12"]
 
 
 def _expand(split: str, train: list, test: list) -> list:
@@ -51,6 +54,6 @@ class MOT20Wrapper(_Wrapper):
 
 class MOTS20Wrapper(_Wrapper):
     def __init__(self, split: str, **kwargs):
-        raise NotImplementedError(
-            f"MOTS20-{split}: mask sequences are not ported yet (ROADMAP "
-            f"Queue 1, item 6)")
+        names = _expand(split, MOTS20_TRAIN, MOTS20_TEST)
+        super().__init__([MOTS20Sequence(seq_name=f"MOTS20-{n}", **kwargs)
+                          for n in names])

@@ -13,8 +13,8 @@ augmentation matches its previous frame's. Images are numpy float32 HWC
 in [0, 1] (or uint8); the resize goes through Pillow on uint8, as the JAX
 package's does, so that the pipelines give the same arrays bit for bit.
 The serving path preprocesses its frames natively instead
-(`tracking/mot17_sequence.py:preprocess_frame`). Masks raise
-`NotImplementedError` (ROADMAP Queue 1, item 6).
+(`tracking/mot17_sequence.py:preprocess_frame`). Masks (N, H, W) bool follow
+the crop, the flip, the resize (Pillow's nearest filter) and the pad.
 """
 from __future__ import annotations
 
@@ -30,17 +30,14 @@ def _box_area(b):
     return np.maximum(b[:, 2] - b[:, 0], 0) * np.maximum(b[:, 3] - b[:, 1], 0)
 
 
-def _no_masks(target: Optional[Dict]) -> None:
-    if target is not None and target.get("masks") is not None \
-            and len(target["masks"]):
-        raise NotImplementedError("transforming masks is not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+def _has_masks(target: Optional[Dict]) -> bool:
+    return target is not None and target.get("masks") is not None \
+        and len(target["masks"]) > 0
 
 
 def crop(img: np.ndarray, target: Dict, region: Tuple[int, int, int, int],
          overflow_boxes: bool = False):
     """region = (top, left, height, width); boxes xyxy absolute."""
-    _no_masks(target)
     i, j, h, w = region
     img = img[i:i + h, j:j + w]
     target = dict(target)
@@ -60,17 +57,19 @@ def crop(img: np.ndarray, target: Dict, region: Tuple[int, int, int, int],
         target["boxes"] = boxes.astype(np.float32)
         target["area"] = _box_area(boxes)
         _filter(target, keep)
+    if _has_masks(target):
+        target["masks"] = target["masks"][:, i:i + h, j:j + w]
     return img, target
 
 
 def _filter(target: Dict, keep: np.ndarray):
-    for key in ("boxes", "labels", "area", "iscrowd", "track_ids", "ignore"):
+    for key in ("boxes", "labels", "area", "iscrowd", "track_ids", "masks",
+                "ignore"):
         if key in target and target[key] is not None and len(target[key]):
             target[key] = target[key][keep]
 
 
 def hflip(img: np.ndarray, target: Dict):
-    _no_masks(target)
     img = img[:, ::-1].copy()
     target = dict(target)
     h, w = img.shape[:2]
@@ -78,6 +77,8 @@ def hflip(img: np.ndarray, target: Dict):
         b = target["boxes"]
         target["boxes"] = np.stack(
             [w - b[:, 2], b[:, 1], w - b[:, 0], b[:, 3]], axis=1)
+    if _has_masks(target):
+        target["masks"] = target["masks"][:, :, ::-1].copy()
     return img, target
 
 
@@ -99,10 +100,10 @@ def resize(img: np.ndarray, target: Optional[Dict], size,
            max_size: Optional[int] = None):
     """uint8, or float in [0, 1] (taken to uint8 as the JAX package does),
     (H, W, 3) -> float32 in [0, 1] at the target size, by Pillow's bilinear
-    filter; boxes (absolute xyxy), area and size of `target` follow."""
+    filter; boxes (absolute xyxy), area, size and masks (nearest filter)
+    of `target` follow."""
     from PIL import Image
 
-    _no_masks(target)
     h, w = img.shape[:2]
     if isinstance(size, (list, tuple)):
         nh, nw = size
@@ -122,6 +123,11 @@ def resize(img: np.ndarray, target: Optional[Dict], size,
         target["area"] = target.get("area", _box_area(target["boxes"])) \
             * (rw * rh)
     target["size"] = np.array([nh, nw], np.int64)
+    if _has_masks(target):
+        target["masks"] = np.stack([
+            np.asarray(Image.fromarray(m.astype(np.uint8)).resize(
+                (nw, nh), Image.NEAREST)) for m in target["masks"]]
+        ).astype(bool)
     return img_r, target
 
 
@@ -199,12 +205,14 @@ class RandomPad:
         self.max_pad = max_pad
 
     def __call__(self, img, target, rng):
-        _no_masks(target)
         pr = int(rng.integers(0, self.max_pad + 1))
         pb = int(rng.integers(0, self.max_pad + 1))
         img = np.pad(img, ((0, pb), (0, pr), (0, 0)))
         target = dict(target)
         target["size"] = np.array(img.shape[:2], np.int64)
+        if _has_masks(target):
+            target["masks"] = np.pad(target["masks"],
+                                     ((0, 0), (0, pb), (0, pr)))
         return img, target
 
 

@@ -7,15 +7,18 @@ Counterpart of `trackformer_tpu/engine/loop.py`:
     `torch.profiler` trace of a few steady steps where the JAX package
     starts its own;
   * `make_results`: model outputs -> per-image detections at the original
-    size, object-query slots only, 1-based labels;
+    size, object-query slots only, 1-based labels, and with
+    `postprocess_segm` each query's mask cropped to the image, rescaled to
+    its original size and RLE-encoded;
   * `evaluate`: the eval forward (the model in eval mode, under
     `torch.inference_mode`), the criterion's losses as the JAX `eval_step`
-    computes them, COCO box AP (`datasets/coco_eval.py`) and, for a
-    tracking model with `tracking_eval`, the in-process tracking eval: the
-    port's `cli.track` re-entered with the live model, its MOTA and IDF1.
+    computes them, COCO box AP (`datasets/coco_eval.py`), mask AP for a
+    mask model (`masks`) and, for a tracking model with `tracking_eval`,
+    the in-process tracking eval: the port's `cli.track` re-entered with
+    the live model, its MOTA and IDF1.
 
-Masks (`segm`) and panoptic evaluation raise `NotImplementedError`,
-naming the ROADMAP Queue 1 item that brings them.
+Panoptic evaluation raises `NotImplementedError`, naming the ROADMAP
+Queue 1 item that brings it.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import math
 import sys
 from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from ..models.criterion import compute_losses
@@ -82,16 +86,16 @@ def train_one_epoch(train_step: Callable, state, loader: Iterable[Dict],
 
 
 def make_results(outputs: Dict, targets, postprocess: Callable,
-                 num_object_queries: int,
-                 postprocess_segm=None) -> Dict[int, dict]:
+                 num_object_queries: int, postprocess_segm=None,
+                 batch=None) -> Dict[int, dict]:
     """Model outputs -> {image id: {"boxes" xyxy at the original size,
     "scores", "labels" (1-based category ids)}} as numpy. Only the
     object-query slots (the last `num_object_queries`) feed detection
-    eval; track-query slots before them are dropped."""
-    if postprocess_segm is not None:
-        raise NotImplementedError("mask results (segm) are not ported yet: "
-                                  "they come with the masks (ROADMAP Queue "
-                                  "1, item 6)")
+    eval; track-query slots before them are dropped. With
+    `postprocess_segm` and the `batch`, "masks": each query's mask
+    probabilities at the padded size, cropped to the image's valid part,
+    resized (bilinear, Pillow) to its original size and thresholded at
+    0.5, as RLE dicts."""
     res = postprocess(outputs, targets.orig_size)
     boxes = res["boxes"][:, -num_object_queries:].float().cpu().numpy()
     scores = res["scores"][:, -num_object_queries:].float().cpu().numpy()
@@ -100,6 +104,27 @@ def make_results(outputs: Dict, targets, postprocess: Callable,
     for i, img_id in enumerate(targets.image_id.cpu().numpy()):
         out[int(img_id)] = {"boxes": boxes[i], "scores": scores[i],
                             "labels": labels[i] + 1}
+    if postprocess_segm is not None and batch is not None \
+            and "pred_masks" in outputs:
+        from PIL import Image
+
+        from ..utils import rle
+        segm = postprocess_segm({}, outputs, batch.images.shape[1:3],
+                                return_probs=True)
+        probs = segm["masks"][:, -num_object_queries:].float().cpu().numpy()
+        sizes = targets.size.cpu().numpy()
+        origs = targets.orig_size.cpu().numpy()
+        for i, img_id in enumerate(targets.image_id.cpu().numpy()):
+            h_i, w_i = int(sizes[i, 0]), int(sizes[i, 1])
+            oh, ow = int(origs[i, 0]), int(origs[i, 1])
+            rles = []
+            for q in range(probs.shape[1]):
+                m = probs[i, q, :h_i, :w_i]
+                if (oh, ow) != (h_i, w_i):
+                    m = np.asarray(Image.fromarray(m).resize(
+                        (ow, oh), Image.BILINEAR))
+                rles.append(rle.encode_mask(m > 0.5))
+            out[int(img_id)]["masks"] = rles
     return out
 
 
@@ -109,9 +134,11 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
     """Evaluate `model` over `loader` (packs of `batch` and `targets`;
     `device_put` moves one onto the model's device) against `gt_dataset`
     (`.anns_by_image`, COCO boxes): the losses' averages, the 12 COCO
-    box statistics (`coco_eval_bbox`), `AP` and `AP50`. `args` carries
-    `num_queries` and optionally `vis_and_log_interval` (print frequency),
-    `masks`, `tracking` and `tracking_eval`; with the last two, also
+    box statistics (`coco_eval_bbox`), `AP` and `AP50`; with `masks` (and
+    `postprocessors["segm"]`) also the mask statistics (`coco_eval_masks`)
+    and `AP_masks`. `args` carries `num_queries` and optionally
+    `vis_and_log_interval` (print frequency), `masks`, `tracking` and
+    `tracking_eval`; with the last two, also
     `MOTA` and `IDF1` of the port's `cli.track` over `val_track_dataset`
     (default MOT17-TRAIN-ALL) under `data_root_dir` (default `data`) from
     its middle frame on, with `obj_detector_model` ((model,
@@ -119,15 +146,14 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
     model's device. The model is left in the mode it came in."""
     from ..datasets.coco_eval import CocoEvaluator
 
-    if getattr(args, "masks", False) or "segm" in postprocessors:
-        raise NotImplementedError("mask evaluation (segm) is not ported "
-                                  "yet (ROADMAP Queue 1, item 6)")
     if "panoptic" in postprocessors:
         raise NotImplementedError("panoptic evaluation is not ported yet "
                                   "(ROADMAP Queue 1, item 6)")
     logger = MetricLogger(getattr(args, "vis_and_log_interval", 50),
                           vis=vis, debug=getattr(args, "debug", False))
-    evaluator = CocoEvaluator(gt_dataset, ("bbox",))
+    with_masks = bool(getattr(args, "masks", False))
+    evaluator = CocoEvaluator(gt_dataset,
+                              ("bbox", "segm") if with_masks else ("bbox",))
     logged = set(criterion_cfg.weight_dict) | {"class_error",
                                                "cardinality_error"}
     was_training = model.training
@@ -140,9 +166,11 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
                 losses = compute_losses(out, targets, criterion_cfg)
             logger.update(**{k: float(v) for k, v in losses.items()
                              if k in logged})
-            evaluator.update(make_results(out, pack["targets"],
-                                          postprocessors["bbox"],
-                                          args.num_queries))
+            evaluator.update(make_results(
+                out, pack["targets"], postprocessors["bbox"],
+                args.num_queries,
+                postprocess_segm=(postprocessors.get("segm") if with_masks
+                                  else None), batch=pack["batch"]))
         logger.synchronize_between_processes()
         evaluator.synchronize_between_processes()
         coco_stats = evaluator.summarize()
@@ -150,6 +178,9 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
         stats["coco_eval_bbox"] = coco_stats["bbox"]
         stats["AP"] = coco_stats["bbox"][0]
         stats["AP50"] = coco_stats["bbox"][1]
+        if "segm" in coco_stats:
+            stats["coco_eval_masks"] = coco_stats["segm"]
+            stats["AP_masks"] = coco_stats["segm"][0]
         if getattr(args, "tracking", False) \
                 and getattr(args, "tracking_eval", False):
             stats.update(tracking_eval(model, args, obj_detector_model))

@@ -4,10 +4,11 @@ targets.
 Counterpart of `trackformer_tpu/models/criterion.py`: the label loss
 (softmax cross-entropy with the track-query false-positive eos reweighting,
 or sigmoid focal), cardinality error, L1 and GIoU box losses, and the
-recursion over the auxiliary decoder outputs. Every loss is a masked
-fixed-shape reduction: invalid query slots and padded target slots
-contribute exactly zero. The mask losses and the two-stage encoder outputs
-are not ported yet.
+recursion over the auxiliary decoder outputs, and the mask losses (focal and
+DICE on the matched queries' masks, upsampled to the targets' size) of the
+final output. Every loss is a masked fixed-shape reduction: invalid query
+slots and padded target slots contribute exactly zero. The two-stage
+encoder outputs are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from torch.nn import functional as F
 
 from ..ops import box_ops
-from ..ops.losses import sigmoid_binary_cross_entropy
+from ..ops.losses import (dice_loss, sigmoid_binary_cross_entropy,
+                          sigmoid_focal_loss)
 from ..structures import Targets
 from .matcher import MatcherConfig, match
 
@@ -143,9 +145,25 @@ def loss_boxes(outputs, targets: Targets, match_q, num_boxes,
 
 
 def loss_masks(outputs, targets: Targets, match_q, num_boxes,
-               cfg: CriterionConfig):
-    raise NotImplementedError("the mask losses are not ported yet "
-                              "(ROADMAP Queue 1, item 6)")
+               cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+    """Focal and DICE loss of the matched queries' masks: `pred_masks`
+    (B, Q, h, w) gathered at the match, upsampled bilinearly (half-pixel,
+    in float32) to the targets' (Hm, Wm); padded target slots zeroed."""
+    pred = outputs["pred_masks"].float()
+    b, t = match_q.shape
+    src = pred.gather(1, match_q[:, :, None, None].expand(
+        -1, -1, *pred.shape[-2:]))
+    tgt = targets.masks.float()                        # (B, T, Hm, Wm)
+    src = F.interpolate(src, size=tgt.shape[-2:], mode="bilinear",
+                        align_corners=False)
+    v = targets.valid.reshape(b * t)
+    src_f = src.reshape(b * t, -1)
+    tgt_f = tgt.reshape(b * t, -1)
+    focal = sigmoid_focal_loss(torch.where(v[:, None], src_f, 0.0)[None],
+                               torch.where(v[:, None], tgt_f, 0.0)[None],
+                               num_boxes, alpha=0.25, gamma=2.0)
+    return {"loss_mask": focal,
+            "loss_dice": dice_loss(src_f, tgt_f, num_boxes, valid=v)}
 
 
 LOSS_MAP = {
@@ -168,7 +186,7 @@ def compute_losses(outputs: Dict, targets: Targets, cfg: CriterionConfig,
         num_boxes = targets.valid.sum().float().clamp(min=1.0)
     label_fn = loss_labels_focal if cfg.focal_loss else loss_labels_ce
 
-    def run(outs, prefix="", log=True):
+    def run(outs, prefix="", log=True, with_masks=False):
         match_q = match(outs, targets, cfg.matcher)
         d = {}
         for name in cfg.losses:
@@ -176,12 +194,17 @@ def compute_losses(outputs: Dict, targets: Targets, cfg: CriterionConfig,
                 ld = label_fn(outs, targets, match_q, num_boxes, cfg)
                 if not log:
                     ld.pop("class_error", None)
+            elif name == "masks":
+                # the auxiliary outputs carry no masks
+                if not with_masks or "pred_masks" not in outs:
+                    continue
+                ld = loss_masks(outs, targets, match_q, num_boxes, cfg)
             else:
                 ld = LOSS_MAP[name](outs, targets, match_q, num_boxes, cfg)
             d.update({k + prefix: v for k, v in ld.items()})
         return d
 
-    losses = run(outputs)
+    losses = run(outputs, with_masks=True)
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
         losses.update(run(aux, prefix=f"_{i}", log=False))
     return losses

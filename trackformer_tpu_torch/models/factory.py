@@ -1,23 +1,27 @@
-"""Model factory: the flagship configuration -> (model, postprocessor),
-or for training (model, criterion config, postprocessor, tracking config).
+"""Model factory: a config -> (model, postprocess), or for training
+(model, criterion config, postprocess, tracking config).
 
-Counterpart of the part of `trackformer_tpu/models/factory.py` that builds
-the tracking model and its training companions. Only the configurations this
-port supports are accepted (`_check_supported`): the Deformable DETR family
-with sine positions, 4 feature levels and the MSDA decoder, single-frame or
-multi-frame (3-D or 2-D positions, a separate or a joint encoder), with or
-without box refinement, its encoder exact MSDA or windowed (window side 8;
-with the cached previous memory on the multi-frame separate-encoder model,
-`FlagshipConfig.tpu_fast()`); `tpu.scan_layers` builds the same model
-unrolled. `init_params` draws every weight from
-an explicit `torch.Generator` with the JAX package's initializers (flax
-defaults: lecun-normal kernels, zero biases; plus the model's own special
+Counterpart of `trackformer_tpu/models/factory.py`: the dataset's class
+count, the four model classes ({DETR, DeformableDETR} x {plain, Segm}),
+the criterion's loss weights (with the mask losses' and the auxiliary
+outputs' `_i` keys) and the postprocessors (softmax for a plain-CE head,
+sigmoid for a focal one, `postprocess_segm` for masks). The Deformable DETR
+family is taken with sine positions, 4 feature levels and the MSDA
+decoder, single-frame or multi-frame (3-D or 2-D positions, a separate or
+a joint encoder), with or without box refinement, its encoder exact MSDA
+or windowed (window side 8; with the cached previous memory on the
+multi-frame separate-encoder model, `FlagshipConfig.tpu_fast()`);
+`tpu.scan_layers` builds the same model unrolled. Vanilla DETR is taken
+with post- or pre-norm layers and track attention. What is not ported
+raises (`_check_supported`). `init_params` draws every weight from an
+explicit `torch.Generator` with the JAX package's initializers (flax
+defaults: lecun-normal kernels, zero biases; plus each model's own special
 inits), so a seed gives the same weights on every run of one device type.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +33,10 @@ from .backbone import FrozenBatchNorm2d
 from .criterion import CriterionConfig
 from .deformable_detr import DeformableDETR, InputProj
 from .deformable_transformer import MSDeformAttnModule
+from .detr import DETR
 from .matcher import MatcherConfig
-from .postprocess import postprocess_sigmoid
+from .postprocess import postprocess_sigmoid, postprocess_softmax
+from .segmentation import DeformableDETRSegm, DETRSegm, postprocess_segm
 from .tracking import TrackingConfig
 
 DATASET_NUM_CLASSES = {
@@ -62,23 +68,30 @@ def cached_mode(cfg: FlagshipConfig) -> bool:
 
 
 def _check_supported(cfg: FlagshipConfig) -> None:
-    """Raise `NotImplementedError` naming the ROADMAP item for a switch the
-    port has not taken yet: two-stage, merged frame features, the dense
-    decoder, learned positions, other than 4 feature levels, vanilla DETR
-    (`deformable` false), masks, softmax classes, exact MSDA with the
-    cached memory, or a window side other than 8."""
-    wanted = dict(deformable=True, two_stage=False, masks=False,
-                  focal_loss=True, merge_frame_features=False,
-                  decoder_attention="msda", position_embedding="sine",
-                  num_feature_levels=4)
+    """Raise `NotImplementedError` naming the ROADMAP item for what the
+    port has not taken yet: the panoptic dataset, learned positions,
+    two-stage, and on the Deformable DETR family merged frame features, the
+    dense decoder, other than 4 feature levels, exact MSDA with the cached
+    memory, a window side other than 8, and masks on the cached memory
+    (which appends the encoded memory to the feature pairs, shifting the
+    levels the mask head reads, in the JAX package as well)."""
+    wanted = dict(two_stage=False, position_embedding="sine")
+    if cfg.deformable:
+        wanted.update(merge_frame_features=False, decoder_attention="msda",
+                      num_feature_levels=4)
     bad = {k: getattr(cfg, k) for k, v in wanted.items()
            if getattr(cfg, k) != v}
-    mode = (cfg.encoder_attention, cached_mode(cfg))
-    if mode not in _ENCODER_MODES:
-        bad.update(encoder_attention=mode[0],
-                   cached_prev_memory=cfg.cached_prev_memory)
-    if cfg.encoder_attention == "windowed" and cfg.encoder_window != 8:
-        bad.update(encoder_window=cfg.encoder_window)
+    if cfg.dataset == "coco_panoptic":
+        bad.update(dataset=cfg.dataset)
+    if cfg.deformable:
+        mode = (cfg.encoder_attention, cached_mode(cfg))
+        if mode not in _ENCODER_MODES:
+            bad.update(encoder_attention=mode[0],
+                       cached_prev_memory=cfg.cached_prev_memory)
+        if cfg.encoder_attention == "windowed" and cfg.encoder_window != 8:
+            bad.update(encoder_window=cfg.encoder_window)
+        if cfg.masks and cached_mode(cfg):
+            bad.update(masks=True, cached_prev_memory=True)
     if bad:
         raise NotImplementedError(f"not ported yet (ROADMAP Queue 1, item "
                                   f"6): {bad}")
@@ -98,8 +111,9 @@ def msda_offset_bias(n_heads: int, n_levels: int, n_points: int
 
 
 @torch.no_grad()
-def init_params(model: DeformableDETR, generator: torch.Generator) -> None:
-    """Draw every parameter and buffer of `model` from `generator`."""
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter and buffer of `model` (a DETR or Deformable
+    DETR, with or without masks) from `generator`."""
     g = generator
 
     def lecun(w: torch.Tensor) -> None:
@@ -128,6 +142,10 @@ def init_params(model: DeformableDETR, generator: torch.Generator) -> None:
             for w in mod.in_proj_weight.chunk(3):
                 lecun(w)
             mod.in_proj_bias.zero_()
+    if not isinstance(model, DeformableDETR):
+        # vanilla DETR: flax defaults but for the unit-normal queries
+        model.query_embed.weight.normal_(0.0, 1.0, generator=g)
+        return
     for mod in model.modules():
         if isinstance(mod, InputProj):
             xavier(mod[0].weight)
@@ -152,8 +170,9 @@ def init_params(model: DeformableDETR, generator: torch.Generator) -> None:
 def train_configs(cfg: FlagshipConfig
                   ) -> Tuple[CriterionConfig, TrackingConfig]:
     """The criterion and track-query configs the JAX factory derives from
-    the same fields: matcher costs, the loss weights with their `_i` keys
-    for the auxiliary decoder outputs, and the augmentation
+    the same fields: matcher costs, the loss weights (with the mask and
+    dice weights and the `masks` loss on a masks model) with their `_i`
+    keys for the auxiliary decoder outputs, and the augmentation
     probabilities."""
     matcher = MatcherConfig(
         cost_class=cfg.set_cost_class, cost_bbox=cfg.set_cost_bbox,
@@ -162,6 +181,9 @@ def train_configs(cfg: FlagshipConfig
     weight_dict = {"loss_ce": cfg.cls_loss_coef,
                    "loss_bbox": cfg.bbox_loss_coef,
                    "loss_giou": cfg.giou_loss_coef}
+    if cfg.masks:
+        weight_dict.update(loss_mask=cfg.mask_loss_coef,
+                           loss_dice=cfg.dice_loss_coef)
     if cfg.aux_loss:
         aux = {}
         for i in range(cfg.dec_layers - 1):
@@ -173,7 +195,9 @@ def train_configs(cfg: FlagshipConfig
         focal_loss=cfg.focal_loss, focal_alpha=cfg.focal_alpha,
         focal_gamma=cfg.focal_gamma, tracking=cfg.tracking,
         track_query_false_positive_eos_weight=(
-            cfg.track_query_false_positive_eos_weight))
+            cfg.track_query_false_positive_eos_weight),
+        losses=("labels", "boxes", "cardinality")
+        + (("masks",) if cfg.masks else ()))
     tracking = TrackingConfig(
         false_positive_prob=cfg.track_query_false_positive_prob,
         false_negative_prob=cfg.track_query_false_negative_prob,
@@ -186,7 +210,10 @@ def build_model(cfg: FlagshipConfig,
                 generator: torch.Generator | None = None,
                 train: bool = False):
     """Build the model on `device` (the card unless the caller asks for the
-    CPU) in the config's compute dtype -> (model, postprocess). With a
+    CPU) in the config's compute dtype -> (model, postprocess): `DETR`,
+    `DeformableDETR` or, with `masks`, `DETRSegm` / `DeformableDETRSegm`;
+    `postprocess` is the box postprocessor, softmax for a plain-CE head
+    and sigmoid for a focal one (`postprocessors` adds `segm`). With a
     generator the weights are drawn from it; without one they are left
     uninitialized for `load_state_dict`. FrozenBN statistics stay float32,
     as the JAX package keeps its parameters float32 and casts them at use.
@@ -204,25 +231,34 @@ def build_model(cfg: FlagshipConfig,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
                            "to build on the CPU")
-    head_classes = DATASET_NUM_CLASSES[cfg.dataset] - 1  # focal: no bg slot
+    # a focal-loss head has no no-object slot
+    head_classes = DATASET_NUM_CLASSES[cfg.dataset] - int(cfg.focal_loss)
+    common = dict(num_queries=cfg.num_queries, hidden_dim=cfg.hidden_dim,
+                  nheads=cfg.nheads, enc_layers=cfg.enc_layers,
+                  dec_layers=cfg.dec_layers,
+                  dim_feedforward=cfg.dim_feedforward,
+                  backbone_name=cfg.backbone, dilation=cfg.dilation,
+                  aux_loss=cfg.aux_loss,
+                  dropout=cfg.dropout if train else 0.0)
     with torch.device("meta"):
-        model = DeformableDETR(
-            head_classes, num_queries=cfg.num_queries,
-            hidden_dim=cfg.hidden_dim, nheads=cfg.nheads,
-            enc_layers=cfg.enc_layers, dec_layers=cfg.dec_layers,
-            dim_feedforward=cfg.dim_feedforward,
-            num_feature_levels=cfg.num_feature_levels,
-            dec_n_points=cfg.dec_n_points, enc_n_points=cfg.enc_n_points,
-            backbone_name=cfg.backbone, dilation=cfg.dilation,
-            aux_loss=cfg.aux_loss,
-            encoder_window=(cfg.encoder_window
-                            if cfg.encoder_attention == "windowed" else None),
-            dropout=cfg.dropout if train else 0.0,
-            multi_frame=cfg.multi_frame_attention,
-            multi_frame_encoding=cfg.multi_frame_encoding,
-            separate_encoder=cfg.multi_frame_attention_separate_encoder,
-            cached_memory=cfg.cached_prev_memory,
-            with_box_refine=cfg.with_box_refine)
+        if cfg.deformable:
+            cls = DeformableDETRSegm if cfg.masks else DeformableDETR
+            model = cls(
+                head_classes, **common,
+                num_feature_levels=cfg.num_feature_levels,
+                dec_n_points=cfg.dec_n_points, enc_n_points=cfg.enc_n_points,
+                encoder_window=(cfg.encoder_window
+                                if cfg.encoder_attention == "windowed"
+                                else None),
+                multi_frame=cfg.multi_frame_attention,
+                multi_frame_encoding=cfg.multi_frame_encoding,
+                separate_encoder=cfg.multi_frame_attention_separate_encoder,
+                cached_memory=cfg.cached_prev_memory,
+                with_box_refine=cfg.with_box_refine)
+        else:
+            cls = DETRSegm if cfg.masks else DETR
+            model = cls(head_classes, **common, pre_norm=cfg.pre_norm,
+                        track_attention=cfg.track_attention)
     model.to_empty(device=device)
     if generator is not None:
         init_params(model, generator)
@@ -230,9 +266,20 @@ def build_model(cfg: FlagshipConfig,
     for mod in model.modules():
         if isinstance(mod, FrozenBatchNorm2d):
             mod.float()
+    postprocess = postprocessors(cfg)["bbox"]
     if train:
         model.train()
         criterion_cfg, tracking_cfg = train_configs(cfg)
-        return model, criterion_cfg, postprocess_sigmoid, tracking_cfg
+        return model, criterion_cfg, postprocess, tracking_cfg
     model.eval()
-    return model, postprocess_sigmoid
+    return model, postprocess
+
+
+def postprocessors(cfg: FlagshipConfig) -> Dict:
+    """The JAX factory's postprocessor dict: `bbox`, and `segm` for a masks
+    model."""
+    out = {"bbox": (postprocess_sigmoid if cfg.focal_loss
+                    else postprocess_softmax)}
+    if cfg.masks:
+        out["segm"] = postprocess_segm
+    return out

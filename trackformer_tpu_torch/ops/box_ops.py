@@ -81,3 +81,20 @@ def clip_boxes_to_image(boxes: torch.Tensor, size) -> torch.Tensor:
                                          device=boxes.device)
                          for v in (w, h, w, h)])
     return torch.minimum(boxes.clamp(min=0), limit)
+
+
+def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """xyxy boxes around binary masks (N, H, W) -> (N, 4), the right and
+    bottom edges one past the last pixel; an empty mask gives a zero box."""
+    n, h, w = masks.shape
+    dev = masks.device
+    m = masks > 0
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :]
+    big = 1e8
+    x_min = torch.where(m, xs, big).amin((1, 2))
+    y_min = torch.where(m, ys, big).amin((1, 2))
+    x_max = torch.where(m, xs, -big).amax((1, 2))
+    y_max = torch.where(m, ys, -big).amax((1, 2))
+    box = torch.stack([x_min, y_min, x_max + 1, y_max + 1], -1)
+    return torch.where(m.any(2).any(1)[:, None], box, 0.0)

@@ -1,9 +1,9 @@
-"""Loss primitives: elementwise sigmoid cross-entropy and the sigmoid focal
-loss.
+"""Loss primitives: elementwise sigmoid cross-entropy, the sigmoid focal
+loss and the DICE loss of the masks.
 
 Counterpart of `trackformer_tpu/ops/losses.py`: masked fixed-shape
 reductions, with an optional validity mask instead of boolean indexing over
-ragged targets. `dice_loss` waits for the mask head.
+ragged targets.
 """
 from __future__ import annotations
 
@@ -41,3 +41,19 @@ def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
     else:
         per_image = loss.sum(2).mean(1)
     return per_image.sum() / num_boxes
+
+
+def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
+              num_boxes: torch.Tensor,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DICE (F-1) loss of mask logits against binary targets, both (N, ...)
+    flattened per row; `valid` (N,) bool zeroes a row's term. Summed over
+    the rows and divided by `num_boxes`."""
+    probs = logits.sigmoid().reshape(logits.shape[0], -1)
+    targets = targets.reshape(targets.shape[0], -1)
+    numerator = 2.0 * (probs * targets).sum(1)
+    denominator = probs.sum(1) + targets.sum(1)
+    loss = 1.0 - (numerator + 1.0) / (denominator + 1.0)
+    if valid is not None:
+        loss = loss * valid
+    return loss.sum() / num_boxes

@@ -96,9 +96,10 @@ class Targets:
 
 
 def empty_targets(batch_size: int, max_objects: int,
-                  device: torch.device | str = torch.device("cuda")
-                  ) -> Targets:
-    """All-padding Targets (pure detection forward passes)."""
+                  device: torch.device | str = torch.device("cuda"),
+                  mask_hw: Optional[tuple] = None) -> Targets:
+    """All-padding Targets (pure detection forward passes); with `mask_hw`
+    all-zero masks of that size."""
     b, t = batch_size, max_objects
     return Targets(
         labels=torch.zeros(b, t, dtype=torch.int32, device=device),
@@ -110,4 +111,6 @@ def empty_targets(batch_size: int, max_objects: int,
         image_id=torch.zeros(b, dtype=torch.int32, device=device),
         area=torch.zeros(b, t, device=device),
         iscrowd=torch.zeros(b, t, dtype=torch.int32, device=device),
+        masks=(None if mask_hw is None else torch.zeros(
+            (b, t) + tuple(mask_hw), dtype=torch.bool, device=device)),
     )

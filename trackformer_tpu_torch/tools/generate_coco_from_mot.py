@@ -1,17 +1,19 @@
-"""MOT -> converted-COCO JSON, the annotations that `datasets/mot.py`
+"""MOT(S) -> converted-COCO JSON, the annotations that `datasets/mot.py`
 trains on.
 
 Counterpart of `tools/generate_coco_from_mot.py`: per image the
 frame_id / seq_length / first_frame_image_id fields and a symlink to the
 frame in `<data_root>/<split_name>/`; per annotation an int xywh box,
-track_id, visibility and ignore (visibility at most 0.25); the frame-range
-recipes, among them the cross-validation halves. MOTS (masks) raises
-`NotImplementedError` (ROADMAP Queue 1, item 6).
+track_id, visibility and ignore (visibility at most 0.25); for MOTS20
+(`mots`) the annotations of the mask ground truth instead: each mask's box
+and RLE segmentation, cars left out, class 10 ignored; the frame-range
+recipes, among them the cross-validation halves.
 
 Usage:
   python -m trackformer_tpu_torch.tools.generate_coco_from_mot mot17
   python -m trackformer_tpu_torch.tools.generate_coco_from_mot mot20 \
       --data-root data/MOT20
+  python -m trackformer_tpu_torch.tools.generate_coco_from_mot mots20
 """
 from __future__ import annotations
 
@@ -43,10 +45,10 @@ def generate_coco_from_mot(split_name: str, data_root: str,
                            frame_range=None, mots: bool = False):
     """Write `<data_root>/annotations/<split_name>.json` over the sequences
     of `<data_root>/<root_split>/` (those in `seqs_names`, if given),
-    keeping each sequence's frames in `frame_range` (fractions)."""
-    if mots:
-        raise NotImplementedError("MOTS (mask) annotations are not ported "
-                                  "yet (ROADMAP Queue 1, item 6)")
+    keeping each sequence's frames in `frame_range` (fractions); `mots`:
+    the sequences' MOTS mask ground truth."""
+    from ..datasets.tracking.mots20_sequence import load_mots_gt
+    from ..utils import rle
     frame_range = frame_range or {"start": 0.0, "end": 1.0}
     root_split_path = osp.join(data_root, root_split)
     coco_dir = osp.join(data_root, split_name)
@@ -109,6 +111,32 @@ def generate_coco_from_mot(split_name: str, data_root: str,
     for seq in seqs:
         gt_file = osp.join(root_split_path, seq, "gt", "gt.txt")
         if not osp.isfile(gt_file):
+            continue
+        if mots:
+            for frame_id, objs in load_mots_gt(gt_file).items():
+                for obj in objs:
+                    if obj["class_id"] == 1:  # cars left out
+                        continue
+                    image_id = name_to_id.get(f"{seq}_{frame_id:06d}.jpg")
+                    if image_id is None:
+                        continue
+                    ys, xs = rle.decode_mask(obj["mask"]).nonzero()
+                    if not len(ys):
+                        continue
+                    bbox = [int(xs.min()), int(ys.min()),
+                            int(xs.max() - xs.min() + 1),
+                            int(ys.max() - ys.min() + 1)]
+                    out["annotations"].append({
+                        "id": ann_id, "bbox": bbox, "image_id": image_id,
+                        "segmentation": {
+                            "size": obj["mask"]["size"],
+                            "counts": obj["mask"]["counts"]},
+                        "ignore": int(obj["class_id"] == 10),
+                        "visibility": 1.0, "area": bbox[2] * bbox[3],
+                        "iscrowd": 0, "seq": seq, "category_id": 1,
+                        "track_id": obj["track_id"] % 1000,
+                    })
+                    ann_id += 1
             continue
         is_mot15 = seq in MOT15_SEQS_INFO
         with open(gt_file) as f:

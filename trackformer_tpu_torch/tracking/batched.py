@@ -6,7 +6,8 @@ keeps its own slot state, ids and results; the track logic runs per
 sequence on its slice of the batched outputs (`make_tracker_step(...,
 batched=True)`). Sequences are grouped by padded frame shape; a shorter
 sequence keeps stepping on its last frame with its results discarded.
-Masks and attention maps are not ported.
+A mask model's per-track masks ride the same path as in the unbatched
+`Tracker`. Attention maps are not ported.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from ..structures import FrameBatch
-from .tracker import TrackerConfig, init_state, make_tracker_step
+from .tracker import (TrackerConfig, init_state, make_tracker_step,
+                      mask_hw_of)
 
 P_MAX = 128  # public-detection slots per frame, as in `Tracker.step`
 
@@ -25,10 +27,10 @@ class BatchedTracker:
 
     def __init__(self, model: torch.nn.Module, postprocess: Callable,
                  tracker_cfg: dict, hidden_dim: int, num_object_queries: int,
-                 overflow_boxes: bool = False):
+                 overflow_boxes: bool = False, with_masks: bool = False):
         self.cfg = TrackerConfig.from_dict(
             {**tracker_cfg, "num_object_queries": num_object_queries,
-             "overflow_boxes": overflow_boxes})
+             "overflow_boxes": overflow_boxes, "with_masks": with_masks})
         self.hidden_dim = hidden_dim
         self.device = next(model.parameters()).device
         self._step = make_tracker_step(model, postprocess, self.cfg,
@@ -62,15 +64,19 @@ class BatchedTracker:
         """Track all sequences (they must share a padded frame shape) in
         lockstep. Each sequence is a list of blobs as `Tracker.step` takes
         them. Returns one results dict per sequence,
-        {track_id: {frame: {"bbox", "score", "obj_ind"}}}."""
+        {track_id: {frame: {"bbox", "score", "obj_ind"[, "mask"]}}}."""
         b = len(sequences)
         spans = [(int(len(seq) * frame_range[0]),
                   int(len(seq) * frame_range[1])) for seq in sequences]
         lengths = [e - s for s, e in spans]
         max_len = max(lengths)
         results: List[Dict] = [dict() for _ in range(b)]
+        mask_hw = (mask_hw_of(sequences[0][spans[0][0]]["batch"].images
+                              .shape[1:3]) if self.cfg.with_masks else None)
         states = [init_state(self.cfg.max_tracks, self.hidden_dim,
-                             self.device) for _ in range(b)]
+                             self.device, mask_hw) for _ in range(b)]
+        keys = ("ids", "boxes", "scores", "obj_ind") + (
+            ("masks",) if self.cfg.with_masks else ())
         prev_feats = None
         with torch.inference_mode():
             for t in range(max_len):
@@ -78,16 +84,18 @@ class BatchedTracker:
                 states, frame_results, prev_feats = self._step(
                     states, batch, sizes, pubs, pubv, prev_feats)
                 res = {k: torch.stack([fr[k] for fr in frame_results])
-                       .cpu().numpy()
-                       for k in ("ids", "boxes", "scores", "obj_ind")}
+                       .cpu().numpy() for k in keys}
                 for i in range(b):
                     if t >= lengths[i]:
                         continue
                     for slot in np.nonzero(res["ids"][i] >= 0)[0]:
-                        results[i].setdefault(int(res["ids"][i][slot]), {})[
-                            t] = {"bbox": res["boxes"][i][slot],
-                                  "score": float(res["scores"][i][slot]),
-                                  "obj_ind": int(res["obj_ind"][i][slot])}
+                        entry = {"bbox": res["boxes"][i][slot],
+                                 "score": float(res["scores"][i][slot]),
+                                 "obj_ind": int(res["obj_ind"][i][slot])}
+                        if "masks" in res:
+                            entry["mask"] = res["masks"][i][slot]
+                        results[i].setdefault(int(res["ids"][i][slot]),
+                                              {})[t] = entry
                 if logger:
                     logger(t, max_len)
         return results

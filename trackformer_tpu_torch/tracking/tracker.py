@@ -9,14 +9,19 @@ appends the per-frame results.
 
 Semantics follow the JAX package, including its documented deviations:
 new tracks fill free slots in slot order, and surplus detections beyond
-the free slots are dropped. Segmentation masks and attention maps are not
-ported in this slice.
+the free slots are dropped. With `with_masks` (a mask model) every slot
+carries its mask probabilities at the mask head's stride-4 resolution of
+the padded frame; overlaps are resolved there (each pixel to the active
+track of the highest probability) and the host rescales the masks to the
+frame (`utils/track_utils.py:upscale_mask_results`). The box postprocess
+is the factory's: sigmoid for a focal head, softmax for a plain one.
+Attention maps are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +49,7 @@ class TrackerConfig:
     max_tracks: int = 150
     num_object_queries: int = 300
     overflow_boxes: bool = False
+    with_masks: bool = False
 
     @classmethod
     def from_dict(cls, d: dict, **kw) -> "TrackerConfig":
@@ -64,14 +70,16 @@ class TrackerState:
     count_term: torch.Tensor      # (S,)
     next_id: torch.Tensor         # ()
     num_reids: torch.Tensor       # ()
+    masks: Optional[torch.Tensor] = None  # (S, Hm, Wm) probabilities
 
     def replace(self, **changes) -> "TrackerState":
         return dataclasses.replace(self, **changes)
 
 
 def init_state(max_tracks: int, hidden_dim: int,
-               device: torch.device | str = torch.device("cuda")
-               ) -> TrackerState:
+               device: torch.device | str = torch.device("cuda"),
+               mask_hw: Optional[tuple] = None) -> TrackerState:
+    """Free slots; with `mask_hw` each with an all-zero mask."""
     s = max_tracks
 
     def ints(fill):
@@ -86,7 +94,16 @@ def init_state(max_tracks: int, hidden_dim: int,
         inactive=torch.zeros(s, dtype=torch.bool, device=device),
         count_inactive=ints(0), count_term=ints(0),
         next_id=torch.zeros((), dtype=torch.long, device=device),
-        num_reids=torch.zeros((), dtype=torch.long, device=device))
+        num_reids=torch.zeros((), dtype=torch.long, device=device),
+        masks=(None if mask_hw is None else
+               torch.zeros((s,) + tuple(mask_hw), device=device)))
+
+
+def mask_hw_of(hw) -> tuple:
+    """The mask head's output size for a padded frame of size `hw`: the
+    backbone's stride-4 level, ceil(ceil(h / 2) / 2) each way (the JAX
+    tracker probes it with a forward)."""
+    return tuple((int(x) + 3) // 4 for x in hw)
 
 
 def _positive_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -103,7 +120,7 @@ def _prune_inactive(state: TrackerState, cfg: TrackerConfig) -> TrackerState:
 
 
 def _scatter_new_tracks(state: TrackerState, det_keep, det_boxes,
-                        det_scores, det_hs, cfg: TrackerConfig):
+                        det_scores, det_hs, det_masks, cfg: TrackerConfig):
     """Occupy free slots (in slot order) with the kept detections. Writes
     for detections that find no slot go to a dummy extra slot, dropped."""
     s = cfg.max_tracks
@@ -133,7 +150,9 @@ def _scatter_new_tracks(state: TrackerState, det_keep, det_boxes,
         active=put(state.active, True),
         count_term=put(state.count_term, 0),
         count_inactive=put(state.count_inactive, 0),
-        next_id=state.next_id + n_new)
+        next_id=state.next_id + n_new,
+        masks=(state.masks if state.masks is None or det_masks is None
+               else put(state.masks, det_masks)))
     new_track_mask = put(torch.zeros(s, dtype=torch.bool, device=dev), True)
     return new_state, new_track_mask
 
@@ -163,8 +182,8 @@ def _public_detections_mask(cfg: TrackerConfig, det_boxes, det_keep,
     return det_keep & assigned
 
 
-def _reid(state: TrackerState, det_boxes, det_scores, det_hs, det_keep,
-          cfg: TrackerConfig):
+def _reid(state: TrackerState, det_boxes, det_scores, det_hs, det_masks,
+          det_keep, cfg: TrackerConfig):
     """Revive inactive tracks from the remaining detections. Returns
     (state, det_keep). Skipped when no slot is inactive or no detection
     remains."""
@@ -221,7 +240,10 @@ def _reid(state: TrackerState, det_boxes, det_scores, det_hs, det_keep,
         count_inactive=torch.where(reviving, 0, state.count_inactive),
         active=state.active | reviving,
         inactive=state.inactive & ~reviving,
-        num_reids=state.num_reids + reviving.sum())
+        num_reids=state.num_reids + reviving.sum(),
+        masks=(state.masks if state.masks is None or det_masks is None
+               else torch.where(reviving[:, None, None], det_masks[det_idx],
+                                state.masks)))
     # detections consumed by reid are removed
     consumed = torch.zeros(det_keep.shape, dtype=torch.long, device=dev)
     consumed.index_put_((det_idx,), reviving.long(), accumulate=True)
@@ -240,9 +262,10 @@ def _prepare_track_queries(state: TrackerState, orig_size: torch.Tensor,
 
 
 def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
-                 hs_all, public_boxes, public_valid, hw,
-                 cfg: TrackerConfig):
-    """All post-model track logic for one sequence."""
+                 hs_all, public_boxes, public_valid, hw, cfg: TrackerConfig,
+                 masks_all=None):
+    """All post-model track logic for one sequence; `masks_all` (S + Q, Hm,
+    Wm) mask probabilities or None."""
     s = cfg.max_tracks
     h, w = hw[0], hw[1]
     if not cfg.overflow_boxes:
@@ -265,7 +288,9 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
         count_term=ct,
         active=(state.active & ~to_inactive) | rk,
         inactive=(state.inactive | to_inactive) & ~rk,
-        num_reids=state.num_reids + rk.sum())
+        num_reids=state.num_reids + rk.sum(),
+        masks=(state.masks if masks_all is None else
+               torch.where(upd[:, None, None], masks_all[:s], state.masks)))
 
     # --- track NMS: suppressed slots are freed ---
     if cfg.track_nms_thresh:
@@ -278,12 +303,14 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
     # --- new detections ---
     d_scores, d_boxes = scores_all[s:], boxes_all[s:]
     d_labels, d_hs = labels_all[s:], hs_all[s:]
+    d_masks = None if masks_all is None else masks_all[s:]
     d_keep = (d_scores > cfg.detection_obj_score_thresh) & (d_labels == 0)
     d_keep = _public_detections_mask(cfg, d_boxes, d_keep, public_boxes,
                                      public_valid)
-    state, d_keep = _reid(state, d_boxes, d_scores, d_hs, d_keep, cfg)
+    state, d_keep = _reid(state, d_boxes, d_scores, d_hs, d_masks, d_keep,
+                          cfg)
     state, new_track_mask = _scatter_new_tracks(state, d_keep, d_boxes,
-                                                d_scores, d_hs, cfg)
+                                                d_scores, d_hs, d_masks, cfg)
 
     # --- detection NMS: old tracks pinned with an infinite score ---
     if cfg.detection_nms_thresh:
@@ -300,6 +327,14 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
     frame_results = {"ids": torch.where(state.active, state.ids, -1),
                      "boxes": res_boxes, "scores": state.scores,
                      "obj_ind": state.obj_ind}
+    if state.masks is not None:
+        # overlaps at head resolution: each pixel to the active track of
+        # the highest probability
+        active = state.active[:, None, None]
+        winner = torch.where(active, state.masks, -torch.inf).argmax(0)
+        slots = torch.arange(s, device=winner.device)[:, None, None]
+        frame_results["masks"] = ((state.masks > 0.5)
+                                  & (winner[None] == slots) & active)
     state = state.replace(
         count_inactive=state.count_inactive + state.inactive.long())
     if cfg.reid_sim_only:
@@ -338,12 +373,17 @@ def make_tracker_step(model: Callable, postprocess: Callable,
         out, _, features, _, _ = model(batch, targets, prev_features)
         res = postprocess(out, orig_sizes)
         hw = orig_sizes.float()
+        masks_all = (out["pred_masks"].sigmoid()
+                     if cfg.with_masks and "pred_masks" in out else None)
         new_states, frame_results = [], []
         for i, st in enumerate(states):
+            # carrying masks needs the model's masks and the slots' buffers
+            masks = (masks_all[i] if masks_all is not None
+                     and st.masks is not None else None)
             st, fr = _track_logic(st, res["boxes"][i], res["scores"][i],
                                   res["labels"][i], out["hs_embed"][i],
                                   public_boxes[i], public_valid[i], hw[i],
-                                  cfg)
+                                  cfg, masks)
             new_states.append(st)
             frame_results.append(fr)
         return new_states, frame_results, features
@@ -367,17 +407,18 @@ class Tracker:
 
     def __init__(self, model: torch.nn.Module, postprocess: Callable,
                  tracker_cfg: dict, hidden_dim: int, num_object_queries: int,
-                 overflow_boxes: bool = False):
+                 overflow_boxes: bool = False, with_masks: bool = False):
         self.cfg = TrackerConfig.from_dict(
             {**tracker_cfg, "num_object_queries": num_object_queries,
-             "overflow_boxes": overflow_boxes})
+             "overflow_boxes": overflow_boxes, "with_masks": with_masks})
         self.hidden_dim = hidden_dim
         self.device = next(model.parameters()).device
         self._step = make_tracker_step(model, postprocess, self.cfg)
         self.reset()
 
     def reset(self) -> None:
-        """Start a new sequence."""
+        """Start a new sequence (with masks, the slots' mask buffers are
+        sized at its first frame)."""
         self.state = init_state(self.cfg.max_tracks, self.hidden_dim,
                                 self.device)
         self._prev_features = deque([None], maxlen=self.cfg.prev_frame_dist)
@@ -390,8 +431,13 @@ class Tracker:
         (h, w), optional "dets": (P, 4) public detections}. The batch may
         hold numpy arrays or tensors on any device, as a sequence yields
         them; it is moved to the model's device (no copy if already
-        there)."""
+        there). A mask model's results carry each track's "mask" at the
+        mask head's resolution."""
         dev = self.device
+        if self.cfg.with_masks and self.state.masks is None:
+            hw = mask_hw_of(blob["batch"].images.shape[1:3])
+            self.state = self.state.replace(masks=torch.zeros(
+                (self.cfg.max_tracks,) + hw, device=dev))
         batch = FrameBatch(images=torch.as_tensor(blob["batch"].images,
                                                   device=dev),
                            mask=torch.as_tensor(blob["batch"].mask,
@@ -417,10 +463,12 @@ class Tracker:
         ids = res["ids"]
         for slot in np.nonzero(ids >= 0)[0]:
             tid = int(ids[slot])
-            self.results.setdefault(tid, {})[self.frame_index] = {
-                "bbox": res["boxes"][slot],
-                "score": float(res["scores"][slot]),
-                "obj_ind": int(res["obj_ind"][slot])}
+            entry = {"bbox": res["boxes"][slot],
+                     "score": float(res["scores"][slot]),
+                     "obj_ind": int(res["obj_ind"][slot])}
+            if "masks" in res:
+                entry["mask"] = res["masks"][slot]
+            self.results.setdefault(tid, {})[self.frame_index] = entry
         self.frame_index += 1
         self.num_reids = int(self.state.num_reids)
 

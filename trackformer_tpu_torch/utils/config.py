@@ -77,6 +77,10 @@ class FlagshipConfig:
     multi_frame_encoding: bool = True
     multi_frame_attention_separate_encoder: bool = True
     merge_frame_features: bool = False
+    # vanilla DETR (`deformable: false`): pre-norm layers and the
+    # dedicated track-query attention layers
+    pre_norm: bool = False
+    track_attention: bool = False
     # --- training (same YAML): optimization, matcher costs, losses,
     # track-query augmentation ---
     lr: float = 0.0002
@@ -95,6 +99,11 @@ class FlagshipConfig:
     bbox_loss_coef: float = 5.0
     giou_loss_coef: float = 2.0
     eos_coef: float = 0.1
+    mask_loss_coef: float = 1.0
+    dice_loss_coef: float = 1.0
+    # declared on the Segm models of the JAX package, which read it nowhere
+    # (the original freezes all but the mask head): no effect here either
+    freeze_detr: bool = False
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
     track_query_false_positive_prob: float = 0.1

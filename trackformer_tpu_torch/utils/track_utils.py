@@ -4,11 +4,11 @@ The port's own copy of the numpy part of `trackformer_tpu/utils/
 track_utils.py`: `get_mot_accum` builds a per-sequence accumulator from a
 tracker's results and the sequence's ground truth, `evaluate_mot_accums`
 summarizes and prints them, `interpolate_tracks` fills frame gaps inside
-each track; `plot_sequence` draws the tracked boxes onto the frames and
-`write_video` stitches the drawn frames into a video (matplotlib, and
-ffmpeg or Pillow, imported at the call). `upscale_mask_results` and the
-masks and attention maps of `plot_sequence` wait for masks (ROADMAP Queue
-1, item 6).
+each track, `upscale_mask_results` takes a mask model's tracker masks to
+the original frame size; `plot_sequence` draws the tracked boxes and masks
+onto the frames and `write_video` stitches the drawn frames into a video
+(matplotlib, and ffmpeg or Pillow, imported at the call). The attention
+maps of `plot_sequence` wait for ROADMAP Queue 1, item 6.
 """
 from __future__ import annotations
 
@@ -80,16 +80,39 @@ def interpolate_tracks(tracks: Dict[int, Dict[int, dict]]) -> Dict:
     return interpolated
 
 
-def upscale_mask_results(tracks, size_hw, orig_hw, pad_hw):
-    raise NotImplementedError("mask results are not ported yet (ROADMAP "
-                              "Queue 1, item 6)")
+def upscale_mask_results(tracks: Dict[int, Dict[int, dict]],
+                         size_hw, orig_hw, pad_hw) -> Dict:
+    """The tracker's masks, at the mask head's resolution of the padded
+    frame `pad_hw`, cropped to the frame's valid part `size_hw` and
+    resized (nearest, Pillow) to the original frame size `orig_hw`, for
+    the MOTS result files; entries without a mask are kept as they are."""
+    from PIL import Image
+
+    h, w = int(size_hw[0]), int(size_hw[1])
+    ph, pw = int(pad_hw[0]), int(pad_hw[1])
+    oh, ow = int(orig_hw[0]), int(orig_hw[1])
+    out: Dict[int, Dict[int, dict]] = {}
+    for tid, frames in tracks.items():
+        out[tid] = {}
+        for fi, data in frames.items():
+            data = dict(data)
+            if "mask" in data:
+                m = np.asarray(data["mask"])
+                mh, mw = m.shape
+                vh = max(1, int(round(mh * h / ph)))
+                vw = max(1, int(round(mw * w / pw)))
+                img = Image.fromarray(m[:vh, :vw].astype(np.uint8))
+                data["mask"] = np.asarray(
+                    img.resize((ow, oh), Image.NEAREST)).astype(bool)
+            out[tid][fi] = data
+    return out
 
 
 def plot_sequence(tracks: Dict, seq, output_dir: str,
                   write_images="pretty", generate_attention_maps=False):
-    """Draw the tracked boxes onto the sequence's frames and save them
-    under their own file names. `write_images`: 'debug' adds the score to
-    each label."""
+    """Draw the tracked boxes (and masks) onto the sequence's frames and
+    save them under their own file names. `write_images`: 'debug' adds the
+    score to each label."""
     if generate_attention_maps:
         raise NotImplementedError("attention maps are not ported yet "
                                   "(ROADMAP Queue 1, item 6)")
@@ -97,6 +120,8 @@ def plot_sequence(tracks: Dict, seq, output_dir: str,
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
     from matplotlib import colormaps
+
+    from PIL import Image
 
     from ..datasets.image_io import read_frame
 
@@ -112,9 +137,6 @@ def plot_sequence(tracks: Dict, seq, output_dir: str,
         for tid, track in tracks.items():
             if frame_idx not in track:
                 continue
-            if "mask" in track[frame_idx]:
-                raise NotImplementedError("drawing masks is not ported yet "
-                                          "(ROADMAP Queue 1, item 6)")
             x1, y1, x2, y2 = track[frame_idx]["bbox"][:4]
             color = cmap(tid % 20)
             ax.add_patch(plt.Rectangle((x1, y1), x2 - x1, y2 - y1,
@@ -123,6 +145,14 @@ def plot_sequence(tracks: Dict, seq, output_dir: str,
             if write_images == "debug":
                 label += f" {track[frame_idx].get('score', 0):.2f}"
             ax.text(x1, y1 - 2, label, color=color, fontsize=8)
+            if "mask" in track[frame_idx]:
+                mask = np.asarray(track[frame_idx]["mask"])
+                if mask.shape[:2] != (h, w):
+                    mask = np.asarray(Image.fromarray(
+                        mask.astype(np.uint8)).resize((w, h)))
+                overlay = np.zeros((h, w, 4))
+                overlay[mask > 0] = (*color[:3], 0.4)
+                ax.imshow(overlay)
         fig.savefig(osp.join(output_dir, osp.basename(path)),
                     bbox_inches="tight", pad_inches=0)
         plt.close(fig)
