@@ -63,10 +63,11 @@ def test_scenes_are_the_jax_tools(scale):
     train, held_out = port_det.make_scenes(sc)
     for (img, boxes), (jimg, jboxes) in zip(train + held_out, want):
         assert np.array_equal(img, jimg) and np.array_equal(boxes, jboxes)
-    for mode in ("exact", "fast", "fast_w8", "exact_f32_remat0"):
+    for mode in ("exact", "fast", "fast_w8", "exact_f32_remat0",
+                 "fast_w16", "fast_w16_f32"):
         assert port_det.mode_over(mode) == jtool._mode_over(mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        port_det.mode_over("fast_w16")
+    with pytest.raises(NotImplementedError, match="window side"):
+        port_det.mode_over("fast_w12")
     with pytest.raises(ValueError):
         port_det.mode_over("fast_x")
 

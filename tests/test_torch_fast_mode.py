@@ -105,17 +105,18 @@ def test_fast_config_matches_yaml():
                           load_config("train.yaml", NAMED))
 
 
-@pytest.mark.parametrize("mode", [("windowed", False, 16),
-                                  ("msda", True, 8)],
-                         ids=["windowed_uncached", "msda_cached"])
+@pytest.mark.parametrize("mode", [("windowed", False, 12),
+                                  ("windowed", True, 4)],
+                         ids=["windowed_uncached", "windowed_cached"])
 def test_factory_rejects_other_encoder_modes(mode):
-    """Exact MSDA with the cached memory, and the windowed encoder without
-    it at a window side no kernel takes (the uncached windowed encoder at
-    window 8 is ported: `test_torch_variants.py`)."""
+    """The windowed encoder, with or without the cached memory, at a
+    window side no kernel takes (sides 8 and 16 are ported, and exact MSDA
+    over the cached memory: `test_torch_variants.py`,
+    `test_torch_variants_rest.py`, `test_torch_window16.py`)."""
     cfg = FlagshipConfig().replace(encoder_attention=mode[0],
                                    cached_prev_memory=mode[1],
                                    encoder_window=mode[2])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="window sides"):
         build_model(cfg, "cpu")
 
 

@@ -253,7 +253,9 @@ def test_compute_losses_match_jax(case, focal):
 def test_unported_losses_raise():
     """The mask losses (focal and DICE of the matched queries' masks,
     upsampled 5x7 -> 17x26, with track queries and aux outputs) against
-    JAX; the two-stage encoder outputs still raise."""
+    JAX; the two-stage encoder outputs, which raised before they were
+    ported, now give the `_enc` losses of JAX (`test_torch_two_stage.py`
+    holds them at a model's proposals)."""
     out, tgt = make_case(6, 2, 6, 3, 4, [2, 3], k=4, n_aux=1)
     rng = np.random.RandomState(6)
     out["pred_masks"] = 2 * rng.randn(2, 10, 5, 7).astype(np.float32)
@@ -275,9 +277,16 @@ def test_unported_losses_raise():
         for key, value in want.items():
             np.testing.assert_allclose(got[key].numpy(), np.asarray(value),
                                        atol=TOL, rtol=TOL, err_msg=key)
-    with pytest.raises(NotImplementedError, match="two-stage"):
-        criterion.compute_losses({**tout, "enc_outputs": tout}, ttgt,
-                                 criterion.CriterionConfig(num_classes=3))
+    enc = {k: tout[k] for k in ("pred_logits", "pred_boxes")}
+    jenc = {k: jout[k] for k in ("pred_logits", "pred_boxes")}
+    got = criterion.compute_losses({**tout, "enc_outputs": enc}, ttgt,
+                                   criterion.CriterionConfig(num_classes=3))
+    want = jcriterion.compute_losses({**jout, "enc_outputs": jenc}, jtgt,
+                                     jcriterion.CriterionConfig(num_classes=3))
+    assert set(got) == set(want) and "loss_ce_enc" in got
+    for key, value in want.items():
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(value),
+                                   atol=TOL, rtol=TOL, err_msg=key)
 
 
 def test_loss_primitives_and_giou_match_jax():

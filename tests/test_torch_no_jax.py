@@ -15,7 +15,11 @@ tracking CLI over a MOTS20 sequence, the converter's MOTS mode and a debug
 epoch of `with mots20` with a loaded mask head), the single-frame
 Deformable DETR family (exact and
 windowed encoder, shared heads, in a `Tracker` and a detection train
-step) and both agreement tools at the `small` scale go through on the CPU, in a subprocess in which
+step), the rest of the family's switches (two-stage in a detection train
+step, the dense decoder, merged frame features, the exact cached memory,
+5 levels, ResNet-101 with DC5, window side 16, each in a `Tracker`), both
+agreement tools and a `fast_w16` probe at the `small` scale go through on
+the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -197,6 +201,27 @@ state = train_main(
      f"output_dir={out_dir}/train_run"], device="cpu")
 assert state.step == 2
 assert os.path.exists(out_dir + "/train_run/checkpoint_params.npz")
+# two-stage (the `_enc` losses) and the dense decoder through the training
+# CLI, the latter's checkpoint through the tracking CLI
+for extra, run in ((["two_stage=true"], "two_stage"),
+                   (["tpu.decoder_attention=dense"], "dense")):
+    state = train_main(
+        ["with", "deformable", "tracking", "multi_frame", "enc_layers=1",
+         "dec_layers=1", "hidden_dim=96", "nheads=4", "dim_feedforward=64",
+         "num_queries=8", "dataset=mot", f"mot_path_train={train_data}/MOT17",
+         f"mot_path_val={train_data}/MOT17", "train_split=mot17_train_coco",
+         "val_split=mot17_train_coco", "img_transform.val_width=64",
+         "img_transform.max_size=114", "tpu.image_buckets=[[128,128]]",
+         "tpu.max_objects=4", "tpu.compute_dtype=float32",
+         "tracking_eval=false", "epochs=1", "debug=true", "batch_size=1",
+         *extra, f"output_dir={out_dir}/{run}_run"], device="cpu")
+    assert state.step == 2
+assert track_main(["with", "dataset_name=MOT17-02-FRCNN",
+                   f"data_root_dir={data}",
+                   f"obj_detect_checkpoint_file={out_dir}/dense_run/"
+                   "checkpoint_params.npz",
+                   f"output_dir={out_dir}/dense_out", "tpu.max_tracks=4"],
+                  device="cpu") is not None
 
 # the MOTS20 recipe (`with mots20`, vanilla DETR with masks, softmax
 # classes): the tracking CLI over a MOTS20 sequence writing MOTS rows, the
@@ -253,7 +278,40 @@ for named, over in ((["deformable", "tracking"], {}),
                       {"batch": blob["batch"], "targets": targets}, gen)
     assert bool(torch.isfinite(metrics["loss"]))
 
-# the agreement tools, two steps of each arm at the small scale
+# the rest of the family's switches: a two-stage detection step, and a
+# Tracker over two frames of each other switch
+multi = ["deformable", "tracking", "multi_frame"]
+for named, over in ((["deformable", "tracking"], {"two_stage": True}),
+                    (multi, {"tpu.decoder_attention": "dense"}),
+                    (multi, {"merge_frame_features": True,
+                             "num_feature_levels": 5}),
+                    (multi, {"tpu.cached_prev_memory": True}),
+                    (["deformable", "tracking"], {"backbone": "resnet101",
+                                                  "dilation": True}),
+                    (multi + ["tpu_fast"], {"tpu.encoder_window": 16})):
+    rest = FlagshipConfig.from_config(load_config("train.yaml", named, {
+        "enc_layers": 1, "dec_layers": 2, "hidden_dim": 96, "nheads": 4,
+        "dim_feedforward": 64, "num_queries": 8, "dropout": 0.0,
+        "tpu.compute_dtype": "float32", **over})).replace(max_tracks=4)
+    if rest.two_stage:
+        model, crit, _, track = build_model(rest, "cpu", gen, train=True)
+        optimizer = make_optimizer(rest, model)
+        step = make_train_step(model, crit, optimizer, track, tracking=False)
+        _, metrics = step(TrainState.create(model, optimizer),
+                          {"batch": blob["batch"], "targets": targets}, gen)
+        assert bool(torch.isfinite(metrics["loss_ce_enc"]))
+        continue
+    model, post = build_model(rest, "cpu", torch.Generator().manual_seed(0))
+    tracker = Tracker(model, post, {**rest.tracker_cfg, "max_tracks": 4},
+                      rest.hidden_dim, rest.num_queries)
+    for _ in range(2):
+        tracker.step(blob)
+
+# the agreement tools, two steps of each arm at the small scale, and a
+# window-16 probe
+from trackformer_tpu_torch.tools import agree_probe
+probe = agree_probe.main(["2", "small", "fast_w16", "--device", "cpu"])
+assert probe["fast_w16"]["steps"] == 2
 from trackformer_tpu_torch.tools import fast_exact_agreement, tracking_agreement
 agree = fast_exact_agreement.main(["2", "small", "--device", "cpu", "--out",
                                    out_dir + "/agree.json"])

@@ -122,8 +122,9 @@ def test_from_config_gives_the_flagship():
                               "img_transform.val_width": 128}))
     assert (cfg.hidden_dim, cfg.compute_dtype, cfg.max_size,
             cfg.val_width) == (96, "float32", 170, 128)
-    # plain train.yaml builds vanilla DETR; what is not ported is refused
-    # by the factory, naming its item
+    # plain train.yaml builds vanilla DETR (with learned positions too,
+    # whose flag neither package's models read); what is not ported is
+    # refused by the factory, naming its item
     from trackformer_tpu_torch.models import build_model
     from trackformer_tpu_torch.models.detr import DETR
     vanilla = FlagshipConfig.from_config(tconfig.load_config(
@@ -131,8 +132,11 @@ def test_from_config_gives_the_flagship():
                            "tpu.compute_dtype": "float32"}))
     assert not vanilla.deformable and not vanilla.focal_loss
     assert type(build_model(vanilla, "cpu")[0]) is DETR
+    assert type(build_model(vanilla.replace(position_embedding="learned"),
+                            "cpu")[0]) is DETR
     with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(vanilla.replace(position_embedding="learned"), "cpu")
+        build_model(vanilla.replace(dataset="coco_panoptic", masks=True),
+                    "cpu")
 
 
 def test_dump_config_round_trips(tmp_path):

@@ -14,8 +14,10 @@ the same seeded frames with track queries:
     the cached memory;
 
 then the weight maps of shared heads and of the single-frame level embed
-both ways, and every still-unported switch (the panoptic dataset among
-them) raising `NotImplementedError` with its ROADMAP item.
+both ways, and every still-unported switch (the panoptic dataset, masks
+on the cached memory) raising `NotImplementedError` with its ROADMAP item
+(the other switches: `test_torch_variants_rest.py`,
+`test_torch_two_stage.py`, `test_torch_window16.py`).
 
 Tolerance: float32 on both sides, summed in different orders through a
 ResNet-50 and a few transformer layers: outputs to 1e-4 absolute and
@@ -214,16 +216,10 @@ def test_shared_heads_and_level_embed_map_both_ways():
 
 # every switch that is still to port, and the ROADMAP item its error names
 UNPORTED = {
-    "two_stage": dict(two_stage=True),
-    "merge_frame_features": dict(merge_frame_features=True),
-    "dense_decoder": dict(decoder_attention="dense"),
-    "learned_positions": dict(position_embedding="learned"),
-    "three_levels": dict(num_feature_levels=3),
-    "window_16": dict(encoder_attention="windowed", encoder_window=16),
-    "msda_cached": dict(cached_prev_memory=True),
     "coco_panoptic": dict(dataset="coco_panoptic", masks=True),
     "masks_cached_memory": dict(masks=True, encoder_attention="windowed",
                                 cached_prev_memory=True),
+    "masks_msda_cached_memory": dict(masks=True, cached_prev_memory=True),
 }
 
 

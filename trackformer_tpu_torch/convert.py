@@ -16,6 +16,16 @@ extended with the TPU-fast mode's params, which have no original key:
     `transformer.encoder.fuse.{i}.{up,down,norm}.{j}.{weight,bias}`;
   * `frame_embed` -> `transformer.frame_embed`;
 
+the Deformable family's other switches under the original TrackFormer
+keys: the two-stage `enc_output`, `enc_output_norm`, `pos_trans` and
+`pos_trans_norm` -> `transformer.{...}` (the proposals' head is the last
+`class_embed.{i}` / `bbox_embed.{i}`; `enc_class_embed` of a `scan_layers`
+model comes through `utils/checkpoint.py:bridge_scan_layout`),
+`merge_features_l` -> `merge_features.{l}`, and the dense decoder's
+`decoder_layers_i/cross_attn/{q,k,v}_proj` packed into
+`transformer.decoder.layers.{i}.cross_attn.in_proj_*` as torch's
+`nn.MultiheadAttention` lays it out;
+
 and with vanilla DETR's (`input_proj`, `transformer/{encoder,decoder,
 track_attention}_layer_i`, `transformer/{encoder,decoder}_norm`,
 `class_embed`, `bbox_embed/layer_j`) and the mask heads' of both families
@@ -132,6 +142,18 @@ def torch_key_for(path: str) -> KeyMap:
               "frame_embed": "transformer.frame_embed"}
     if p in embeds:
         return embeds[p], "copy"
+    m = re.fullmatch(r"(enc_output|pos_trans)/(kernel|bias)", p)
+    if m:
+        name, t = _dense(m.group(2))
+        return f"transformer.{m.group(1)}.{name}", t
+    m = re.fullmatch(r"(enc_output_norm|pos_trans_norm)/(scale|bias)", p)
+    if m:
+        return f"transformer.{m.group(1)}.{_norm(m.group(2))}", "copy"
+    m = re.fullmatch(r"merge_features_(\d+)/(kernel|bias)", p)
+    if m:
+        i, kind = m.groups()
+        return ((f"merge_features.{i}.weight", "conv") if kind == "kernel"
+                else (f"merge_features.{i}.bias", "copy"))
 
     m = re.fullmatch(r"encoder/layer_(\d+)/(.*)", p)
     if m:
@@ -155,6 +177,7 @@ def torch_key_for(path: str) -> KeyMap:
         i, rest = m.groups()
         tk = f"transformer.decoder.layers.{i}"
         return (_msda(rest, "cross_attn", tk + ".cross_attn")
+                or _mha(rest, "cross_attn", tk + ".cross_attn")
                 or _mha(rest, "self_attn", tk + ".self_attn")
                 or _ffn_norm(rest, tk))
 
@@ -379,6 +402,21 @@ def _unchecked_jax_paths(key: str, vanilla: bool = False):
               "transformer.frame_embed": "frame_embed"}
     if key in embeds:
         return [(embeds[key], "copy")]
+    m = re.fullmatch(r"transformer\.(enc_output|pos_trans)\.(weight|bias)",
+                     key)
+    if m:
+        leaf, t = _dense_leaf(m.group(2))
+        return [(f"{m.group(1)}/{leaf}", t)]
+    m = re.fullmatch(r"transformer\.(enc_output_norm|pos_trans_norm)\."
+                     r"(weight|bias)", key)
+    if m:
+        leaf, t = _norm_leaf(m.group(2))
+        return [(f"{m.group(1)}/{leaf}", t)]
+    m = re.fullmatch(r"merge_features\.(\d+)\.(weight|bias)", key)
+    if m:
+        i, leaf = m.groups()
+        return [(f"merge_features_{i}/kernel", "conv") if leaf == "weight"
+                else (f"merge_features_{i}/bias", "copy")]
     m = re.fullmatch(r"transformer\.encoder\.layers\.(\d+)\.(.*)", key)
     if m:
         return _layer_paths(f"encoder/layer_{m.group(1)}", m.group(2),
@@ -435,22 +473,38 @@ def _check_layout(keys, cfg) -> None:
            "class heads": count(r"class_embed\.(\d+)\."),
            "frame_embed": int("transformer.frame_embed" in keys),
            "vanilla": int("input_proj.weight" in keys),
-           "mask head": int("mask_head.out_lay.weight" in keys)}
+           "mask head": int("mask_head.out_lay.weight" in keys),
+           "two-stage": int("transformer.pos_trans.weight" in keys),
+           "input projections": count(r"input_proj\.(\d+)\."),
+           "merged levels": count(r"merge_features\.(\d+)\."),
+           "dense decoder": int(any(re.match(r"transformer\.decoder\.layers"
+                                             r"\.\d+\.cross_attn\.in_proj",
+                                             k) for k in keys))}
     # the cached memory takes effect on a multi-frame model with a separate
     # encoder (`models.factory.cached_mode`); without box refinement one
     # head serves every decoder layer
     cached = (cfg.cached_prev_memory and cfg.multi_frame_attention
               and cfg.multi_frame_attention_separate_encoder
               and not cfg.merge_frame_features)
+    two_stage = bool(cfg.two_stage)
+    levels = cfg.num_feature_levels
     want = {"encoder layers": cfg.enc_layers,
             "decoder layers": cfg.dec_layers,
-            "class heads": cfg.dec_layers if cfg.with_box_refine else 1,
+            "class heads": (cfg.dec_layers + int(two_stage)
+                            if cfg.with_box_refine else 1),
             "frame_embed": int(bool(cached)),
             "vanilla": int(not cfg.deformable),
-            "mask head": int(bool(cfg.masks))}
+            "mask head": int(bool(cfg.masks)),
+            "two-stage": int(two_stage),
+            "input projections": levels,
+            "merged levels": (min(4, levels) if cfg.merge_frame_features
+                              else 0),
+            "dense decoder": int(cfg.decoder_attention == "dense")}
     if not cfg.deformable:
         # one class head, unindexed; no cached memory
-        want.update({"class heads": 0, "frame_embed": 0})
+        want.update({"class heads": 0, "frame_embed": 0, "two-stage": 0,
+                     "input projections": 0, "merged levels": 0,
+                     "dense decoder": 0})
     if got != want:
         raise ValueError(f"state dict does not fit the config: {got} against "
                          f"{want}")

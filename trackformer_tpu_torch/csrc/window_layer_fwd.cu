@@ -2,8 +2,9 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel trackformer_tpu/ops/window_attn.py::_kernel
-// (called through _fused_window_layer). For every 8x8 window of the call
-// (NW windows of WS = 64 tokens, C channels, 8 heads of DH = C / 8):
+// (called through _fused_window_layer). For every window of the call (NW
+// windows of WS tokens, WS = 64 at window side 8 or 256 at side 16, C
+// channels, 8 heads of DH = C / 8):
 //
 //   q, k = (x + pos) Wq + bq, (x + pos) Wk + bk;   v = x Wv + bv
 //   a    = softmax(q k^T / sqrt(DH) with excluded keys at float32 min) v
@@ -20,9 +21,11 @@
 //
 // Every kernel is a template on C, instantiated at the two widths the
 // models take: C = 288 (8 heads of 36, the flagship) and C = 256 (8 heads
-// of 32, the single-frame Deformable DETR family). The entry points take C
-// and refuse any other. The product tiles follow C (128 x C or 64 x C,
-// warp tiles C / 4 wide); the attention's head segments stay 40 wide.
+// of 32, the single-frame Deformable DETR family); the two that see the
+// window (the bf16 attention and the float32 layer) also on WS, at 64 and
+// 256. The entry points take C (and WS) and refuse any other. The product
+// tiles follow C (128 x C or 64 x C, warp tiles C / 4 wide); the
+// attention's head segments stay 40 wide.
 //
 // What bounds it on this card: arithmetic. At the fast mode's B = 8 call
 // (NW = 3,040, R = NW * 64 = 194,560 tokens) the five products are 359
@@ -43,13 +46,14 @@
 //                         v); the q and k tiles take round(x + pos), formed
 //                         in shared memory as each slab lands (no x + pos
 //                         buffer), the v tiles take x.
-//   window_layer_attn     a block of 4 warps per (window, head): q, k, v
-//                         of the head in shared memory (d_head 36 or 32
-//                         padded to 40 with zeros), a warp per 16 query
-//                         rows, the
-//                         logits, softmax and probabilities in registers
-//                         (the accumulator of q k^T is the A operand of
-//                         p v, as in FlashAttention-2).
+//   window_layer_attn     a block of 4 warps per (window, head, 64 query
+//                         rows): k and v of the head's WS keys and q of
+//                         the block's rows in shared memory (d_head 36 or
+//                         32 padded to 40 with zeros), a warp per 16 query
+//                         rows against every key, the logits, softmax and
+//                         probabilities in registers (the accumulator of
+//                         q k^T is the A operand of p v, as in
+//                         FlashAttention-2; WS / 8 key tiles a warp).
 //   window_layer_proj_ln  a Wo, tiles of 64 whole rows; epilogue + bo, + x,
 //                         then LayerNorm 1 a warp per row -> x1.
 //   window_layer_ffn1     x1 W1, tiles of 128 x 128; relu(+ b1) -> h.
@@ -66,13 +70,16 @@
 // bytes so that the 8 rows an ldmatrix phase reads fall in distinct banks.
 // `window_layer_occupancy` reports the blocks per SM the card grants.
 //
-// float32 (the reference path): one block per window, scalar FMAs, as
-// before (`window_layer_f32`); its q|k|v weights in the per-head layout
-// padded to DHP (48 at d_head 36, 32 at d_head 32) that
+// float32 (the reference path): one block per (window, 64 query rows),
+// scalar FMAs (`window_layer_f32`): each block projects k and v of the
+// window's WS keys a head at a time, so a window of 256 tokens projects
+// them four times over; its q|k|v weights in the per-head layout padded to
+// DHP (48 at d_head 36, 32 at d_head 32) that
 // ops/window_attn.py:padded_qkv makes.
 //
-// wgmma, TMA, a persistent tile scheduler and the FFN with h kept on chip
-// are later work.
+// wgmma, TMA, a persistent tile scheduler, the FFN with h kept on chip and
+// the window-16 attention without its four-fold k / v staging are later
+// work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -84,7 +91,7 @@
 
 namespace {
 
-constexpr int WS = 64;                   // tokens per window
+constexpr int QT = 64;                   // query rows of a block (per window)
 constexpr int NH = 8;                    // heads
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -124,7 +131,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// LayerNorm over C of each of the 64 rows of src (row stride lds) into dst
+// LayerNorm over C of each of the QT rows of src (row stride lds) into dst
 // (row stride ldd; shared or global), one warp per row
 template <int C, typename T>
 __device__ __forceinline__ void layer_norm_rows(const T* src, int lds,
@@ -132,7 +139,7 @@ __device__ __forceinline__ void layer_norm_rows(const T* src, int lds,
                                                 T* dst, int ldd) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int r = warp; r < WS; r += WARPS) {
+  for (int r = warp; r < QT; r += WARPS) {
     float v[C / 32];
     float s = 0.f;
     float s2 = 0.f;
@@ -158,26 +165,38 @@ __device__ __forceinline__ void layer_norm_rows(const T* src, int lds,
   }
 }
 
-// softmax of each row of the 64 x 64 f32 logits into probabilities of
-// type T (row stride ldp; one warp per row, two columns per lane)
-template <typename T>
+// softmax of each of the QT rows of the QT x WS f32 logits (row stride WS)
+// into probabilities of type T (row stride ldp; in place where sPm is
+// sS), one warp per row, WS / 32 columns per lane
+template <int WS, typename T>
 __device__ __forceinline__ void softmax_rows(const float* sS, T* sPm,
                                              int ldp) {
+  constexpr int PER = WS / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int r = warp; r < WS; r += WARPS) {
-    const float v0 = sS[r * WS + lane];
-    const float v1 = sS[r * WS + lane + 32];
-    const float m = warp_max(fmaxf(v0, v1));
-    const float e0 = expf(v0 - m);
-    const float e1 = expf(v1 - m);
-    const float s = warp_sum(e0 + e1);
-    if constexpr (sizeof(T) == 2) {
-      sPm[r * ldp + lane] = to_bf(e0 / s);
-      sPm[r * ldp + lane + 32] = to_bf(e1 / s);
-    } else {
-      sPm[r * ldp + lane] = e0 / s;
-      sPm[r * ldp + lane + 32] = e1 / s;
+  for (int r = warp; r < QT; r += WARPS) {
+    float v[PER];
+    float m = -FLT_MAX;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      v[i] = sS[r * WS + lane + 32 * i];
+      m = fmaxf(m, v[i]);
+    }
+    m = warp_max(m);
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      v[i] = expf(v[i] - m);
+      s += v[i];
+    }
+    s = warp_sum(s);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        sPm[r * ldp + lane + 32 * i] = to_bf(v[i] / s);
+      } else {
+        sPm[r * ldp + lane + 32 * i] = v[i] / s;
+      }
     }
   }
 }
@@ -495,25 +514,39 @@ constexpr int AT_SEG = 40;
 constexpr int AT_LD = 3 * AT_SEG + 16;   // q | k | v | 16
 constexpr int AT_THREADS = 128;          // a warp per 16 query rows
 
-// qkv: (NW * 64, 3C) from stage 1; kp: (NW, 64) uint8, 1 = exclude the
-// key; out: (NW * 64, C), head h at columns DH h .. DH h + DH - 1. Block
-// per (window, head): blockIdx.x = window * 8 + head.
-template <int C>
+// shared bytes of the attention's block: WS rows of q | k | v | pad (q
+// filled only at the block's own rows)
+template <int WS>
+constexpr size_t attn_smem_bytes() {
+  return (size_t)WS * AT_LD * sizeof(bf16);
+}
+
+// qkv: (NW * WS, 3C) from stage 1; kp: (NW, WS) uint8, 1 = exclude the
+// key; out: (NW * WS, C), head h at columns DH h .. DH h + DH - 1. Block
+// per (window, head, QT query rows): blockIdx.x = (window * 8 + head) *
+// (WS / QT) + tile, so that the tiles of a head run side by side and read
+// its k and v from L2.
+template <int C, int WS>
 __global__ void __launch_bounds__(AT_THREADS)
     window_layer_attn_kernel(const bf16* __restrict__ qkv,
                              const uint8_t* __restrict__ kp,
                              bf16* __restrict__ out) {
   constexpr int DH = Width<C>::DH;
   static_assert(DH % 4 == 0 && DH <= AT_SEG, "d_head fits its segment");
+  static_assert(WS % QT == 0 && QT == 16 * (AT_THREADS / 32), "tiles");
+  constexpr int NQT = WS / QT;           // query tiles of a window
+  constexpr int NKT = WS / 8;            // 8-wide key tiles
   constexpr int WORDS = DH / 4;          // 8-byte words of a head segment
   constexpr int PADW = (AT_SEG - DH) / 4;
   constexpr int DH8 = (DH + 7) / 8 * 8;  // columns the products read
   constexpr int KS = (DH + 15) / 16;     // k steps of q k^T
   constexpr int NTO = (DH + 7) / 8;      // 8-wide column tiles of p v
-  __shared__ __align__(128) bf16 s[WS * AT_LD];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* s = reinterpret_cast<bf16*>(smem_raw);
   __shared__ bool excluded[WS];
-  const int win = blockIdx.x / NH;
-  const int h = blockIdx.x % NH;
+  const int win = blockIdx.x / (NH * NQT);
+  const int h = (blockIdx.x / NQT) % NH;
+  const int qrow0 = (blockIdx.x % NQT) * QT;
   const int tid = threadIdx.x;
   const bf16* src = qkv + (size_t)win * WS * 3 * C + h * DH;
   // the padding of each head segment, d_head .. 39: zeros, which the
@@ -525,28 +558,35 @@ __global__ void __launch_bounds__(AT_THREADS)
     *reinterpret_cast<uint2*>(s + r * AT_LD + seg * AT_SEG + DH +
                               4 * (i % PADW)) = make_uint2(0u, 0u);
   }
-  // q, k, v of the head: 64 rows x 3 segments x DH / 4 words of 8 bytes (a
+  // k and v of the head: WS rows x 2 segments x DH / 4 words of 8 bytes (a
   // head starts 2 DH bytes after the last: 8-byte aligned only at DH 36)
-  for (int i = tid; i < WS * 3 * WORDS; i += AT_THREADS) {
-    const int r = i / (3 * WORDS);
-    const int seg = (i % (3 * WORDS)) / WORDS;
+  for (int i = tid; i < WS * 2 * WORDS; i += AT_THREADS) {
+    const int r = i / (2 * WORDS);
+    const int seg = 1 + (i % (2 * WORDS)) / WORDS;
     const int w = i % WORDS;
     cp_async8(s + r * AT_LD + seg * AT_SEG + 4 * w,
               src + (size_t)r * 3 * C + seg * C + 4 * w);
   }
+  // q of the block's QT rows
+  for (int i = tid; i < QT * WORDS; i += AT_THREADS) {
+    const int r = qrow0 + i / WORDS;
+    const int w = i % WORDS;
+    cp_async8(s + r * AT_LD + 4 * w, src + (size_t)r * 3 * C + 4 * w);
+  }
   cp_async_commit();
-  if (tid < WS) excluded[tid] = kp[(size_t)win * WS + tid] != 0;
+  for (int i = tid; i < WS; i += AT_THREADS)
+    excluded[i] = kp[(size_t)win * WS + i] != 0;
   cp_async_wait<0>();
   __syncthreads();
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int t = lane & 3;
-  const int q0 = 16 * warp;
-  // logits of rows q0 + g, q0 + g + 8 against the 64 keys, 8 tiles of 8
-  float sc[8][4];
+  const int q0 = qrow0 + 16 * warp;
+  // logits of rows q0 + g, q0 + g + 8 against the WS keys, NKT tiles of 8
+  float sc[NKT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
@@ -558,7 +598,7 @@ __global__ void __launch_bounds__(AT_THREADS)
       a[3] = 0u;
     }
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < NKT / 2; ++p) {
       uint32_t kb[4];
       ldsm_x4(kb, s + (16 * p + (lane & 7) + ((lane >> 4) << 3)) * AT_LD +
                       AT_SEG + 16 * ks + ((lane >> 3) & 1) * 8);
@@ -569,7 +609,7 @@ __global__ void __launch_bounds__(AT_THREADS)
   const float scale = 1.f / sqrtf((float)DH);
   float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = 8 * j + 2 * t + (e & 1);
@@ -583,7 +623,7 @@ __global__ void __launch_bounds__(AT_THREADS)
     mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NKT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       sc[j][e] = expf(sc[j][e] - mx[e >> 1]);
@@ -602,7 +642,7 @@ __global__ void __launch_bounds__(AT_THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < NKT / 2; ++ks) {
     uint32_t a[4];
     a[0] = pack_bf2(sc[2 * ks][0] / sum[0], sc[2 * ks][1] / sum[0]);
     a[1] = pack_bf2(sc[2 * ks][2] / sum[1], sc[2 * ks][3] / sum[1]);
@@ -786,14 +826,14 @@ bool misaligned16(std::initializer_list<const void*> ptrs) {
 
 constexpr int FC = 64;                   // FFN hidden chunk
 
-// 64 x (16 NJ) output of A (64 x k_len, row-major lda) B (k_len x 16 NJ,
-// row-major ldb, or column-major when B_COL): thread (rg, cg) computes
-// rows 4 rg .. 4 rg + 3 of the columns cg, cg + 16, ...; epi(row, col, sum)
-// once per element
-template <int NJ, bool B_COL, typename Epi>
-__device__ __forceinline__ void gemm_scalar(const float* A, int lda,
-                                            const float* B, int ldb,
-                                            int k_len, Epi epi) {
+// QT x (16 NJ) output of A (QT x k_len, element (r, k) from a(r, k)) B
+// (k_len x 16 NJ, row-major ldb, or column-major when B_COL): thread (rg,
+// cg) computes rows 4 rg .. 4 rg + 3 of the columns cg, cg + 16, ...;
+// epi(row, col, sum) once per element
+template <int NJ, bool B_COL, typename LoadA, typename Epi>
+__device__ __forceinline__ void gemm_scalar(LoadA a_at, const float* B,
+                                            int ldb, int k_len, Epi epi) {
+  static_assert(QT == 4 * (THREADS / 16), "a thread per 4 rows x 16 cols");
   const int rg = threadIdx.x / 16;
   const int cg = threadIdx.x % 16;
   float acc[4][NJ];
@@ -805,7 +845,7 @@ __device__ __forceinline__ void gemm_scalar(const float* A, int lda,
     float a[4];
     float b[NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(rg * 4 + i) * lda + k];
+    for (int i = 0; i < 4; ++i) a[i] = a_at(rg * 4 + i, k);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
       b[j] = B_COL ? B[(size_t)(cg + 16 * j) * ldb + k]
@@ -821,17 +861,43 @@ __device__ __forceinline__ void gemm_scalar(const float* A, int lda,
     for (int j = 0; j < NJ; ++j) epi(rg * 4 + i, cg + 16 * j, acc[i][j]);
 }
 
-template <int C>
+// an A operand read from rows of stride ld (shared or global)
+struct RowsA {
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    return p[r * ld + k];
+  }
+};
+
+// x + pos of rows of stride C, summed as read (no rounding in float32)
+struct SumA {
+  const float* x;
+  const float* pos;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    return x[r * ld + k] + pos[r * ld + k];
+  }
+};
+
+// shared floats of the float32 block: the attention's q (QT x DHP), k and
+// v (WS x DHP each) and logits (QT x WS), then, over the same memory, the
+// FFN's x1 and x1 + ffn (QT x C each) and hidden chunk (QT x FC)
+template <int C, int WS>
 constexpr size_t f32_smem_bytes() {
-  return (2 * WS * C + 3 * WS * Width<C>::DHP + 2 * WS * WS) * sizeof(float);
+  constexpr size_t attn =
+      (size_t)QT * Width<C>::DHP + 2 * (size_t)WS * Width<C>::DHP + QT * WS;
+  constexpr size_t ffn = 2 * (size_t)QT * C + QT * FC;
+  return (attn > ffn ? attn : ffn) * sizeof(float);
 }
 
 // x, pos, out: (NW, WS, C); kp: (NW, WS) uint8, 1 = exclude the key;
 // wqkv (C, PACK_LD), bqkv (PACK_LD): the q and k columns of each head side
 // by side, then the v columns of all heads, each head padded to DHP; wo
 // (C, C); w1 (C, ff); w2 (ff, C): row-major (in, out). One block per
-// window; no rounding between the steps.
-template <int C>
+// (window, QT query rows): blockIdx.x = window * (WS / QT) + tile; no
+// rounding between the steps.
+template <int C, int WS>
 __global__ void __launch_bounds__(THREADS, 1)
     window_layer_f32(const float* __restrict__ x,
                      const float* __restrict__ pos,
@@ -848,62 +914,66 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int DH = Width<C>::DH, DHP = Width<C>::DHP;
   constexpr int QK_LD = Width<C>::QK_LD, PACK_LD = Width<C>::PACK_LD;
   constexpr int CT = Width<C>::CT;
+  constexpr int NQT = WS / QT;
+  static_assert(WS % QT == 0 && WS % 32 == 0, "window");
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ bool excluded[WS];
-  float* sX = reinterpret_cast<float*>(smem);  // x; later x1 + ffn
-  float* sP = sX + WS * C;                // x + pos; later x + attn, x1
-  float* sQ = sP + WS * C;                // one head's q, k, v (64 x DHP)
-  float* sK = sQ + WS * DHP;
+  float* sQ = reinterpret_cast<float*>(smem);  // one head's q (QT x DHP)
+  float* sK = sQ + QT * DHP;              // its k, v over the window's keys
   float* sV = sK + WS * DHP;
-  float* sPm = sV + WS * DHP;             // probabilities (64 x 64)
-  float* sS = sPm + WS * WS;              // logits (64 x 64)
-  float* sH = sS;                         // FFN hidden chunk (64 x FC)
+  float* sS = sV + WS * DHP;              // logits, then probabilities
+  float* sP = reinterpret_cast<float*>(smem);  // x + attn, then x1
+  float* sX = sP + QT * C;                // x1 + ffn
+  float* sH = sX + QT * C;                // FFN hidden chunk (QT x FC)
 
-  const size_t base = (size_t)blockIdx.x * WS * C;
-  // the attention output (64 x C) is staged in this window's rows of `out`
-  float* o_win = out + base;
-  for (int i = threadIdx.x; i < WS * C; i += THREADS) {
-    sX[i] = x[base + i];
-    sP[i] = x[base + i] + pos[base + i];
-  }
-  if (threadIdx.x < WS)
-    excluded[threadIdx.x] = kp[(size_t)blockIdx.x * WS + threadIdx.x] != 0;
-  __syncthreads();
+  const int win = blockIdx.x / NQT;
+  const size_t wbase = (size_t)win * WS * C;
+  const size_t tbase = wbase + (size_t)(blockIdx.x % NQT) * QT * C;
+  const float* xt = x + tbase;
+  // the attention output (QT x C) is staged in the block's rows of `out`
+  float* o_t = out + tbase;
+  for (int i = threadIdx.x; i < WS; i += THREADS)
+    excluded[i] = kp[(size_t)win * WS + i] != 0;
 
   const float inv_scale = 1.f / sqrtf((float)DH);
   for (int h = 0; h < NH; ++h) {
-    gemm_scalar<2 * DHP / 16, false>(
-        sP, C, wqkv + h * 2 * DHP, PACK_LD, C, [&](int r, int c, float a) {
-          const float v = a + bqkv[h * 2 * DHP + c];
-          if (c < DHP) {
-            sQ[r * DHP + c] = v;
-          } else {
-            sK[r * DHP + c - DHP] = v;
-          }
-        });
+    const int qc = h * 2 * DHP;           // the head's q columns, then k
     gemm_scalar<DHP / 16, false>(
-        sX, C, wqkv + QK_LD + h * DHP, PACK_LD, C,
-        [&](int r, int c, float a) {
-          sV[r * DHP + c] = a + bqkv[QK_LD + h * DHP + c];
-        });
+        SumA{xt, pos + tbase, C}, wqkv + qc, PACK_LD, C,
+        [&](int r, int c, float a) { sQ[r * DHP + c] = a + bqkv[qc + c]; });
+    for (int k0 = 0; k0 < WS; k0 += QT) {
+      const size_t kb = wbase + (size_t)k0 * C;
+      gemm_scalar<DHP / 16, false>(
+          SumA{x + kb, pos + kb, C}, wqkv + qc + DHP, PACK_LD, C,
+          [&](int r, int c, float a) {
+            sK[(k0 + r) * DHP + c] = a + bqkv[qc + DHP + c];
+          });
+      gemm_scalar<DHP / 16, false>(
+          RowsA{x + kb, C}, wqkv + QK_LD + h * DHP, PACK_LD, C,
+          [&](int r, int c, float a) {
+            sV[(k0 + r) * DHP + c] = a + bqkv[QK_LD + h * DHP + c];
+          });
+    }
     __syncthreads();
-    gemm_scalar<WS / 16, true>(sQ, DHP, sK, DHP, DHP,
-                               [&](int r, int c, float a) {
-                                 sS[r * WS + c] =
-                                     excluded[c] ? -FLT_MAX : a * inv_scale;
-                               });
-    __syncthreads();
-    softmax_rows(sS, sPm, WS);
-    __syncthreads();
-    gemm_scalar<DHP / 16, false>(sPm, WS, sV, DHP, WS,
+    for (int k0 = 0; k0 < WS; k0 += QT)
+      gemm_scalar<QT / 16, true>(RowsA{sQ, DHP}, sK + k0 * DHP, DHP, DHP,
                                  [&](int r, int c, float a) {
-                                   if (c < DH) o_win[r * C + h * DH + c] = a;
+                                   sS[r * WS + k0 + c] =
+                                       excluded[k0 + c] ? -FLT_MAX
+                                                        : a * inv_scale;
+                                 });
+    __syncthreads();
+    softmax_rows<WS>(sS, sS, WS);
+    __syncthreads();
+    gemm_scalar<DHP / 16, false>(RowsA{sS, WS}, sV, DHP, WS,
+                                 [&](int r, int c, float a) {
+                                   if (c < DH) o_t[r * C + h * DH + c] = a;
                                  });
     __syncthreads();
   }
 
-  gemm_scalar<CT, false>(o_win, C, wo, C, C, [&](int r, int c, float a) {
-    sP[r * C + c] = sX[r * C + c] + (a + bo[c]);
+  gemm_scalar<CT, false>(RowsA{o_t, C}, wo, C, C, [&](int r, int c, float a) {
+    sP[r * C + c] = xt[r * C + c] + (a + bo[c]);
   });
   __syncthreads();
   layer_norm_rows<C>(sP, C, g1, be1, sP, C);
@@ -918,7 +988,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
   for (int chunk = 0; chunk < ff; chunk += FC) {
-    gemm_scalar<FC / 16, false>(sP, C, w1 + chunk, ff, C,
+    gemm_scalar<FC / 16, false>(RowsA{sP, C}, w1 + chunk, ff, C,
                                 [&](int r, int c, float a) {
                                   sH[r * FC + c] =
                                       fmaxf(a + b1[chunk + c], 0.f);
@@ -947,7 +1017,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       sX[r * C + c] = sP[r * C + c] + (acc[i][j] + b2[c]);
     }
   __syncthreads();
-  layer_norm_rows<C>(sX, C, g2, be2, o_win, C);
+  layer_norm_rows<C>(sX, C, g2, be2, o_t, C);
 }
 
 // the launches of each stage at width C, called by the C entry points
@@ -968,12 +1038,15 @@ int launch_qkv(const void* x, const void* pos, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <int C>
+template <int C, int WS>
 int launch_attn(const void* qkv, const void* kp, void* out, int nw,
                 cudaStream_t stream) {
-  window_layer_attn_kernel<C><<<nw * NH, AT_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(kp),
-      static_cast<bf16*>(out));
+  int err = set_smem(window_layer_attn_kernel<C, WS>, attn_smem_bytes<WS>());
+  if (err) return err;
+  window_layer_attn_kernel<C, WS>
+      <<<nw * NH * (WS / QT), AT_THREADS, attn_smem_bytes<WS>(), stream>>>(
+          static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(kp),
+          static_cast<bf16*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -1023,7 +1096,7 @@ int launch_ffn2_ln(const void* hid, const void* w2, const void* b2,
   return (int)cudaGetLastError();
 }
 
-template <int C>
+template <int C, int WS>
 int occupancy(int stage, int* blocks, int* smem_bytes) {
   int err = 0;
   size_t smem = 0;
@@ -1038,7 +1111,9 @@ int occupancy(int stage, int* blocks, int* smem_bytes) {
       break;
     case 1:
       threads = AT_THREADS;
-      fn = (const void*)window_layer_attn_kernel<C>;
+      smem = attn_smem_bytes<WS>();
+      err = set_smem(window_layer_attn_kernel<C, WS>, smem);
+      fn = (const void*)window_layer_attn_kernel<C, WS>;
       break;
     case 2:
       threads = GRow<C>::THREADS;
@@ -1067,16 +1142,17 @@ int occupancy(int stage, int* blocks, int* smem_bytes) {
                                                             threads, smem);
 }
 
-template <int C>
+template <int C, int WS>
 int launch_f32(const void* x, const void* pos, const void* kp,
                const void* wqkv, const void* bqkv, const void* wo,
                const void* bo, const void* g1, const void* be1,
                const void* w1, const void* b1, const void* w2, const void* b2,
                const void* g2, const void* be2, void* out, int nw, int ff,
                cudaStream_t stream) {
-  int err = set_smem(window_layer_f32<C>, f32_smem_bytes<C>());
+  constexpr size_t smem = f32_smem_bytes<C, WS>();
+  int err = set_smem(window_layer_f32<C, WS>, smem);
   if (err) return err;
-  window_layer_f32<C><<<nw, THREADS, f32_smem_bytes<C>(), stream>>>(
+  window_layer_f32<C, WS><<<nw * (WS / QT), THREADS, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(pos),
       static_cast<const uint8_t*>(kp), static_cast<const float*>(wqkv),
       static_cast<const float*>(bqkv), static_cast<const float*>(wo),
@@ -1092,8 +1168,9 @@ int launch_f32(const void* x, const void* pos, const void* kp,
 
 // Plain C entry points, loaded with ctypes. Each launches on `stream` and
 // returns cudaGetLastError() (0 on success); shapes as in the kernels'
-// comments, at d_model c, which is 288 or 256 (else cudaErrorInvalidValue).
-// Every bf16 operand is 16-byte aligned and row-major.
+// comments, at d_model c, which is 288 or 256, and windows of ws tokens,
+// 64 or 256 (else cudaErrorInvalidValue). Every bf16 operand is 16-byte
+// aligned and row-major.
 
 #define WINDOW_LAYER_AT_WIDTH(c, call)                 \
   switch (c) {                                         \
@@ -1104,6 +1181,21 @@ int launch_f32(const void* x, const void* pos, const void* kp,
     case 256: {                                        \
       constexpr int C_ = 256;                          \
       return call;                                     \
+    }                                                  \
+    default:                                           \
+      return (int)cudaErrorInvalidValue;               \
+  }
+
+// `call` at width c (C_) and window ws (WS_)
+#define WINDOW_LAYER_AT(c, ws, call)                   \
+  switch (ws) {                                        \
+    case 64: {                                         \
+      constexpr int WS_ = 64;                          \
+      WINDOW_LAYER_AT_WIDTH(c, call)                   \
+    }                                                  \
+    case 256: {                                        \
+      constexpr int WS_ = 256;                         \
+      WINDOW_LAYER_AT_WIDTH(c, call)                   \
     }                                                  \
     default:                                           \
       return (int)cudaErrorInvalidValue;               \
@@ -1120,11 +1212,11 @@ extern "C" int window_layer_qkv(const void* x, const void* pos,
 }
 
 extern "C" int window_layer_attn(const void* qkv, const void* kp, void* out,
-                                 int nw, int c, void* stream) {
+                                 int nw, int ws, int c, void* stream) {
   if (nw <= 0) return nw < 0 ? (int)cudaErrorInvalidValue : 0;
   if (misaligned16({qkv, out})) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  WINDOW_LAYER_AT_WIDTH(c, launch_attn<C_>(qkv, kp, out, nw, st))
+  WINDOW_LAYER_AT(c, ws, (launch_attn<C_, WS_>(qkv, kp, out, nw, st)))
 }
 
 extern "C" int window_layer_proj_ln(const void* a, const void* wo,
@@ -1164,16 +1256,17 @@ extern "C" int window_layer_ffn2_ln(const void* hid, const void* w2,
 }
 
 // blocks per SM that the card grants stage `stage` (0 qkv, 1 attn, 2
-// proj_ln, 3 ffn1, 4 ffn2_ln) at d_model c into *blocks, and its dynamic
-// shared bytes into *smem_bytes
-extern "C" int window_layer_occupancy(int stage, int c, int* blocks,
+// proj_ln, 3 ffn1, 4 ffn2_ln) at d_model c and windows of ws tokens into
+// *blocks, and its dynamic shared bytes into *smem_bytes
+extern "C" int window_layer_occupancy(int stage, int c, int ws, int* blocks,
                                       int* smem_bytes) {
-  WINDOW_LAYER_AT_WIDTH(c, occupancy<C_>(stage, blocks, smem_bytes))
+  WINDOW_LAYER_AT(c, ws, (occupancy<C_, WS_>(stage, blocks, smem_bytes)))
 }
 
-// The float32 layer, one block per window (window_layer_f32): x, pos, out
-// (nw, 64, c), kp (nw, 64) uint8, the weights as in the kernel's comment;
-// the fixed sizes given for the entry point to check.
+// The float32 layer, one block per (window, 64 query rows)
+// (window_layer_f32): x, pos, out (nw, ws, c), kp (nw, ws) uint8, the
+// weights as in the kernel's comment; the fixed sizes given for the entry
+// point to check.
 extern "C" int window_layer_f32_fwd(const void* x, const void* pos,
                                     const void* kp, const void* wqkv,
                                     const void* bqkv, const void* wo,
@@ -1184,11 +1277,12 @@ extern "C" int window_layer_f32_fwd(const void* x, const void* pos,
                                     const void* be2, void* out, int nw,
                                     int ws, int c, int n_heads, int ff,
                                     void* stream) {
-  if (ws != WS || n_heads != NH || ff < FC || ff % FC != 0 || nw < 0)
+  if (n_heads != NH || ff < FC || ff % FC != 0 || nw < 0)
     return (int)cudaErrorInvalidValue;
   if (nw == 0) return (int)cudaGetLastError();
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  WINDOW_LAYER_AT_WIDTH(
-      c, launch_f32<C_>(x, pos, kp, wqkv, bqkv, wo, bo, g1, be1, w1, b1, w2,
-                        b2, g2, be2, out, nw, ff, st))
+  WINDOW_LAYER_AT(
+      c, ws,
+      (launch_f32<C_, WS_>(x, pos, kp, wqkv, bqkv, wo, bo, g1, be1, w1, b1,
+                           w2, b2, g2, be2, out, nw, ff, st)))
 }

@@ -4,11 +4,11 @@ targets.
 Counterpart of `trackformer_tpu/models/criterion.py`: the label loss
 (softmax cross-entropy with the track-query false-positive eos reweighting,
 or sigmoid focal), cardinality error, L1 and GIoU box losses, and the
-recursion over the auxiliary decoder outputs, and the mask losses (focal and
-DICE on the matched queries' masks, upsampled to the targets' size) of the
-final output. Every loss is a masked fixed-shape reduction: invalid query
-slots and padded target slots contribute exactly zero. The two-stage
-encoder outputs are not ported yet.
+recursion over the auxiliary decoder outputs and the two-stage proposals
+(`_enc`, on binary targets), and the mask losses (focal and DICE on the
+matched queries' masks, upsampled to the targets' size) of the final
+output. Every loss is a masked fixed-shape reduction: invalid query slots
+and padded target slots contribute exactly zero.
 """
 from __future__ import annotations
 
@@ -177,16 +177,15 @@ def compute_losses(outputs: Dict, targets: Targets, cfg: CriterionConfig,
                    num_boxes: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
     """The full criterion: match, then the losses, for the final and the
-    auxiliary outputs (keys suffixed `_i`). `num_boxes` defaults to the
-    number of valid targets, at least 1."""
-    if "enc_outputs" in outputs:
-        raise NotImplementedError("two-stage encoder outputs are not ported "
-                                  "yet (ROADMAP Queue 1, item 6)")
+    auxiliary outputs (keys suffixed `_i`) and the two-stage proposals
+    (`enc_outputs`, keys suffixed `_enc`: every proposal, matched against
+    the targets with their labels zeroed, one binary class).
+    `num_boxes` defaults to the number of valid targets, at least 1."""
     if num_boxes is None:
         num_boxes = targets.valid.sum().float().clamp(min=1.0)
     label_fn = loss_labels_focal if cfg.focal_loss else loss_labels_ce
 
-    def run(outs, prefix="", log=True, with_masks=False):
+    def run(outs, prefix="", log=True, with_masks=False, targets=targets):
         match_q = match(outs, targets, cfg.matcher)
         d = {}
         for name in cfg.losses:
@@ -207,4 +206,11 @@ def compute_losses(outputs: Dict, targets: Targets, cfg: CriterionConfig,
     losses = run(outputs, with_masks=True)
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
         losses.update(run(aux, prefix=f"_{i}", log=False))
+    if "enc_outputs" in outputs:
+        enc = dict(outputs["enc_outputs"])
+        enc.setdefault("query_valid", torch.ones(
+            enc["pred_logits"].shape[:2], dtype=torch.bool,
+            device=enc["pred_logits"].device))
+        binary = targets.replace(labels=torch.zeros_like(targets.labels))
+        losses.update(run(enc, prefix="_enc", log=False, targets=binary))
     return losses

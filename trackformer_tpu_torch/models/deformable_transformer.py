@@ -1,12 +1,15 @@
 """Deformable transformer: the MSDA module, encoder layers and stack,
-decoder layer, reference points and valid ratios.
+decoder layer (MSDA or dense cross-attention), reference points, valid
+ratios and the two-stage proposals.
 
 Counterpart of `trackformer_tpu/models/deformable_transformer.py`. As
 there, the decoder loop with box refinement lives in the DeformableDETR
 head. `DeformableTransformer` here only groups the parameters under the
 original checkpoint keys (`transformer.level_embed`,
 `transformer.encoder.layers.{i}`, `transformer.decoder.layers.{i}`,
-`transformer.reference_points`). Every norm takes its eps explicitly: the
+`transformer.reference_points`, or for two-stage `transformer.enc_output`,
+`transformer.enc_output_norm`, `transformer.pos_trans`,
+`transformer.pos_trans_norm`). Every norm takes its eps explicitly: the
 JAX package uses flax's 1e-6. Dropout sits where the JAX layers put it
 (after each attention and the FFN, inside the FFN and on the self-attention
 weights) and is inactive in `eval()`.
@@ -14,6 +17,7 @@ weights) and is inactive in `eval()`.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -25,6 +29,8 @@ from .attention import Dropout, MultiHeadAttention
 from .windowed_encoder import WindowedEncoder
 
 LN_EPS = 1e-6
+# sine features per box coordinate of a two-stage proposal
+PROPOSAL_POS_FEATS = 128
 
 
 @functools.lru_cache(maxsize=16)
@@ -152,29 +158,45 @@ class DeformableEncoder(nn.Module):
 
 
 class DeformableDecoderLayer(nn.Module):
+    """Self-attention, cross-attention and FFN. `attention` "msda" samples
+    the memory around the reference points; "dense" attends every memory
+    token (the JAX package's `tpu.decoder_attention: dense`), keys = memory
+    + its positions, with the memory's padding masked."""
 
     def __init__(self, d_model: int, n_levels: int, n_heads: int,
-                 n_points: int, dim_feedforward: int, dropout: float = 0.0):
+                 n_points: int, dim_feedforward: int, dropout: float = 0.0,
+                 attention: str = "msda"):
         super().__init__()
+        self.dense = attention == "dense"
         self.drop = Dropout(dropout)
         self.self_attn = MultiHeadAttention(d_model, n_heads, dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
-        self.cross_attn = MSDeformAttnModule(d_model, n_levels, n_heads,
-                                             n_points)
+        self.cross_attn = (MultiHeadAttention(d_model, n_heads, dropout)
+                           if self.dense else
+                           MSDeformAttnModule(d_model, n_levels, n_heads,
+                                              n_points))
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
-                src_padding_mask=None, tgt_key_padding_mask=None):
-        """reference_points are already valid-ratio scaled (B, Q, L, 2|4)."""
+                src_padding_mask=None, tgt_key_padding_mask=None,
+                src_pos=None):
+        """reference_points are already valid-ratio scaled (B, Q, L, 2|4);
+        `src_pos` (B, S, C), the memory's positions, serves the dense
+        cross-attention alone."""
         drop = self.drop
         q = k = tgt + query_pos
         tgt = self.norm2(tgt + drop(self.self_attn(q, k, tgt,
                                                    tgt_key_padding_mask)))
-        t2 = self.cross_attn(tgt + query_pos, reference_points, src,
-                             spatial_shapes, src_padding_mask)
+        if self.dense:
+            keys = src if src_pos is None else src + src_pos.to(src.dtype)
+            t2 = self.cross_attn(tgt + query_pos, keys, src,
+                                 src_padding_mask)
+        else:
+            t2 = self.cross_attn(tgt + query_pos, reference_points, src,
+                                 spatial_shapes, src_padding_mask)
         tgt = self.norm1(tgt + drop(t2))
         ffn = self.linear2(drop(F.relu(self.linear1(tgt))))
         return self.norm3(tgt + drop(ffn))
@@ -185,11 +207,11 @@ class DeformableDecoder(nn.Module):
 
     def __init__(self, d_model: int, n_levels: int, num_layers: int,
                  n_heads: int, n_points: int, dim_feedforward: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, attention: str = "msda"):
         super().__init__()
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(d_model, n_levels, n_heads, n_points,
-                                   dim_feedforward, dropout)
+                                   dim_feedforward, dropout, attention)
             for _ in range(num_layers))
 
 
@@ -198,13 +220,16 @@ class DeformableTransformer(nn.Module):
     `encoder_window` the encoder is the TPU-fast `WindowedEncoder` of that
     window side; with `frame_embed` a (2, C) `frame_embed` restores frame
     identity to the cached memory (keys the original has not;
-    `convert.py`)."""
+    `convert.py`). With `two_stage` the queries come from the encoder's
+    proposals (`enc_output*`, `pos_trans*`) and there is no
+    `reference_points`."""
 
     def __init__(self, d_model: int, total_levels: int, enc_levels: int,
                  enc_layers: int, dec_layers: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int, dim_feedforward: int,
                  encoder_window: Optional[int] = None, dropout: float = 0.0,
-                 frame_embed: bool = False):
+                 frame_embed: bool = False, decoder_attention: str = "msda",
+                 two_stage: bool = False):
         super().__init__()
         self.level_embed = nn.Parameter(torch.empty(total_levels, d_model))
         if encoder_window is None:
@@ -219,8 +244,16 @@ class DeformableTransformer(nn.Module):
             self.frame_embed = nn.Parameter(torch.empty(2, d_model))
         self.decoder = DeformableDecoder(d_model, total_levels, dec_layers,
                                          n_heads, dec_n_points,
-                                         dim_feedforward, dropout)
-        self.reference_points = nn.Linear(d_model, 2)
+                                         dim_feedforward, dropout,
+                                         decoder_attention)
+        if two_stage:
+            self.enc_output = nn.Linear(d_model, d_model)
+            self.enc_output_norm = nn.LayerNorm(d_model, eps=LN_EPS)
+            # over `proposal_pos_embed`'s 4 x 128 features, whatever C
+            self.pos_trans = nn.Linear(4 * PROPOSAL_POS_FEATS, 2 * d_model)
+            self.pos_trans_norm = nn.LayerNorm(2 * d_model, eps=LN_EPS)
+        else:
+            self.reference_points = nn.Linear(d_model, 2)
 
 
 def get_valid_ratio(mask: torch.Tensor) -> torch.Tensor:
@@ -240,3 +273,58 @@ def decoder_reference_input(reference_points: torch.Tensor,
     else:
         vr = valid_ratios
     return reference_points[:, :, None] * vr[:, None]
+
+
+def proposal_pos_embed(proposals: torch.Tensor,
+                       num_pos_feats: int = PROPOSAL_POS_FEATS,
+                       temperature: float = 10000.0) -> torch.Tensor:
+    """Sine embedding of unactivated two-stage proposal boxes: (B, Q, 4)
+    -> (B, Q, 4 * num_pos_feats) float32."""
+    dim_t = torch.arange(num_pos_feats, dtype=torch.float32,
+                         device=proposals.device)
+    dim_t = temperature ** (2.0 * torch.floor(dim_t / 2.0) / num_pos_feats)
+    pos = proposals.float().sigmoid() * (2 * math.pi)
+    pos = pos[..., None] / dim_t
+    pos = torch.stack([pos[..., 0::2].sin(), pos[..., 1::2].cos()], -1)
+    return pos.reshape(*proposals.shape[:2], -1)
+
+
+def gen_encoder_output_proposals(memory: torch.Tensor,
+                                 memory_padding_mask: torch.Tensor,
+                                 spatial_shapes: Sequence[Tuple[int, int]]
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two-stage proposal grid -> (memory, proposals (B, S, 4) float32,
+    unactivated): a box of side 0.05 * 2^level at each token's centre of
+    the valid region; +inf, and the memory zeroed, on padded tokens and on
+    proposals outside (0.01, 0.99). The caller applies `enc_output`."""
+    b = memory.shape[0]
+    dev = memory.device
+    proposals, offset = [], 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        mask_l = memory_padding_mask[:, offset:offset + h * w].view(b, h, w)
+        valid_h = (~mask_l[:, :, 0]).sum(1).float()
+        valid_w = (~mask_l[:, 0, :]).sum(1).float()
+        gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32,
+                                             device=dev),
+                                torch.arange(w, dtype=torch.float32,
+                                             device=dev), indexing="ij")
+        grid = torch.stack([gx, gy], -1)
+        scale = torch.stack([valid_w, valid_h], -1).view(b, 1, 1, 2)
+        grid = (grid[None] + 0.5) / scale
+        wh = torch.full_like(grid, 0.05 * (2.0 ** lvl))
+        proposals.append(torch.cat([grid, wh], -1).view(b, -1, 4))
+        offset += h * w
+    out = torch.cat(proposals, 1)
+    valid = ((out > 0.01) & (out < 0.99)).all(-1, keepdim=True)
+    out = torch.log(out / (1.0 - out))
+    drop = memory_padding_mask[..., None] | ~valid
+    out = out.masked_fill(drop, float("inf"))
+    return memory.masked_fill(drop, 0.0), out
+
+
+def stable_topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the `k` largest of each row of `scores` (B, S), the
+    lower index first among equal values, as `jax.lax.top_k` orders them:
+    a stable descending sort, whose tie order `torch.topk` does not
+    promise."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True)[1][:, :k]

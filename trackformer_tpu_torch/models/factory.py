@@ -3,17 +3,23 @@
 
 Counterpart of `trackformer_tpu/models/factory.py`: the dataset's class
 count, the four model classes ({DETR, DeformableDETR} x {plain, Segm}),
-the criterion's loss weights (with the mask losses' and the auxiliary
-outputs' `_i` keys) and the postprocessors (softmax for a plain-CE head,
-sigmoid for a focal one, `postprocess_segm` for masks). The Deformable DETR
-family is taken with sine positions, 4 feature levels and the MSDA
-decoder, single-frame or multi-frame (3-D or 2-D positions, a separate or
-a joint encoder), with or without box refinement, its encoder exact MSDA
-or windowed (window side 8; with the cached previous memory on the
-multi-frame separate-encoder model, `FlagshipConfig.tpu_fast()`);
-`tpu.scan_layers` builds the same model unrolled. Vanilla DETR is taken
-with post- or pre-norm layers and track attention. What is not ported
-raises (`_check_supported`). `init_params` draws every weight from an
+the criterion's loss weights (with the mask losses', the auxiliary
+outputs' `_i` and the two-stage proposals' `_enc` keys) and the
+postprocessors (softmax for a plain-CE head, sigmoid for a focal one,
+`postprocess_segm` for masks). The Deformable DETR family is taken
+single-frame or multi-frame (3-D or 2-D positions, a separate or a joint
+encoder, merged frame features), at 3 or more feature levels over a
+ResNet-50 or -101 with or without DC5, with or without box refinement and
+two-stage, its encoder exact MSDA or windowed (window side 8 or 16), with
+the cached previous memory on the multi-frame separate-encoder model
+(either encoder; `FlagshipConfig.tpu_fast()` is the windowed one), its
+decoder's cross-attention MSDA or dense; `tpu.scan_layers` builds the same
+model unrolled. Vanilla DETR is taken with post- or pre-norm layers and
+track attention. Positions are sine: `position_embedding: learned` builds
+the same model, as in the JAX package, which builds its models with sine
+positions whatever the flag. What is not ported, or what the JAX package
+cannot run, raises (`_check_supported`). `init_params` draws every weight
+from an
 explicit `torch.Generator` with the JAX package's initializers (flax
 defaults: lecun-normal kernels, zero biases; plus each model's own special
 inits), so a seed gives the same weights on every run of one device type.
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.window_attn import WINDOW_SIDES
 from ..utils.config import FlagshipConfig
 from .attention import MultiHeadAttention
 from .backbone import FrozenBatchNorm2d
@@ -52,12 +59,6 @@ DATASET_NUM_CLASSES = {
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-# the encoder modes ported, (encoder, cached memory in effect): exact MSDA,
-# the windowed encoder over the levels it is given, and the TPU-fast
-# windowed encoder over the current frame with the cached memory
-_ENCODER_MODES = {("msda", False), ("windowed", False), ("windowed", True)}
-
-
 def cached_mode(cfg: FlagshipConfig) -> bool:
     """Whether `tpu.cached_prev_memory` takes effect: on a multi-frame
     model with a separate encoder and unmerged frames (JAX
@@ -69,32 +70,42 @@ def cached_mode(cfg: FlagshipConfig) -> bool:
 
 def _check_supported(cfg: FlagshipConfig) -> None:
     """Raise `NotImplementedError` naming the ROADMAP item for what the
-    port has not taken yet: the panoptic dataset, learned positions,
-    two-stage, and on the Deformable DETR family merged frame features, the
-    dense decoder, other than 4 feature levels, exact MSDA with the cached
-    memory, a window side other than 8, and masks on the cached memory
-    (which appends the encoded memory to the feature pairs, shifting the
-    levels the mask head reads, in the JAX package as well)."""
-    wanted = dict(two_stage=False, position_embedding="sine")
-    if cfg.deformable:
-        wanted.update(merge_frame_features=False, decoder_attention="msda",
-                      num_feature_levels=4)
-    bad = {k: getattr(cfg, k) for k, v in wanted.items()
-           if getattr(cfg, k) != v}
+    port has not taken yet: the panoptic dataset and, on the Deformable
+    DETR family, masks on the cached memory (which appends the encoded
+    memory to the feature pairs, shifting the levels the mask head reads,
+    in the JAX package as well), and a window side kernel #8 is not
+    instantiated at; raise `ValueError` for what the JAX package cannot run
+    (ROADMAP Queue 3), a Deformable DETR of fewer than 3 feature levels,
+    and for an attention knob neither package knows."""
     if cfg.dataset == "coco_panoptic":
-        bad.update(dataset=cfg.dataset)
-    if cfg.deformable:
-        mode = (cfg.encoder_attention, cached_mode(cfg))
-        if mode not in _ENCODER_MODES:
-            bad.update(encoder_attention=mode[0],
-                       cached_prev_memory=cfg.cached_prev_memory)
-        if cfg.encoder_attention == "windowed" and cfg.encoder_window != 8:
-            bad.update(encoder_window=cfg.encoder_window)
-        if cfg.masks and cached_mode(cfg):
-            bad.update(masks=True, cached_prev_memory=True)
-    if bad:
-        raise NotImplementedError(f"not ported yet (ROADMAP Queue 1, item "
-                                  f"6): {bad}")
+        raise NotImplementedError("the panoptic dataset is not ported yet "
+                                  "(ROADMAP Queue 1, item 6)")
+    if not cfg.deformable:
+        return
+    if cfg.num_feature_levels < 3:
+        raise ValueError(
+            f"num_feature_levels {cfg.num_feature_levels}: the JAX package "
+            f"raises IndexError here (DeformableDETR.__call__ passes the "
+            f"last three backbone maps to _project_frame, and setup builds "
+            f"only min(3, L) input projections); use 3 or more (ROADMAP "
+            f"Queue 3)")
+    if cfg.encoder_attention not in ("msda", "windowed"):
+        raise ValueError(f"tpu.encoder_attention {cfg.encoder_attention!r}")
+    if cfg.decoder_attention not in ("msda", "dense"):
+        raise ValueError(f"tpu.decoder_attention {cfg.decoder_attention!r}")
+    if (cfg.encoder_attention == "windowed"
+            and cfg.encoder_window not in WINDOW_SIDES):
+        raise NotImplementedError(
+            f"tpu.encoder_window {cfg.encoder_window}: kernel #8 is "
+            f"instantiated at window sides {WINDOW_SIDES}")
+    if cfg.masks and cached_mode(cfg):
+        raise NotImplementedError(
+            "masks with tpu.cached_prev_memory are not ported yet (ROADMAP "
+            "Queue 1, item 6)")
+
+
+# `position_embedding: learned` said once a process
+_SAID = set()
 
 
 def msda_offset_bias(n_heads: int, n_levels: int, n_points: int
@@ -157,14 +168,18 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     model.transformer.level_embed.normal_(0.0, 1.0, generator=g)
     if model.cached_memory:
         model.transformer.frame_embed.normal_(0.0, 1.0, generator=g)
-    model.query_embed.weight.normal_(0.0, 1.0, generator=g)
-    xavier(model.transformer.reference_points.weight)
+    if not model.two_stage:
+        model.query_embed.weight.normal_(0.0, 1.0, generator=g)
+        xavier(model.transformer.reference_points.weight)
     focal_bias = -math.log((1 - 0.01) / 0.01)
     for cls in model.class_embed:
         cls.bias.fill_(focal_bias)
+    # the box heads' last bias: w, h at -2 (0 for two-stage, whose
+    # proposals carry the size)
+    wh = 0.0 if model.two_stage else -2.0
     for box in model.bbox_embed:
         box.layers[-1].weight.zero_()
-        box.layers[-1].bias.copy_(torch.tensor([0.0, 0.0, -2.0, -2.0]))
+        box.layers[-1].bias.copy_(torch.tensor([0.0, 0.0, wh, wh]))
 
 
 def train_configs(cfg: FlagshipConfig
@@ -188,6 +203,8 @@ def train_configs(cfg: FlagshipConfig
         aux = {}
         for i in range(cfg.dec_layers - 1):
             aux.update({f"{k}_{i}": v for k, v in weight_dict.items()})
+        if cfg.two_stage:
+            aux.update({f"{k}_enc": v for k, v in weight_dict.items()})
         weight_dict.update(aux)
     criterion = CriterionConfig(
         num_classes=DATASET_NUM_CLASSES[cfg.dataset], matcher=matcher,
@@ -227,6 +244,10 @@ def build_model(cfg: FlagshipConfig,
     config builds the unrolled model (the same math); its checkpoints load
     through `utils/checkpoint.py:bridge_scan_layout`."""
     _check_supported(cfg)
+    if cfg.position_embedding == "learned" and "learned" not in _SAID:
+        _SAID.add("learned")
+        print("position_embedding: learned has no effect; the model takes "
+              "sine positions, as the JAX package's models do")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
@@ -254,7 +275,10 @@ def build_model(cfg: FlagshipConfig,
                 multi_frame_encoding=cfg.multi_frame_encoding,
                 separate_encoder=cfg.multi_frame_attention_separate_encoder,
                 cached_memory=cfg.cached_prev_memory,
-                with_box_refine=cfg.with_box_refine)
+                with_box_refine=cfg.with_box_refine,
+                two_stage=cfg.two_stage,
+                merge_frame_features=cfg.merge_frame_features,
+                decoder_attention=cfg.decoder_attention)
         else:
             cls = DETRSegm if cfg.masks else DETR
             model = cls(head_classes, **common, pre_norm=cfg.pre_norm,

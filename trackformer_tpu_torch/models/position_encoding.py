@@ -1,14 +1,18 @@
-"""Sine positional encodings (2-D, and 3-D with a frame axis).
+"""Sine positional encodings (2-D, and 3-D with a frame axis), and the
+learned row / column embedding.
 
-Counterpart of `trackformer_tpu/models/position_encoding.py`. Values come
-from cumulative sums of the pad mask, so padding does not shift the phase.
-Outputs keep the JAX package's channels-last layout.
+Counterpart of `trackformer_tpu/models/position_encoding.py`. Sine values
+come from cumulative sums of the pad mask, so padding does not shift the
+phase. Outputs keep the JAX package's channels-last layout. As in the JAX
+package, no model uses `LearnedPositionEncoding`: `position_embedding:
+learned` builds the sine model there and here.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch import nn
 
 
 def _dim_t(num_pos_feats: int, temperature: float,
@@ -61,3 +65,23 @@ def sine_position_encoding_3d(mask: torch.Tensor, num_pos_feats: int,
     pos = torch.cat([_interleave_sin_cos(e[..., None] / dim_t)
                      for e in (z_embed, y_embed, x_embed)], dim=-1)
     return pos.to(dtype)
+
+
+class LearnedPositionEncoding(nn.Module):
+    """Learned column and row embeddings of a 50 x 50 grid: (B, H, W) mask
+    -> (B, H, W, 2 * num_pos_feats), the column's embedding then the row's
+    (the mask's values are not read). Parameters `col_embed.weight` /
+    `row_embed.weight` (50, num_pos_feats), the original's keys."""
+
+    def __init__(self, num_pos_feats: int = 256):
+        super().__init__()
+        self.num_pos_feats = num_pos_feats
+        self.row_embed = nn.Embedding(50, num_pos_feats)
+        self.col_embed = nn.Embedding(50, num_pos_feats)
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        b, h, w = mask.shape
+        f = self.num_pos_feats
+        x_emb = self.col_embed.weight[:w][None].expand(h, w, f)
+        y_emb = self.row_embed.weight[:h][:, None].expand(h, w, f)
+        return torch.cat([x_emb, y_emb], -1)[None].expand(b, h, w, 2 * f)

@@ -21,20 +21,23 @@ version. In bfloat16 `fused_window_layer` runs the five stage kernels of
 intermediates in device memory:
 
   window_layer_qkv      x, pos         -> q|k|v (R, 3C)
-  window_layer_attn     q|k|v, kp      -> a (R, C), per (window, head)
+  window_layer_attn     q|k|v, kp      -> a (R, C), per (window, head, 64
+                                          query rows)
   window_layer_proj_ln  a, x           -> x1 = LayerNorm1(x + a Wo + bo)
   window_layer_ffn1     x1             -> h = relu(x1 W1 + b1) (R, ff)
   window_layer_ffn2_ln  h, x1          -> LayerNorm2(x1 + h W2 + b2)
 
 each beside its plain version here (`qkv_plain`, ...; chained by
 `window_layer_staged_plain`), with the same operands, layout and rounding.
-In float32 it launches one kernel per call, a block per window. The kernels
-are built at first use (`cuda_build.py`); they are forward only, and take
-windows of 64 tokens (window side 8), 8 heads, an FFN width that is a
-multiple of 128, and C = 288 (the flagship, heads of 36) or C = 256 (the
-single-frame Deformable DETR family, heads of 32): each kernel is a
-template on C, instantiated at those two widths. Any other width or window
-raises `NotImplementedError` (ROADMAP Queue 1, item 6).
+In float32 it launches one kernel per call, a block per (window, 64 query
+rows). The kernels are built at first use (`cuda_build.py`); they are
+forward only, and take windows of 64 or 256 tokens (window side 8 or 16,
+`WINDOW_SIDES`), 8 heads, an FFN width that is a multiple of 128, and C = 288
+(the flagship, heads of 36) or C = 256 (the single-frame Deformable DETR
+family, heads of 32): each kernel is a template on C (and the attention's
+and the float32 layer's on the window), instantiated at those sizes. Any
+other width, head count or window raises `NotImplementedError` naming
+the sizes the kernels take.
 """
 from __future__ import annotations
 
@@ -49,10 +52,12 @@ from .linear import dense
 from .cuda_build import CudaLib
 
 WS, N_HEADS, FF_CHUNK = 64, 8, 128
-# the widths the kernels are instantiated at
+# the widths and the windows (window sides, and their tokens) the kernels
+# are instantiated at
 WIDTHS = (288, 256)
+WINDOW_SIDES = (8, 16)
+WINDOWS = tuple(side * side for side in WINDOW_SIDES)
 LN_EPS = 1e-6
-UNPORTED = "not ported yet (ROADMAP Queue 1, item 6)"
 
 
 def d_head_pad(c: int) -> int:
@@ -63,11 +68,12 @@ def d_head_pad(c: int) -> int:
 
 def check_width(c: int, heads: int = N_HEADS, ws: int = WS) -> None:
     """Raise unless a kernel is instantiated for this layer shape."""
-    if c not in WIDTHS or heads != N_HEADS or ws != WS:
+    if c not in WIDTHS or heads != N_HEADS or ws not in WINDOWS:
         raise NotImplementedError(
             f"window layer kernel at C = {c}, {heads} heads, windows of "
-            f"{ws} tokens: {UNPORTED}; the kernels take C in {WIDTHS}, "
-            f"{N_HEADS} heads, windows of {WS}")
+            f"{ws} tokens: no kernel is instantiated there; the kernels "
+            f"take C in {WIDTHS}, {N_HEADS} heads, windows of {WINDOWS} "
+            f"tokens")
 
 # the bfloat16 path's kernels, in launch order
 STAGES = ("window_layer_qkv", "window_layer_attn", "window_layer_proj_ln",
@@ -81,11 +87,11 @@ LAUNCHES: Dict[str, int] = {"fused_window_layer": 0,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLib("window_layer_fwd.cu", {
     "window_layer_qkv": (_I, [_P] * 5 + [_I, _I, _P]),
-    "window_layer_attn": (_I, [_P] * 3 + [_I, _I, _P]),
+    "window_layer_attn": (_I, [_P] * 3 + [_I, _I, _I, _P]),
     "window_layer_proj_ln": (_I, [_P] * 7 + [_I, _I, _P]),
     "window_layer_ffn1": (_I, [_P] * 4 + [_I, _I, _I, _P]),
     "window_layer_ffn2_ln": (_I, [_P] * 7 + [_I, _I, _I, _P]),
-    "window_layer_occupancy": (_I, [_I, _I, ctypes.POINTER(_I),
+    "window_layer_occupancy": (_I, [_I, _I, _I, ctypes.POINTER(_I),
                                     ctypes.POINTER(_I)]),
     "window_layer_f32_fwd": (_I, [_P] * 16 + [_I] * 5 + [_P])})
 
@@ -200,8 +206,8 @@ def qkv_plain(x: torch.Tensor, pos: torch.Tensor, wqkv: torch.Tensor,
 
 
 def attn_plain(qkv: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
-    """(R, 3C) q|k|v and the (NW, WS) key mask -> (R, C) the heads'
-    outputs side by side: float32 logits scaled after the product, excluded
+    """(R, 3C) q|k|v and the (NW, WS) key mask (WS tokens a window) -> (R,
+    C) the heads' outputs side by side: float32 logits scaled after the product, excluded
     keys at float32's minimum, softmax as e / sum(e), the probabilities
     rounded before they multiply v, the sum rounded."""
     r, c = qkv.shape[0], qkv.shape[1] // 3
@@ -304,19 +310,19 @@ def qkv_cuda(x: torch.Tensor, pos: torch.Tensor, wqkv: torch.Tensor,
 
 
 def attn_cuda(qkv: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
-    """`attn_plain` as one launch of `window_layer_attn`."""
+    """`attn_plain` as one launch of `window_layer_attn`; the window's
+    token count is the key mask's width."""
     _check_stage("window_layer_attn", qkv)
-    nw, c = kp.shape[0], qkv.shape[1] // 3
-    check_width(c)
+    (nw, ws), c = kp.shape, qkv.shape[1] // 3
+    check_width(c, N_HEADS, ws)
     if not (kp.is_cuda and kp.device == qkv.device
             and kp.dtype == torch.bool and kp.is_contiguous()):
         raise ValueError("window_layer_attn: the key mask must be a "
                          "contiguous bool CUDA tensor on the device of q|k|v")
-    _check_rows("window_layer_attn", {"qkv": (qkv, (nw * WS, 3 * c)),
-                                      "kp": (kp, (nw, WS))})
-    out = torch.empty(nw * WS, c, dtype=qkv.dtype, device=qkv.device)
+    _check_rows("window_layer_attn", {"qkv": (qkv, (nw * ws, 3 * c))})
+    out = torch.empty(nw * ws, c, dtype=qkv.dtype, device=qkv.device)
     _launch("window_layer_attn", "window_layer_attn", qkv.device,
-            qkv.data_ptr(), kp.data_ptr(), out.data_ptr(), nw, c)
+            qkv.data_ptr(), kp.data_ptr(), out.data_ptr(), nw, ws, c)
     return out
 
 
@@ -375,17 +381,18 @@ def ffn2_ln_cuda(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
     return out
 
 
-def stage_occupancy(c: int = 288) -> Dict[str, Tuple[int, int]]:
+def stage_occupancy(c: int = 288, ws: int = WS
+                    ) -> Dict[str, Tuple[int, int]]:
     """Each stage kernel's (blocks per SM that the card grants, dynamic
-    shared bytes a block) at width `c`, from
+    shared bytes a block) at width `c` and windows of `ws` tokens, from
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor` on the current
     device."""
-    check_width(c)
+    check_width(c, N_HEADS, ws)
     lib = LIB.load()
     out = {}
     for i, name in enumerate(STAGES):
         blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
-        rc = lib.window_layer_occupancy(i, c, ctypes.byref(blocks),
+        rc = lib.window_layer_occupancy(i, c, ws, ctypes.byref(blocks),
                                         ctypes.byref(smem))
         if rc != 0:
             raise RuntimeError(f"window_layer_occupancy({name}): "
@@ -410,17 +417,17 @@ def _check_inputs(xw, pw, kp, layer) -> None:
                            "torch.no_grad(); to train the windowed encoder "
                            "run its module path (window_layer_plain), as "
                            "the JAX package does")
-    nw = xw.shape[0]
     ff = layer.linear1.weight.shape[0]
     if xw.dim() != 3:
         raise ValueError(f"window_layer_fwd takes (NW, WS, C) windows; got "
                          f"{tuple(xw.shape)}")
-    check_width(xw.shape[2], layer.self_attn.num_heads, xw.shape[1])
-    if (pw.shape != xw.shape or tuple(kp.shape) != (nw, WS)
+    nw, ws, _ = xw.shape
+    check_width(xw.shape[2], layer.self_attn.num_heads, ws)
+    if (pw.shape != xw.shape or tuple(kp.shape) != (nw, ws)
             or ff % FF_CHUNK):
         raise ValueError(
-            f"window_layer_fwd takes (NW, {WS}, C) windows, positions of "
-            f"their shape, an (NW, {WS}) key mask and an FFN width "
+            f"window_layer_fwd takes (NW, WS, C) windows, positions of "
+            f"their shape, an (NW, WS) key mask and an FFN width "
             f"divisible by {FF_CHUNK}; got {tuple(xw.shape)}, "
             f"{tuple(pw.shape)}, {tuple(kp.shape)}, FFN {ff}")
     if any(p.device != xw.device for p in params):
@@ -452,7 +459,7 @@ def fused_window_layer(xw: torch.Tensor, pw: torch.Tensor, kp: torch.Tensor,
         out = torch.empty_like(xw)
         _launch("window_layer_f32_fwd", "window_layer_f32", xw.device,
                 xw.data_ptr(), pw.data_ptr(), kp.data_ptr(),
-                *[w.data_ptr() for w in weights], out.data_ptr(), nw, WS, c,
+                *[w.data_ptr() for w in weights], out.data_ptr(), nw, ws, c,
                 N_HEADS, layer.linear1.weight.shape[0])
     LAUNCHES["fused_window_layer"] += 1
     return out

@@ -13,9 +13,11 @@ port: the same scales, the same scenes from the same
 order, trained by the port's `make_train_step(tracking=False)` and scored
 by the port's `datasets/coco_eval.py`. Mode names: `exact`, `fast`, and
 ablation tokens after an underscore: `f32` (float32 compute) and `remat0`
-(accepted; the port keeps every activation either way); `wN` sets the
-window side, and only 8 is ported (kernel #8 at window 16 is ROADMAP
-Queue 1, item 6). Environment knobs as in JAX: `AGREE_LR` (default 4e-4),
+(accepted and changes nothing: `tpu.remat` recomputes activations in the
+backward to save memory, which the port, keeping every activation, does
+not port; ROADMAP Queue 1, item 7); `wN` sets the window side, 8 or 16
+(kernel #8 at windows of 64 or 256 tokens). Environment knobs as in JAX:
+`AGREE_LR` (default 4e-4),
 `AGREE_WARMUP` (default 0), `AGREE_SEED` (default 0; the scenes stay seed
 0, so every seed trains and scores on the same data), `AGREE_MAX_STEPS`
 (train only the first steps of the schedule), `AGREE_MODES` (only these
@@ -146,15 +148,19 @@ def take_rows(targets, idx: torch.Tensor):
 
 def mode_over(mode: str) -> dict:
     """Config overrides of a mode name: `exact` the MSDA encoder, `fast`
-    the windowed one; tokens after it as in the module docstring."""
+    the windowed one; tokens after it as in the module docstring (`wN` the
+    window side; `f32` and `remat0` add no override: `train_config` reads
+    them, and `remat0` changes nothing in the port, which does not
+    recompute activations under `tpu.remat` either way)."""
+    from ..ops.window_attn import WINDOW_SIDES
     over = {"tpu.encoder_attention": ("msda" if mode.split("_")[0] == "exact"
                                       else "windowed")}
     for tok in mode.split("_")[1:]:
         if tok.startswith("w") and tok[1:].isdigit():
-            if int(tok[1:]) != 8:
+            if int(tok[1:]) not in WINDOW_SIDES:
                 raise NotImplementedError(
-                    f"{mode}: the window layer kernel at window {tok[1:]} is "
-                    f"not ported yet (ROADMAP Queue 1, item 6)")
+                    f"{mode}: kernel #8 is instantiated at window sides "
+                    f"{WINDOW_SIDES}, not {tok[1:]}")
             over["tpu.encoder_window"] = int(tok[1:])
         elif tok not in ("f32", "remat0"):
             raise ValueError(f"unknown ablation token {tok!r} in {mode!r}")

@@ -135,14 +135,17 @@ def gts_to_targets(gts_batch, sc: TrackScale, device):
 
 def train_config(mode: str, sc: TrackScale, steps: int) -> dict:
     """The JAX tool's config: `deformable tracking` with two-frame track
-    queries and no multi-frame attention."""
+    queries and no multi-frame attention. `mode` is `exact` or `fast`, as
+    in the JAX tool, or an arm of the detection tool's names
+    (`fast_exact_agreement.mode_over`: `fast_w16` the windowed encoder at
+    window side 16); its `f32` and `remat0` tokens change nothing here,
+    where every arm runs float32 and keeps its activations."""
     from ..utils.config import load_config
+    from .fast_exact_agreement import mode_over
     lr = float(os.environ.get("AGREE_LR", "4e-4"))
     over = {**sc.model, "dataset": "mot", "aux_loss": True, "lr": lr,
             "lr_backbone": lr, "dropout": 0.0,
-            "tpu.decoder_attention": "msda",
-            "tpu.encoder_attention": ("windowed" if mode == "fast"
-                                      else "msda"),
+            "tpu.decoder_attention": "msda", **mode_over(mode),
             "tpu.max_objects": sc.max_obj,
             "tpu.lr_warmup_steps": int(os.environ.get("AGREE_WARMUP",
                                                       "100"))}

@@ -358,7 +358,16 @@ def make_tracker_step(model: Callable, postprocess: Callable,
     and a list of B result dicts. The model runs once at batch B; the track
     logic, which reads a few scalars back to the host (the NMS fixed point,
     the reid gate and solver), runs per sequence on its slice of the
-    batched outputs."""
+    batched outputs.
+
+    A two-stage model is refused: it takes no track queries (its decoder
+    queries are its top proposals), and the JAX package's `Tracker` fails
+    on it with an IndexError (ROADMAP Queue 3)."""
+    if getattr(model, "two_stage", False):
+        raise NotImplementedError(
+            "the tracker does not take a two-stage model: it drops the "
+            "track queries, and the JAX package's Tracker raises IndexError "
+            "on it (ROADMAP Queue 3)")
 
     def core(states: List[TrackerState], batch: FrameBatch, orig_sizes,
              public_boxes, public_valid, prev_features):
