@@ -203,10 +203,10 @@ last line marked "partial"; the kernels line needs all of them):
      flagship's train step in the train CLI's 1344x1344 bucket (an upright
      crop). Launches checked per frame and per step.
   agreement: the port's agreement tools briefly: the detection task at
-     the `flagship` scale (416x544, B = 4, hidden 288, bf16), each arm 30
+     the `flagship` scale (416x544, B = 4, hidden 288, bf16), each arm 10
      steps and scored (mAP, AP50, cross-agreement; the fast arm's eval runs
      kernel #8 at 416x544 B = 4), and the tracking task at the `mid` scale
-     (192x256, float32), each arm 50 steps, its `Tracker` over the held-out
+     (192x256, float32), each arm 25 steps, its `Tracker` over the held-out
      sequences (kernel #8's float32 kernel at B = 1) and scored (MOTA,
      IDF1); every arm's loss must fall and every score be a number.
   masks: the MOTS20 recipe (`cli.train with mots20`: vanilla DETR with
@@ -237,16 +237,38 @@ last line marked "partial"; the kernels line needs all of them):
      cached memory (`Tracker`: 6 `msda_patch` a frame); `deformable
      tracking` over ResNet-101 with 5 levels, and with DC5 (`Tracker` 3
      frames, a step each); the fast flagship at window side 16 (`Tracker`,
-     `BatchedTracker` of 8 sequences x 3 frames, float32 card vs CPU, 10
+     `BatchedTracker` of 8 sequences x 3 frames, float32 card vs CPU, 4
      steps of the agreement tool's `fast_w16` arm and its eval). The
      `window` phase holds kernel #8 at 256-token windows at the shapes of
      these runs (`WINDOW_EXTRA`'s `w16_b1`, `w16_b8`, with each stage
      kernel, and `agree_w16`).
-  Every MSDA call shape those four phases launch that no phase above holds
+  panoptic: COCO panoptic and vanilla DETR's attention maps: the
+     250-class `DETRSegm` (`train.yaml` + `mots20` with
+     `dataset=coco_panoptic`, hidden 256, 100 queries, bf16, seeded
+     weights, its class head made sure of one thing category) through
+     `cli.train ... eval_only=true` over a synthetic panoptic root of 2
+     800x1344 images at B = 2 (PQ / SQ / RQ, box and mask AP, its PNGs,
+     seconds a frame); the MOTS20 recipe's model as an `AttentionMapDETR`
+     in a `Tracker` over the frames at 800x1344 with `reset(hard=False)`
+     halfway (ms a frame with and without maps; every map 25x42, finite);
+     `cli.track ... generate_attention_maps=true` over a MOTS20 sequence
+     at 768x1344 (Hz, rows). No kernel launch (vanilla DETR).
+  train_extras: the exact flagship (bf16, B = 2, 800x1344, dropout 0.1):
+     2 three-frame steps (`track_prev_prev_frame`: 36 `msda_patch`, 18
+     `ms_deform_attn` with the previous frame's decoder at 600 queries, 18
+     `msda_bwd`), 2 with `backprop_prev_frame` (54 `msda_bwd`); a two-frame
+     step with `tpu.remat` and without from the same state and dropout
+     draws, at 800x1344 and in the 1088x1920 bucket (the loss equal,
+     grad_norm and the gradients within `msda_bwd`'s atomics' drift, step
+     ms and peak memory both ways; 36 `msda_patch` with remat); one
+     float32 three-frame step with backprop at 128x192, card against the
+     CPU's float32 and float64 steps (`three_frame_reference`).
+  Every MSDA call shape those six phases launch that no phase above holds
   (D = 32 at hidden 256; the 8-level joint encoder; 416x544 at B = 4; the
   mid scale; 1344x1344; 5 levels, DC5, the two-stage decoder's 300
-  queries) is then held at that shape against the plain
-  version, forward and backward, float32 and bfloat16, and timed
+  queries; the three-frame step's previous decoder at 600 queries and the
+  backward of the previous frames' decoders at 500 and 600) is then held
+  at that shape against the plain version, forward and backward, float32 and bfloat16, and timed
   (`kernel_phase_path_shapes`); the window phase holds kernel #8 at the
   new shapes (C = 256 at B = 1 and 2 with each stage kernel; 416x544 at B
   = 4; 192x256 float32 at B = 1: `WINDOW_EXTRA`).
@@ -3362,6 +3384,13 @@ ROUTE_LOSS_RTOL = 0.02
 # device, not the kernels'.
 REF_LOSS_RTOL = 1e-4
 REF_GRAD_TOL = (1e-4, 1e-3)
+# a step whose float32 gradients miss the float64 limits on the CPU too
+# (the three-frame step with backprop: the trunk's gradient summed over
+# three frames): against float64 the card is held to this many times the
+# CPU float32 step's own readings, since float32 puts a different element
+# across a ReLU kink in each run (NVIDIA H100 80GB HBM3: the card's
+# worst element 1.03 times the CPU's)
+OWN_READING_MARGIN = 2.0
 REF_LIMITS = {"cpu": (1e-3, 2e-3, 1e-2),
               "cpu_float64": (1e-4, 5e-4, 2.5e-3)}
 
@@ -3593,7 +3622,7 @@ def grad_readings(got: dict, ref: dict, limits) -> dict:
 
 def train_reference_run(seed: int, fast: bool = False, base=None,
                         label: str = None, tracking: bool = True,
-                        own_share: bool = False):
+                        own_share: bool = False, prev_prev: bool = False):
     """One float32 train step at 128x192, 2 + 2 layers, full width, on the
     card (kernels) against the same step on the CPU (plain versions) in
     float32 and in float64, with dropout 0 and the track-query draws
@@ -3608,8 +3637,15 @@ def train_reference_run(seed: int, fast: bool = False, base=None,
     share against float64 (the card no less exact than the plain version
     in float32; the two-stage step, whose `_enc` focal loss over 22,323
     proposals sums thousands of terms, misses the fixed share on the CPU
-    too); the per-tensor L2 and largest-error limits stay as they are."""
+    too); the per-tensor L2 and largest-error limits stay as they are.
+    `prev_prev`: a three-frame step with `backprop_prev_frame`, the
+    previous frame's track queries pinned too; against float64 each of the
+    three limits may then reach `OWN_READING_MARGIN` times the CPU float32
+    step's own reading against float64 under the same limits (the card's
+    float32 error of float32's size: the trunk's gradient summed over three
+    frames misses the fixed float64 limits on the CPU as well)."""
     import copy
+    import dataclasses
 
     from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
                                               make_train_step)
@@ -3647,6 +3683,12 @@ def train_reference_run(seed: int, fast: bool = False, base=None,
     forced = {"num": 4, "num_fps": 1,
               "order": np.tile(np.arange(t), (TRAIN_BATCH, 1)),
               "fp_seed_pos": np.tile(np.arange(t), (TRAIN_BATCH, 1))}
+    if prev_prev:
+        imgs.append(torch.from_numpy(rng.randn(TRAIN_BATCH, 128, 192, 3)
+                                     .astype(np.float32)))
+        forced["prev"] = {"num": 5,
+                          "order": np.tile(np.arange(t), (TRAIN_BATCH, 1))}
+        track_cfg = dataclasses.replace(track_cfg, backprop_prev_frame=True)
     results = {}
     for tag, dev, dtype in (("card", "cuda", torch.float32),
                             ("cpu", "cpu", torch.float32),
@@ -3655,7 +3697,8 @@ def train_reference_run(seed: int, fast: bool = False, base=None,
         optimizer = make_optimizer(cfg, model)
         state = TrainState.create(model, optimizer)
         step_fn = make_train_step(model, crit_cfg, optimizer, track_cfg,
-                                  tracking=tracking, return_grads=True)
+                                  tracking=tracking, return_grads=True,
+                                  prev_prev=prev_prev)
         targets = empty_targets(TRAIN_BATCH, t, dev)
         targets.boxes[:] = torch.from_numpy(boxes).to(dev)
         targets.valid[:, :n_obj] = True
@@ -3667,6 +3710,9 @@ def train_reference_run(seed: int, fast: bool = False, base=None,
                 "targets": targets}
         if not tracking:
             pack = {"batch": pack["batch"], "targets": targets}
+        if prev_prev:
+            pack.update(prev_prev_batch=FrameBatch.from_images(
+                imgs[2].to(dev), valid), prev_prev_targets=targets)
         reset_launch_counts()
         _, metrics = step_fn(state, pack, None, forced=forced)
         results[tag] = (float(metrics["loss"]), float(metrics["grad_norm"]),
@@ -3701,6 +3747,17 @@ def train_reference_run(seed: int, fast: bool = False, base=None,
         if own_share and ref == "cpu_float64":
             limits = (max(limits[0], own["elements_out"] / own["elements"]),
                       ) + limits[1:]
+        if prev_prev and ref == "cpu_float64":
+            own64 = grad_readings(results["cpu"][2], grads_r, limits)
+            m = OWN_READING_MARGIN
+            limits = (max(limits[0], m * own64["elements_out"]
+                          / own64["elements"]),
+                      limits[1] * max(1.0, m * float(
+                          own64["worst_l2_err_over_tol"])),
+                      limits[2] * max(1.0, m * float(
+                          own64["worst_max_err_over_tol"])))
+            phase(label, seed=seed, reading="cpu against cpu_float64 at "
+                  "its limits (no check)", **own64)
         r = grad_readings(grads_c, grads_r, limits)
         r["ok"] = r["ok"] and scalars_ok
         phase(label, seed=seed, held=f"card against {ref}",
@@ -4241,7 +4298,9 @@ def cli_checkpoint(cfg, named, seed: int, tag: str, out_dir: Path):
                                                     dump_config, load_config)
 
     train_cfg = load_config("train.yaml", named, {"dataset": cfg.dataset})
-    check(FlagshipConfig.from_config(train_cfg) == cfg,
+    # `tpu.remat` (on in train.yaml) is a training knob: no forward reads it
+    check(FlagshipConfig.from_config(train_cfg).replace(remat=cfg.remat)
+          == cfg,
           f"{tag}: the saved train config does not map onto the model's")
     model, post = smoke_model(cfg, seed, tag)
     ckpt = out_dir / tag / "checkpoint.npz"
@@ -4483,6 +4542,9 @@ TRAIN_CLI_EVAL_SUBSET = 4
 # launches per exact train step, validation batch and tracked frame
 EXACT_STEP = {"msda_patch": 24, "ms_deform_attn": 12, "msda_bwd": 18}
 EXACT_FORWARD = {"msda_patch": 12, "ms_deform_attn": 6}
+# under `tpu.remat` (train.yaml's, which the train CLI applies) the current
+# frame's 12 encoder layer calls run again in the backward
+REMAT_STEP = {**EXACT_STEP, "msda_patch": 36}
 
 
 def train_cli_run(seed: int, tmp: Path, card: str) -> dict:
@@ -4661,7 +4723,7 @@ def train_cli_run(seed: int, tmp: Path, card: str) -> dict:
         n_steps = 2 * steps_per_epoch
         check(state.step == n_steps,
               f"train_cli_exact: state step {state.step}, want {n_steps}")
-        want = {k: EXACT_STEP.get(k, 0) * n_steps + EXACT_FORWARD.get(k, 0)
+        want = {k: REMAT_STEP.get(k, 0) * n_steps + EXACT_FORWARD.get(k, 0)
                 * 2 * (val_batches + track_frames) for k in counts}
         check(counts == want, f"train_cli_exact: launches {counts}, want "
                               f"{want}")
@@ -4800,12 +4862,14 @@ SQUARE_BUCKET, SQUARE_VALID = (1344, 1344), (1333, 750)
 
 def variant_config(named, **changes):
     """`FlagshipConfig` of `train.yaml` + `named` (a 20-class head, the
-    tracker of `cfgs/track.yaml`)."""
+    tracker of `cfgs/track.yaml`), its train steps without `tpu.remat`
+    unless `changes` turn it on (the `train_extras` phase measures
+    it)."""
     from trackformer_tpu_torch.utils.config import (FlagshipConfig,
                                                     load_config)
     cfg = FlagshipConfig.from_config(load_config(
         "train.yaml", named, {"dataset": "mot_crowdhuman"}))
-    return cfg.replace(**changes)
+    return cfg.replace(**{"remat": False, **changes})
 
 
 def variant_train_steps(tag: str, cfg, seed: int, steps, want,
@@ -4929,7 +4993,9 @@ def variants_run(seed: int, n_frames: int) -> dict:
 # steps of each arm in the agreement phase: the detection task at the
 # flagship scale (bf16, 416x544, B = 4) and the tracking task at the mid
 # scale (float32, 192x256, B = 4)
-AGREE_DET_STEPS, AGREE_TRACK_STEPS = 30, 50
+# (30 and 50 steps before the panoptic and train_extras phases came: cut
+# to keep the whole run near its time)
+AGREE_DET_STEPS, AGREE_TRACK_STEPS = 10, 25
 
 
 def falls(losses) -> bool:
@@ -5316,7 +5382,8 @@ def masks_run(seed: int, n_frames: int, tmp: Path, card: str) -> dict:
                           loss_dice=f"{result['loss_dice']:.4f}")
         phase(tag, **fields)
     phase("masks_train_step", card=json.dumps(card), batch=TRAIN_BATCH,
-          image=f"{BUCKET[0]}x{BUCKET[1]}", **masks_step_split(cfg, seed))
+          image=f"{BUCKET[0]}x{BUCKET[1]}",
+          **masks_step_split(cfg, seed, reps=2))
 
     # (b) the Deformable DETR masks model: tracker, train steps, forward
     dcfg = variant_config(["deformable", "tracking"], masks=True)
@@ -5363,7 +5430,7 @@ MERGE_STEP = {True: EXACT_STEP}
 # two-stage: `train.yaml` + `deformable` (single frame, no track queries)
 TWO_STAGE_STEP = {False: SINGLE_STEP[False]}
 # steps of the window-16 agreement arm (detection, the flagship scale)
-AGREE_W16_STEPS = 10
+AGREE_W16_STEPS = 4
 
 
 def two_stage_match_split(model, cfg, seed: int, reps: int = 3) -> dict:
@@ -5538,11 +5605,426 @@ def family_run(seed: int, n_frames: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the last model and training options: COCO panoptic, vanilla DETR's
+# attention maps with the tracker's soft reset, three-frame training with
+# and without backprop through the previous frames, and `tpu.remat`
+# --------------------------------------------------------------------------
+
+PAN_HW = BUCKET                # 800x1344 images of the synthetic root
+PAN_IMAGES = 2                 # one batch of the evaluation
+# the three frames' launches of a three-frame step of the exact flagship:
+# each forward encodes two frames (12 `msda_patch`) and decodes (6
+# `ms_deform_attn`); the backward runs through the current frame only (12
+# encoder + 6 decoder calls), or with `backprop_prev_frame` through all
+# three forwards
+THREE_STEP = {"msda_patch": 36, "ms_deform_attn": 18, "msda_bwd": 18}
+THREE_BACKPROP_STEP = {**THREE_STEP, "msda_bwd": 54}
+# the previous frame's decoder with the previous-previous frame's track
+# queries: `max_objects` slots (no false positives) + 500 queries
+TRAIN_PREV_TRACK_QUERIES = 600
+# a remat step against the same step without it: the loss equal (the
+# forward is deterministic and the dropout masks replayed); the gradients
+# apart by `msda_bwd`'s float32 atomics alone, as two replays of one step
+# are (ROADMAP Queue 3: grad_norm 4.4e-6 to 7.6e-6 relative, a tensor's
+# elements up to 0.0085 of its largest)
+REMAT_GRAD_NORM_RTOL = 1e-4
+REMAT_GRAD_MAX_REL = 0.02
+
+
+def write_panoptic_root(root: Path, seed: int, n: int = PAN_IMAGES,
+                        hw=PAN_HW):
+    """A COCO panoptic root of `n` images at `hw` (the layout of the port's
+    test root, scaled): per image a sky and a ground stuff band
+    (categories 184, 187) and two thing boxes (1, 3) as an RGB id PNG, a
+    JPEG of the segments' seeded colours with noise, and the annotations
+    JSON -> (coco root, panoptic root)."""
+    from PIL import Image
+
+    from trackformer_tpu_torch.models.panoptic import id2rgb
+
+    h, w = hw
+    img_dir = root / "coco" / "val2017"
+    pan_dir = root / "panoptic" / "panoptic_val2017"
+    ann_dir = root / "panoptic" / "annotations"
+    for d in (img_dir, pan_dir, ann_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    images, annotations = [], []
+    for i in range(n):
+        ids = (1000 + 10 * i, 1001 + 10 * i, 5000 + 10 * i, 5001 + 10 * i)
+        seg = np.full((h, w), ids[0], np.int64)
+        seg[h // 2 + (i - 1) * h // 12:] = ids[1]
+        y, x = h // 5 + 20 * i, w // 8 + 40 * i
+        seg[y:y + h // 3, x:x + w // 6] = ids[2]
+        y, x = h // 2, w // 2 + 30 * i
+        seg[y:y + h // 4, x:x + w // 7] = ids[3]
+        Image.fromarray(id2rgb(seg)).save(pan_dir / f"{i:06d}.png")
+        img = np.zeros((h, w, 3), np.float32)
+        for sid in ids:
+            img[seg == sid] = rng.uniform(40, 215, 3)
+        img += rng.normal(0, 12, img.shape)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            img_dir / f"{i:06d}.jpg", quality=90)
+        images.append({"id": i, "file_name": f"{i:06d}.jpg", "height": h,
+                       "width": w})
+        annotations.append({"image_id": i, "file_name": f"{i:06d}.png",
+                            "segments_info": [
+                                {"id": sid, "category_id": cat, "iscrowd": 0,
+                                 "area": int((seg == sid).sum())}
+                                for sid, cat in zip(ids, (184, 187, 1, 3))]})
+    (ann_dir / "panoptic_val2017.json").write_text(json.dumps(
+        {"images": images, "annotations": annotations}))
+    return root / "coco", root / "panoptic"
+
+
+def panoptic_run(seed: int, n_frames: int, tmp: Path, card: str) -> dict:
+    """COCO panoptic and vanilla DETR's attention maps on the card, each
+    line with `card`, the card's nvidia-smi name and power limit:
+      (a) the 250-class `DETRSegm` at the MOTS20 recipe's widths
+          (`train.yaml` + `mots20` with `dataset=coco_panoptic`: hidden
+          256, 6 + 6 layers, FFN 2048, 100 queries, 251 softmax logits,
+          the mask heads, bf16) with seeded weights, its class head made
+          sure of one thing category (smoke only), through `cli.train
+          ... eval_only=true` over a synthetic panoptic root of
+          `PAN_IMAGES` 800x1344 images at B = 2: box, mask and panoptic
+          evaluation (PQ / SQ / RQ; random weights: plumbing), its PNGs,
+          seconds a frame; no kernel launch (vanilla DETR);
+      (b) the MOTS20 recipe's model as an `AttentionMapDETR`: the
+          `Tracker` with attention maps over `n_frames` 800x1344 frames,
+          `reset(hard=False)` halfway, ms a frame against the same run
+          without maps; each result's map the memory's 25x42, finite, of
+          a query's weights summing to at most 1;
+      (c) `cli.track ... generate_attention_maps=true` over a synthetic
+          MOTS20 layout (768x1344 frames), its Hz and rows. -> the
+          launches of the runs by tag."""
+    import contextlib
+    import io
+
+    from trackformer_tpu_torch.cli import train as cli_train
+    from trackformer_tpu_torch.models.detr import AttentionMapDETR
+    from trackformer_tpu_torch.tracking import Tracker
+    from trackformer_tpu_torch.tracking.tracker import attn_hw_of
+    from trackformer_tpu_torch.utils.checkpoint import save_model_npz
+    from trackformer_tpu_torch.utils.config import (FlagshipConfig,
+                                                    dump_config, load_config)
+
+    out = {}
+    # (a) COCO panoptic through the train CLI's evaluation
+    t0 = time.perf_counter()
+    coco_root, pan_root = write_panoptic_root(tmp / "pan", seed)
+    phase("panoptic", card=json.dumps(card), images=PAN_IMAGES,
+          image=f"{PAN_HW[0]}x{PAN_HW[1]}",
+          write_s=f"{time.perf_counter() - t0:.2f}")
+    train_cfg = load_config("train.yaml", ["mots20"],
+                            {"dataset": "coco_panoptic"})
+    cfg = FlagshipConfig.from_config(train_cfg)
+    check((cfg.deformable, cfg.masks, cfg.focal_loss, cfg.hidden_dim,
+           cfg.num_queries, cfg.dataset) == (False, True, False, 256, 100,
+                                             "coco_panoptic"),
+          f"panoptic: config {cfg}")
+    model, _ = smoke_model(cfg, seed, "panoptic")
+    check(type(model).__name__ == "DETRSegm"
+          and model.class_embed.out_features == 251,
+          f"panoptic: built {type(model).__name__}")
+    with torch.no_grad():
+        model.class_embed.bias.zero_()
+        model.class_embed.bias[1] = 10.0     # every query a "person"
+    ckpt = tmp / "pan" / "checkpoint.npz"
+    save_model_npz(model, ckpt, cfg)
+    dump_config(train_cfg, ckpt.parent / "config.yaml")
+    del model
+    run_dir = tmp / "pan" / "run"
+    argv = ["with", "mots20", "dataset=coco_panoptic",
+            f"coco_path={coco_root}", f"coco_panoptic_path={pan_root}",
+            "train_split=val", "val_split=val", "tracking=false",
+            "tracking_eval=false", "eval_only=true",
+            f"batch_size={TRAIN_BATCH}", f"resume={ckpt}",
+            f"output_dir={run_dir}"]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = cli_train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = out["panoptic_eval"] = launch_counts()
+    record_path()
+    pngs = sorted((run_dir / "panoptic_eval").glob("*.png"))
+    segments = 0
+    from PIL import Image
+
+    from trackformer_tpu_torch.models.panoptic import rgb2id
+    for f in pngs:
+        with Image.open(f) as im:
+            ids = rgb2id(np.asarray(im.convert("RGB")))
+        check(ids.shape == PAN_HW, f"panoptic: PNG of {ids.shape}")
+        segments += len(np.unique(ids))
+    phase("panoptic_eval", card=json.dumps(card), batch=TRAIN_BATCH,
+          frames=PAN_IMAGES, seconds=f"{seconds:.2f}",
+          s_per_frame=f"{seconds / PAN_IMAGES:.3f}",
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          pq=stats.get("PQ_all"), sq=stats.get("SQ_all"),
+          rq=stats.get("RQ_all"), ap=stats.get("AP"),
+          ap_masks=stats.get("AP_masks"), pngs=len(pngs), segments=segments,
+          note=json.dumps("PQ and AP of random weights: plumbing"))
+    check({"PQ_all", "SQ_all", "RQ_all", "AP_masks"} <= set(stats)
+          and all(np.isfinite(stats[k]) for k in ("PQ_all", "SQ_all",
+                                                    "RQ_all")),
+          f"panoptic: stats {sorted(stats)}")
+    check(len(pngs) == PAN_IMAGES and segments > PAN_IMAGES,
+          f"panoptic: {len(pngs)} PNGs with {segments} segments")
+    check(not any(counts.values()),
+          f"panoptic: vanilla DETR launched {nonzero(counts)}")
+
+    # (b) the attention-map Tracker with a soft reset, against the same
+    # Tracker without maps
+    rcfg = recipe_config()
+    model, post = smoke_model(rcfg, seed, "attention_maps")
+    wrapped = AttentionMapDETR(model)
+    blobs = frame_blobs(n_frames, seed)
+    tracker_args = (post, {**rcfg.tracker_cfg, "max_tracks": rcfg.max_tracks},
+                    rcfg.hidden_dim, rcfg.num_queries, rcfg.overflow_boxes,
+                    rcfg.masks)
+    runs = {}
+    for tag, tracker in (
+            ("attention_maps", Tracker(wrapped, *tracker_args,
+                                       attn_stride=wrapped.stride)),
+            ("attention_maps_off", Tracker(model, *tracker_args))):
+        frame_ms = []
+        reset_launch_counts()
+        for t, blob in enumerate(blobs):
+            if t == n_frames // 2:
+                tracker.reset(hard=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracker.step(blob)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        out[tag] = launch_counts()
+        record_path()
+        runs[tag] = (tracker, statistics.median(frame_ms[1:]))
+    tracker, ms = runs["attention_maps"]
+    results = tracker.get_results()
+    hw = attn_hw_of(PAN_HW, wrapped.stride)
+    maps = [e["attention_map"] for v in results.values() for e in v.values()]
+    sums = [float(m.sum()) for m in maps]
+    frames_seen = {f for v in results.values() for f in v}
+    phase("attention_maps", card=json.dumps(card), frames=n_frames,
+          image=f"{PAN_HW[0]}x{PAN_HW[1]}", soft_reset_at=n_frames // 2,
+          ms_per_frame=f"{ms:.2f}",
+          ms_per_frame_without_maps=f"{runs['attention_maps_off'][1]:.2f}",
+          tracks=len(results), maps=len(maps), map_hw=list(hw),
+          frame_index=tracker.frame_index,
+          max_map_sum=f"{max(sums):.4f}" if sums else None)
+    check(maps and all(m.shape == hw and np.isfinite(m).all()
+                       and (m >= 0).all() for m in maps)
+          and max(sums) <= 1.0 + 1e-3,
+          f"attention_maps: {len(maps)} maps of shapes "
+          f"{ {m.shape for m in maps} }")
+    check(tracker.frame_index == n_frames
+          and min(frames_seen) < n_frames // 2 <= max(frames_seen),
+          f"attention_maps: frames {sorted(frames_seen)} around the soft "
+          f"reset")
+    check(not any(out["attention_maps"].values()),
+          f"attention_maps: vanilla DETR launched "
+          f"{nonzero(out['attention_maps'])}")
+    del wrapped, model, runs, tracker
+
+    # (c) the tracking CLI with attention maps over a MOTS20 layout
+    write_mot_sequences(tmp, MASKS_SEQS[:1], MASKS_FRAMES, seed=seed + 5,
+                        ext="jpg", mots=True)
+    rmodel, _, rckpt = cli_checkpoint(rcfg, ["mots20"], seed,
+                                      "attention_cli", tmp)
+    del rmodel
+    res_dir = tmp / "attention_cli_out"
+    reset_launch_counts()
+    summary, runtime = cli_main("attention_cli", track_argv(
+        MASKS_SEQS[:1], tmp, rckpt, f"output_dir={res_dir}",
+        "generate_attention_maps=true"))
+    counts = out["attention_cli"] = launch_counts()
+    record_path()
+    rows = (res_dir / f"{MASKS_SEQS[0]}.txt").read_text().splitlines()
+    phase("attention_cli", card=json.dumps(card), frames=MASKS_FRAMES,
+          image=f"{CLI_BUCKET[0]}x{CLI_BUCKET[1]}",
+          cli_hz=None if runtime is None else runtime[2], rows=len(rows))
+    check(runtime is not None and runtime[1] == MASKS_FRAMES and rows,
+          f"attention_cli: runtime {runtime}, {len(rows)} rows")
+    check(not any(counts.values()),
+          f"attention_cli: vanilla DETR launched {nonzero(counts)}")
+    return out
+
+
+def three_frame_pack(cfg, seed: int, step: int, hw=BUCKET, valid=VALID_HW):
+    """`synthetic_train_pack` with a previous-previous frame: the pack of
+    the frames one before, as the previous and previous-previous frames,
+    under the current frame of this pack."""
+    pack = synthetic_train_pack(cfg, seed, step, hw, valid)
+    earlier = synthetic_train_pack(cfg, seed + 7, step, hw, valid)
+    return {**pack, "prev_prev_batch": earlier["prev_batch"],
+            "prev_prev_targets": earlier["prev_targets"]}
+
+
+def train_extras_run(seed: int, card: str) -> dict:
+    """Three-frame training, backprop through the previous frames and
+    `tpu.remat` with the full-width exact flagship (`deformable tracking
+    multi_frame`, bf16, B = 2, 800x1344, dropout 0.1), each line with
+    `card`:
+      (a) 2 three-frame steps (`track_prev_prev_frame`), then 2 with
+          `backprop_prev_frame`, from the same start: launches
+          (`THREE_STEP`, `THREE_BACKPROP_STEP`) and by shape, step ms (the
+          second step's), peak memory;
+      (b) two-frame steps with `tpu.remat` and without, from the same
+          state and the same dropout draws, 2 at a time: at 800x1344 in
+          turns (off, on, on, off), in the train CLI's 1088x1920 bucket
+          once each: the first loss equal, its
+          grad_norm and every gradient within `msda_bwd`'s atomics'
+          drift, step ms (the second step's, the median of the turns)
+          and peak memory
+          both ways, the remat step's launches (`REMAT_STEP`);
+      (c) one float32 three-frame step with backprop, card against the
+          CPU's float32 and float64 steps (`train_reference_run`). -> the
+          launches by tag."""
+    import dataclasses
+
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    out = {}
+    cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, crit, _, track = build_model(cfg, "cuda", generator=gen,
+                                        train=True)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    optimizer = make_optimizer(cfg, model)
+
+    def steps(tag, step_fn, packs, want):
+        """`packs` through `step_fn` from the start state and draws ->
+        (metrics of each step, the median ms of the steps after the first,
+        the peak GiB)."""
+        from trackformer_tpu_torch.ops import msda
+        model.load_state_dict(start)
+        state = TrainState.create(model, optimizer)
+        gen.manual_seed(seed + 1)
+        torch.cuda.reset_peak_memory_stats()
+        ms, results = [], []
+        for i, pack in enumerate(packs):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, pack, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts = {k: v for k, v in launch_counts().items() if v}
+            shapes = {f"{k[0]} N={k[1]} Lq={k[2]} L={len(k[3])}": n
+                      for k, n in sorted(msda.launch_shapes().items(),
+                                         key=str)}
+            record_new_path(tag)
+            out[tag] = counts
+            loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            phase(tag, card=json.dumps(card), step=i,
+                  image="x".join(map(str, pack["batch"].images.shape[1:3])),
+                  batch=TRAIN_BATCH, loss=f"{loss:.6f}",
+                  grad_norm=f"{norm:.6f}", step_ms=f"{ms[-1]:.1f}",
+                  peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+                  launches=json.dumps(counts, separators=(",", ":")),
+                  by_shape=json.dumps(shapes, separators=(",", ":"))
+                  if i == 0 else None)
+            check(np.isfinite(loss) and np.isfinite(norm) and norm > 0,
+                  f"{tag} step {i}: loss {loss}, grad_norm {norm}")
+            check(counts == want, f"{tag} step {i}: launches {counts}, "
+                                  f"want {want}")
+            results.append(metrics)
+        steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+        return results, steady, torch.cuda.max_memory_allocated() / 2**30
+
+    # (a) three frames, then with backprop through the previous frames
+    packs = [three_frame_pack(cfg, seed, i) for i in range(2)]
+    summary = {}
+    for tag, backprop, want in (("three_frame", False, THREE_STEP),
+                                ("three_frame_backprop", True,
+                                 THREE_BACKPROP_STEP)):
+        fn = make_train_step(model, crit, optimizer, dataclasses.replace(
+            track, backprop_prev_frame=backprop), tracking=True,
+            prev_prev=True)
+        res, ms, peak = steps(tag, fn, packs, want)
+        summary[tag] = (float(res[0]["loss"]), ms, peak)
+    check(any(key[2] == TRAIN_PREV_TRACK_QUERIES
+              for key in NEW_SHAPES if key[0] == "ms_deform_attn"),
+          "three_frame: no previous-frame decoder call with track queries")
+    phase("three_frame", card=json.dumps(card),
+          first_loss_stopped=f"{summary['three_frame'][0]:.6f}",
+          first_loss_backprop=f"{summary['three_frame_backprop'][0]:.6f}",
+          step_ms_stopped=f"{summary['three_frame'][1]:.1f}",
+          step_ms_backprop=f"{summary['three_frame_backprop'][1]:.1f}",
+          peak_gib_stopped=f"{summary['three_frame'][2]:.3f}",
+          peak_gib_backprop=f"{summary['three_frame_backprop'][2]:.3f}")
+    # backprop changes the gradient, not the forward
+    check(summary["three_frame"][0] == summary["three_frame_backprop"][0],
+          "three_frame: the first loss differs with backprop_prev_frame")
+
+    # (b) remat on and off from the same state and draws
+    big_hw, _ = TRAIN_BUCKETS["1088"]
+    # in turns at 800x1344 (off, on, on, off): the host-bound step's time
+    # drifts within a run
+    for label, hw, valid, order in (
+            ("800x1344", BUCKET, VALID_HW, (False, True, True, False)),
+            ("1088x1920", big_hw, (1080, 1920), (False, True))):
+        packs = [synthetic_train_pack(cfg, seed, i, hw, valid)
+                 for i in range(2)]
+        runs = {False: [], True: []}
+        for remat in order:
+            # the encoder's switch, as `build_model` sets it from the config
+            model.transformer.encoder.remat = remat
+            fn = make_train_step(model, crit, optimizer, track,
+                                 tracking=True, return_grads=True)
+            tag = f"remat_{'on' if remat else 'off'}_{label}"
+            res, ms, peak = steps(tag, fn, packs,
+                                  REMAT_STEP if remat else EXACT_STEP)
+            runs[remat].append((res[0], ms, peak))
+        model.transformer.encoder.remat = False
+        got = {remat: (r[0][0], statistics.median(x[1] for x in r),
+                       max(x[2] for x in r)) for remat, r in runs.items()}
+        off, on = got[False][0], got[True][0]
+        norm_rel = abs(float(on["grad_norm"]) - float(off["grad_norm"])) \
+            / float(off["grad_norm"])
+        worst = max(((on["_grads"][k] - g).abs().max()
+                     / g.abs().max().clamp(min=1e-30)).item()
+                    for k, g in off["_grads"].items())
+        ok = (float(on["loss"]) == float(off["loss"])
+              and norm_rel <= REMAT_GRAD_NORM_RTOL
+              and worst <= REMAT_GRAD_MAX_REL)
+        phase("remat", card=json.dumps(card), image=label,
+              batch=TRAIN_BATCH, loss_off=f"{float(off['loss']):.6f}",
+              loss_on=f"{float(on['loss']):.6f}",
+              grad_norm_rel_diff=f"{norm_rel:.3e}",
+              worst_grad_max_rel_diff=f"{worst:.3e}",
+              tol=f"loss equal; grad_norm {REMAT_GRAD_NORM_RTOL:g} "
+                  f"relative; each tensor max|d| <= {REMAT_GRAD_MAX_REL:g}"
+                  f" max|g|",
+              step_ms_off=f"{got[False][1]:.1f}",
+              step_ms_on=f"{got[True][1]:.1f}",
+              peak_gib_off=f"{got[False][2]:.3f}",
+              peak_gib_on=f"{got[True][2]:.3f}", ok=ok)
+        check(ok, f"remat at {label}: loss {float(on['loss'])} against "
+                  f"{float(off['loss'])}, grad_norm {norm_rel:.3e}, "
+                  f"gradients {worst:.3e} apart")
+        del runs, got, off, on
+    del model, start
+    torch.cuda.empty_cache()
+
+    # (c) a float32 three-frame step with backprop, card against the CPU
+    train_reference_run(seed, label="three_frame_reference", prev_prev=True)
+    return out
+
+
 PHASES = ("msda", "window", "msda_bwd", "dense_v2", "dense_v4", "dense_v3",
           "gather_rows", "patch_v6", "exact", "fast", "train",
           "train_reference", "train_fast", "checkpoint", "evaluate",
           "track_cli", "train_cli", "variants", "agreement", "masks",
-          "family")
+          "family", "panoptic", "train_extras")
 # frames of the exact tracker's runs on the other routes
 ROUTE_FRAMES = 3
 
@@ -5665,6 +6147,16 @@ def main() -> int:
     exact_cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
     fast_cfg = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
     kmsda = kwin = kbwd = kv2 = kv4 = kv3 = krows = kv6 = None
+    mark = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as a `timing` line, if one of
+        the phases of `name` ran."""
+        now = time.perf_counter()
+        if any(n in phases for n in name.split("+")):
+            phase("timing", phases=name, seconds=f"{now - mark[0]:.1f}")
+        mark[0] = now
+
     fast_counts = batched_counts = cli_counts = train_cli_counts = None
     variant_counts = agree_counts = knew = family_counts = None
     try:
@@ -5672,14 +6164,19 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         if "msda" in phases:
             kmsda = kernel_phase_msda(args.seed)
+        lap('msda')
         if "window" in phases:
             kwin = kernel_phase_window(args.seed)
+        lap('window')
         if "msda_bwd" in phases:
             kbwd = kernel_phase_msda_bwd(args.seed)
+        lap('msda_bwd')
         if "dense_v2" in phases:
             kv2 = kernel_phase_dense_v2(args.seed)
+        lap('dense_v2')
         if "dense_v4" in phases:
             kv4 = kernel_phase_dense_v4(args.seed)
+        lap('dense_v4')
         if {"dense_v3", "gather_rows", "patch_v6"} & set(phases):
             captured = captured_encoder_call(args.seed)
             if "dense_v3" in phases:
@@ -5690,6 +6187,7 @@ def main() -> int:
                 kv6 = kernel_phase_patch_v6(args.seed, captured)
             del captured
 
+        lap('dense_v3+gather_rows+patch_v6')
         if "exact" in phases:
             model, post = smoke_model(exact_cfg, args.seed, "exact")
             tracker_run("exact", exact_cfg, model, post,
@@ -5714,6 +6212,7 @@ def main() -> int:
             reference_run("exact", model, 1)
             del model
 
+        lap('exact')
         if "fast" in phases:
             model, post = smoke_model(fast_cfg, args.seed, "fast")
             fast_counts = tracker_run("fast", fast_cfg, model, post,
@@ -5724,14 +6223,17 @@ def main() -> int:
             reference_run("fast", model, 2)
             del model
 
+        lap('fast')
         if "track_cli" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 cli_counts = track_cli_run(args.seed, exact_cfg, fast_cfg,
                                            Path(tmp))
+        lap('track_cli')
         if "train_cli" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 train_cli_counts = train_cli_run(args.seed, Path(tmp), smi)
 
+        lap('train_cli')
         if "train_fast" in phases or "checkpoint" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 fast_train_run(args.seed, "checkpoint" in phases,
@@ -5739,27 +6241,43 @@ def main() -> int:
                 if "checkpoint" in phases:
                     npz_round_trip(exact_cfg, args.seed, "exact", Path(tmp))
                     npz_round_trip(fast_cfg, args.seed, "fast", Path(tmp))
+        lap('train_fast+checkpoint')
         if "train_fast" in phases:
             train_reference_run(args.seed, fast=True)
+        lap('train_fast')
         if "evaluate" in phases:
             evaluate_run(exact_cfg, args.seed, "exact",
                          {"msda_patch": 12, "ms_deform_attn": 6})
             evaluate_run(fast_cfg, args.seed, "fast", FAST_PER_FRAME)
+        lap('evaluate')
         if "train" in phases:
             train_run(args.seed)
+        lap('train')
         if "train_reference" in phases:
             # a second seed: the limits were not fitted to one draw
             train_reference_run(args.seed)
             train_reference_run(args.seed + 1)
+        lap('train_reference')
         if "variants" in phases:
             variant_counts = variants_run(args.seed, args.frames)
+        lap('variants')
         if "agreement" in phases:
             agree_counts = agreement_run(args.seed)
+        lap('agreement')
         if "masks" in phases:
             with tempfile.TemporaryDirectory() as tmp:
                 masks_run(args.seed, args.frames, Path(tmp), smi)
+        lap('masks')
         if "family" in phases:
             family_counts = family_run(args.seed, args.frames)
+        lap('family')
+        if "panoptic" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                panoptic_run(args.seed, args.frames, Path(tmp), smi)
+        lap('panoptic')
+        if "train_extras" in phases:
+            train_extras_run(args.seed, smi)
+        lap('train_extras')
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5924,6 +6442,8 @@ def main() -> int:
         # every MSDA shape the variants and agreement phases launched that
         # no entry above holds, held at that shape
         knew = kernel_phase_path_shapes(set(NEW_SHAPES) - static, args.seed)
+        phase("timing", phases="path_shapes",
+              seconds=f"{time.perf_counter() - mark[0]:.1f}")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -180,7 +180,7 @@ def test_coco_evaluator_refuses_masks_and_keypoints():
     """`keypoints` is still refused; `segm` (mask IoU, crowd ground truth,
     the masks' areas in the area ranges) gives the JAX evaluator's 12
     statistics of both iou types and its result list."""
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         coco_eval.CocoEvaluator(FakeGT({}), ("bbox", "keypoints"))
     gts, preds = segm_case()
     ours = coco_eval.CocoEvaluator(FakeGT(gts), ("bbox", "segm"))
@@ -483,6 +483,10 @@ def test_evaluate_matches_jax(capsys):
                                    atol=1e-4, err_msg=key)
     # (the in-process tracking eval runs: tests/test_torch_train_cli.py;
     # `masks: true` is evaluated on a mask model: tests/test_torch_mots.py)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        loop.evaluate(model, crit, {"bbox": post, "panoptic": post}, packs,
-                      lambda p: p, FakeGT(gts), eval_args)
+    # a panoptic postprocessor over ground truth with no panoptic files
+    # (`ann_file`) adds nothing, as in the JAX `evaluate`
+    again = loop.evaluate(model, crit, {"bbox": post, "panoptic": post},
+                          packs, lambda p: p, FakeGT(gts), eval_args)
+    assert set(again) == set(got)
+    np.testing.assert_array_equal(again["coco_eval_bbox"],
+                                  got["coco_eval_bbox"])

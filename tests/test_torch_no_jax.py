@@ -18,8 +18,10 @@ windowed encoder, shared heads, in a `Tracker` and a detection train
 step), the rest of the family's switches (two-stage in a detection train
 step, the dense decoder, merged frame features, the exact cached memory,
 5 levels, ResNet-101 with DC5, window side 16, each in a `Tracker`), both
-agreement tools and a `fast_w16` probe at the `small` scale go through on
-the CPU, in a subprocess in which
+agreement tools and a `fast_w16` probe at the `small` scale, vanilla
+DETR's attention maps through the tracking CLI, COCO panoptic's
+`eval_only` with PQ, the tracker's soft reset and a three-frame step
+through the previous frames with remat go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -53,6 +55,7 @@ def audit(event, args):
             opened_outside.append(path)
 
 sys.addaudithook(audit)
+import numpy as np
 import torch
 import trackformer_tpu_torch
 for mod in pkgutil.walk_packages(trackformer_tpu_torch.__path__,
@@ -256,6 +259,62 @@ state = train_main(
      "debug=true", "batch_size=1", f"output_dir={out_dir}/mots_run"],
     device="cpu")
 assert state.step == 2
+# vanilla DETR's attention maps through the tracking CLI (the MOTS model)
+track_main(["with", "dataset_name=MOTS20-02", f"data_root_dir={mots_data}",
+            f"obj_detect_checkpoint_file={out_dir}/mots/checkpoint.npz",
+            f"output_dir={out_dir}/attn_out", "tpu.max_tracks=4",
+            "generate_attention_maps=true"], device="cpu")
+assert os.path.exists(out_dir + "/attn_out/MOTS20-02.txt")
+
+# COCO panoptic: a two-image panoptic root, `eval_only` with PQ
+import json
+from PIL import Image
+from trackformer_tpu_torch.models.panoptic import id2rgb
+pan = Path(out_dir) / "pan"
+for sub in ("coco/val2017", "panoptic/panoptic_val2017",
+            "panoptic/annotations"):
+    (pan / sub).mkdir(parents=True)
+pan_anns = []
+for i in range(2):
+    seg = np.full((48, 64), 100 + i, np.int64)
+    seg[10:30, 8:30] = 200 + i
+    Image.fromarray(id2rgb(seg)).save(
+        pan / f"panoptic/panoptic_val2017/{i}.png")
+    Image.fromarray((np.random.RandomState(i).rand(48, 64, 3) * 255)
+                    .astype(np.uint8)).save(pan / f"coco/val2017/{i}.jpg")
+    pan_anns.append({"image_id": i, "file_name": f"{i}.png", "segments_info": [
+        {"id": 100 + i, "category_id": 200, "iscrowd": 0,
+         "area": int((seg == 100 + i).sum())},
+        {"id": 200 + i, "category_id": 1, "iscrowd": 0, "area": 440}]})
+(pan / "panoptic/annotations/panoptic_val2017.json").write_text(json.dumps(
+    {"images": [{"id": i, "file_name": f"{i}.jpg", "height": 48,
+                 "width": 64} for i in range(2)], "annotations": pan_anns}))
+stats = train_main(
+    ["with", *(f"{k}={v}" for k, v in mots_over.items()), "masks=true",
+     "focal_loss=false", "deformable=false", "dataset=coco_panoptic",
+     f"coco_path={pan}/coco", f"coco_panoptic_path={pan}/panoptic",
+     "tracking=false", "tracking_eval=false", "eval_only=true",
+     "batch_size=2", "tpu.image_buckets=[[128,128]]", "tpu.max_objects=4",
+     f"output_dir={out_dir}/pan_run"], device="cpu")
+assert "PQ_all" in stats
+assert len(os.listdir(out_dir + "/pan_run/panoptic_eval")) == 2
+
+# the tracker's soft reset, and a three-frame step through the previous
+# frames with remat
+exact_tracker.reset(hard=False)
+exact_tracker.step(blob)
+assert exact_tracker.frame_index == 5
+import dataclasses
+three = FlagshipConfig().replace(enc_layers=1, remat=True, **tiny)
+model, crit, _, track = build_model(three, "cpu", gen, train=True)
+optimizer = make_optimizer(three, model)
+step = make_train_step(model, crit, optimizer,
+                       dataclasses.replace(track, backprop_prev_frame=True),
+                       tracking=True, prev_prev=True)
+_, metrics = step(TrainState.create(model, optimizer),
+                  {**pack, "prev_prev_batch": blob["batch"],
+                   "prev_prev_targets": targets}, gen)
+assert bool(torch.isfinite(metrics["loss"]))
 
 # the single-frame family: exact, windowed without the cached memory, and
 # shared heads; a Tracker and a detection step each

@@ -194,7 +194,8 @@ def test_png_sequence_and_demo_folder(tmp_path, checkpoint):
 def test_unported_options_raise(mot17_root, checkpoint):
     base = ["with", f"dataset_name={SEQS[0]}", f"data_root_dir={mot17_root}",
             f"obj_detect_checkpoint_file={checkpoint}"]
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # attention maps are vanilla DETR's, as in the JAX package
+    with pytest.raises(ValueError, match="vanilla DETR"):
         main(base + ["generate_attention_maps=true"], device="cpu")
     if not torch.cuda.is_available():
         # the card is the default device; the CPU only when asked for

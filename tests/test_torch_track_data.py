@@ -114,8 +114,11 @@ def test_parse_cli_matches_jax():
 def test_from_config_gives_the_flagship():
     exact = tconfig.load_config("train.yaml", NAMED)
     fast = tconfig.load_config("train.yaml", NAMED + ["tpu_fast"])
-    assert FlagshipConfig.from_config(exact) == FlagshipConfig()
-    assert FlagshipConfig.from_config(fast) == FlagshipConfig.tpu_fast()
+    # train.yaml's `tpu.remat: true`, which the dataclass leaves off
+    assert FlagshipConfig.from_config(exact) == FlagshipConfig().replace(
+        remat=True)
+    assert FlagshipConfig.from_config(fast) == FlagshipConfig.tpu_fast(
+        remat=True)
     cfg = FlagshipConfig.from_config(tconfig.load_config(
         "train.yaml", NAMED, {"hidden_dim": 96, "tpu.compute_dtype":
                               "float32", "img_transform.max_size": 170,
@@ -134,9 +137,12 @@ def test_from_config_gives_the_flagship():
     assert type(build_model(vanilla, "cpu")[0]) is DETR
     assert type(build_model(vanilla.replace(position_embedding="learned"),
                             "cpu")[0]) is DETR
-    with pytest.raises(NotImplementedError, match="item 6"):
-        build_model(vanilla.replace(dataset="coco_panoptic", masks=True),
-                    "cpu")
+    # COCO panoptic: the 250-class mask model (251 softmax logits)
+    from trackformer_tpu_torch.models.segmentation import DETRSegm
+    panoptic = build_model(vanilla.replace(dataset="coco_panoptic",
+                                           masks=True), "cpu")[0]
+    assert type(panoptic) is DETRSegm
+    assert panoptic.class_embed.out_features == 251
 
 
 def test_dump_config_round_trips(tmp_path):

@@ -201,13 +201,78 @@ def test_unforced_draws_cover_their_range():
 
 
 def test_capacity_and_unported_variants():
+    """The false-positive capacity, and the three-frame forward held
+    against the JAX `tracking_train_forward` through a stub model (fixed
+    outputs per frame; the features a frame's index): the frames run in
+    the JAX order, the previous frame takes the previous-previous frame's
+    track queries (no false positives) and features, and the current
+    frame's track queries are the JAX ones field for field, both
+    augmentations' draws pinned. The previous frames run without gradient
+    unless `backprop_prev_frame`, when the track queries carry it."""
     assert tracking.fp_capacity(100, 0.1) == 11 == jtracking.fp_capacity(
         100, 0.1)
-    cfg = tracking.TrackingConfig()
-    with pytest.raises(NotImplementedError, match="three-frame"):
-        tracking.tracking_train_forward(None, None, None, None, None, None,
-                                        cfg, prev_prev_batch=object())
-    with pytest.raises(NotImplementedError, match="backprop_prev_frame"):
-        tracking.tracking_train_forward(
-            None, None, None, None, None, None,
-            tracking.TrackingConfig(backprop_prev_frame=True))
+    cur, prev, _, _ = make_scene(2)
+    rng = np.random.RandomState(5)
+    outs = [{"pred_logits": rng.randn(B, Q, 2).astype(np.float32),
+             "pred_boxes": rng.uniform(0.1, 0.9, (B, Q, 4))
+             .astype(np.float32),
+             "hs_embed": rng.randn(B, Q, C).astype(np.float32)}
+            for _ in range(3)]
+    order, seed_pos = orders(1)
+    forced = {"num": 3, "num_fps": 2, "order": order,
+              "fp_seed_pos": seed_pos}
+    forced_prev = {"num": 2, "order": orders(4)[0]}
+    frames = [(0, prev), (1, prev), (2, cur)]
+
+    jcalls = []
+
+    def japply(params, batch, targets, pf, rngs):
+        jcalls.append((batch, targets, None if pf is None else int(pf[0])))
+        return ({k: jnp.asarray(v) for k, v in outs[batch].items()},
+                targets, jnp.full((1,), batch), None, None)
+
+    real = jtracking.add_track_queries_to_targets
+    jtargets = [JTargets(**{k: jnp.asarray(v) for k, v in t.items()})
+                for _, t in frames]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtracking, "add_track_queries_to_targets",
+                   lambda *a, **kw: real(*a, **{**kw, "forced": (
+                       forced_prev if kw.get("add_false_pos") is False
+                       else forced)}))
+        _, want = jtracking.tracking_train_forward(
+            japply, None, 2, jtargets[2], 1, jtargets[1],
+            jax.random.PRNGKey(0), jtracking.TrackingConfig(
+                false_positive_prob=FP_PROB), prev_prev_batch=0,
+            prev_prev_targets=jtargets[0])
+    for backprop in (False, True):
+        calls = []
+        w = torch.ones((), requires_grad=True)
+
+        def apply_fn(batch, targets, pf):
+            calls.append((batch, targets, None if pf is None else pf,
+                          torch.is_grad_enabled()))
+            out = {k: torch.from_numpy(v) for k, v in outs[batch].items()}
+            out["hs_embed"] = out["hs_embed"] * w
+            return out, targets, batch, None, None
+
+        cfg = tracking.TrackingConfig(false_positive_prob=FP_PROB,
+                                      backprop_prev_frame=backprop)
+        ttargets = [Targets(**{k: torch.from_numpy(v) for k, v in t.items()})
+                    for _, t in frames]
+        _, got = tracking.tracking_train_forward(
+            apply_fn, 2, ttargets[2], 1, ttargets[1], None, cfg,
+            prev_prev_batch=0, prev_prev_targets=ttargets[0],
+            forced={**forced, "prev": forced_prev})
+        assert [c[0] for c in calls] == [c[0] for c in jcalls] == [0, 1, 2]
+        assert [c[2] for c in calls] == [c[2] for c in jcalls] == [None, 0, 1]
+        assert [c[3] for c in calls] == [backprop, backprop, True]
+        assert calls[0][1] is None and jcalls[0][1] is None
+        for (_, t, _, _), (_, jt, _) in zip(calls[1:], jcalls[1:]):
+            for name in TQ_FIELDS:
+                assert np.array_equal(getattr(t, name).detach().numpy(),
+                                      np.asarray(getattr(jt, name))), name
+        assert calls[1][1].tq_valid.shape[1] == T      # no false positives
+        for name in TQ_FIELDS:
+            assert np.array_equal(getattr(got, name).detach().numpy(),
+                                  np.asarray(getattr(want, name))), name
+        assert got.tq_hs_embeds.requires_grad == backprop

@@ -314,9 +314,25 @@ def test_coco_detection_sample_matches_jax(synth_root, tmp_path):
     assert got["targets"].masks.shape[2:] == got["batch"].images.shape[1:3]
     assert np.array_equal(got["targets"].masks.numpy(),
                           np.asarray(want["targets"].masks))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        coco.CocoDetection(synth_root / "train", ann, None, T.Normalize(),
-                           prev_prev_frame=True)
+    # three-frame training: a previous-previous frame, the same image
+    # drawn from the same seed as the previous frame, so the same jitter
+    # (as in the JAX package)
+    kw3 = dict(kw, prev_prev_frame=True)
+    port_ds = coco.CocoDetection(synth_root / "train", ann,
+                                 T.make_coco_transforms("train"),
+                                 T.Normalize(), **kw3)
+    jax_ds = jcoco.CocoDetection(synth_root / "train", ann,
+                                 JT.make_coco_transforms("train"),
+                                 JT.Normalize(), **kw3)
+    np.random.seed(2)
+    got = [port_ds[i] for i in (1, 7)]
+    np.random.seed(2)
+    want = [jax_ds[i] for i in (1, 7)]
+    for g, w in zip(got, want):
+        assert set(g) == {"image", "target", "prev_image", "prev_target",
+                          "prev_prev_image", "prev_prev_target"}
+        assert_same(g, w)
+        assert_same(g["prev_prev_target"], g["prev_target"])
 
 
 def test_collate_and_weights_match_jax(synth_root):
@@ -410,14 +426,23 @@ def test_loader_raises_a_dataset_error(prefetch):
 
 
 def test_loader_thread_stops_with_the_consumer():
+    """The `Loader`'s own prefetch thread (found by its name among the
+    threads that were not there before, whatever other threads the
+    process runs) is alive while the consumer reads, and joined once the
+    consumer closes the iterator."""
     import threading
+
+    from trackformer_tpu_torch.cli.train import LOADER_THREAD
     loader = Loader(Planted(40, -1), 2, list, shuffle=False, prefetch=2)
-    before = threading.active_count()
+    before = set(threading.enumerate())
     it = iter(loader)
     assert next(it) == [0, 1]
-    assert threading.active_count() == before + 1
+    mine = [t for t in threading.enumerate()
+            if t not in before and t.name == LOADER_THREAD]
+    assert len(mine) == 1 and mine[0].is_alive()
     it.close()
-    assert threading.active_count() == before
+    mine[0].join(timeout=10)
+    assert not mine[0].is_alive()
 
 
 def test_write_result_files_matches_jax(synth_root, tmp_path):

@@ -14,8 +14,9 @@ the same seeded frames with track queries:
     the cached memory;
 
 then the weight maps of shared heads and of the single-frame level embed
-both ways, and every still-unported switch (the panoptic dataset, masks
-on the cached memory) raising `NotImplementedError` with its ROADMAP item
+both ways, the panoptic dataset's mask model, and every still-unported
+switch (masks on the cached memory) raising `NotImplementedError` with its
+ROADMAP item
 (the other switches: `test_torch_variants_rest.py`,
 `test_torch_two_stage.py`, `test_torch_window16.py`).
 
@@ -216,16 +217,31 @@ def test_shared_heads_and_level_embed_map_both_ways():
 
 # every switch that is still to port, and the ROADMAP item its error names
 UNPORTED = {
-    "coco_panoptic": dict(dataset="coco_panoptic", masks=True),
     "masks_cached_memory": dict(masks=True, encoder_attention="windowed",
                                 cached_prev_memory=True),
     "masks_msda_cached_memory": dict(masks=True, cached_prev_memory=True),
 }
 
 
+def test_panoptic_builds_the_mask_model():
+    """`dataset: coco_panoptic` with masks builds the 250-class mask model
+    of the family (a focal head: 250 logits) and adds the panoptic
+    postprocessor; without masks there is none."""
+    from trackformer_tpu_torch.models.factory import postprocessors
+    from trackformer_tpu_torch.models.segmentation import DeformableDETRSegm
+    cfg = FlagshipConfig(compute_dtype="float32").replace(
+        dataset="coco_panoptic", masks=True, hidden_dim=256, enc_layers=1,
+        dec_layers=1)
+    model = build_model(cfg, "cpu")[0]
+    assert type(model) is DeformableDETRSegm
+    assert model.class_embed[0].out_features == 250
+    assert set(postprocessors(cfg)) == {"bbox", "segm", "panoptic"}
+    assert "panoptic" not in postprocessors(cfg.replace(masks=False))
+
+
 @pytest.mark.parametrize("switch", list(UNPORTED))
 def test_unported_switches_raise(switch):
     cfg = FlagshipConfig(compute_dtype="float32").replace(**UNPORTED[switch])
     with pytest.raises(NotImplementedError,
-                       match=r"not ported yet \(ROADMAP Queue 1, item 6\)"):
+                       match=r"not ported \(ROADMAP Queue 1, item 9\)"):
         build_model(cfg, "cpu")

@@ -14,8 +14,12 @@ Usage: python -m trackformer_tpu_torch.cli.track with [named_cfgs...] k=v ...
 The model runs on the card unless the caller of `main` passes
 `device="cpu"`. A mask model (`masks` in its train config) tracks with
 masks, rescaled to each sequence's frames (`upscale_mask_results`) before
-they are written. Attention maps and several processes raise
-`NotImplementedError` naming their ROADMAP item.
+they are written. With `generate_attention_maps` (vanilla DETR only, as in
+the JAX package) the `Tracker` runs the model as an `AttentionMapDETR` and
+each result entry carries its track's attention map, which `write_images`
+overlays on the frames (the lockstep `BatchedTracker` keeps none, as in
+the JAX package). Several processes raise `NotImplementedError` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
 
     from ..datasets.tracking import TrackDatasetFactory
     from ..models import build_model
+    from ..models.detr import AttentionMapDETR
     from ..tracking import Tracker
     from ..utils import track_utils
     from ..utils.checkpoint import load_model_npz
@@ -51,9 +56,6 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
     cfg = parse_cli(argv or sys.argv[1:], base="track.yaml")
     args = nested_namespace(cfg)
     np.random.seed(args.seed)
-    if args.generate_attention_maps:
-        raise NotImplementedError("attention maps (vanilla DETR) are not "
-                                  "ported yet (ROADMAP Queue 1, item 6)")
 
     if args.output_dir:
         dump_config(cfg, Path(args.output_dir) / "track.yaml")
@@ -82,6 +84,9 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
                   "running with random weights")
     else:
         model, train_args, postprocess = obj_detector_model
+    if args.generate_attention_maps and train_args.deformable:
+        raise ValueError("attention maps are only available for vanilla "
+                         "DETR, as in the JAX package")
 
     tracker_cfg = namespace_to_dict(args.tracker_cfg)
     tpu_cfg = namespace_to_dict(getattr(args, "tpu", None)) or {}
@@ -140,7 +145,12 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
             return track_utils.evaluate_mot_accums(mot_accums, seq_names)
         return None
 
-    tracker = Tracker(*tracker_args)
+    if args.generate_attention_maps:
+        attn_model = AttentionMapDETR(model)
+        tracker = Tracker(attn_model, *tracker_args[1:],
+                          attn_stride=attn_model.stride)
+    else:
+        tracker = Tracker(*tracker_args)
     time_total, num_frames = 0.0, 0
     mot_accums, seq_names = [], []
     for seq in dataset:
@@ -177,7 +187,7 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
         if args.write_images and args.output_dir:
             track_utils.plot_sequence(
                 results, seq, osp.join(args.output_dir, str(seq)),
-                args.write_images)
+                args.write_images, args.generate_attention_maps)
 
     if num_frames:
         print(f"RUNTIME ALL SEQS (w/o EVAL or IMG WRITE): "

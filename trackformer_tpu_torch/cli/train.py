@@ -18,10 +18,13 @@ JAX package, which declares it and reads it nowhere.
 Usage: python -m trackformer_tpu_torch.cli.train with [named_cfgs...] k=v ...
 
 The model trains on the card unless the caller of `main` passes
-`device="cpu"`. The previous-previous frame (item 7) and several processes
-or `tpu.model_parallel` > 1 (item 8) raise `NotImplementedError` naming
-their ROADMAP Queue 1 item; `tpu.remat` changes no number and is not
-applied.
+`device="cpu"`. `track_prev_prev_frame` trains on three frames and
+`track_backprop_prev_frame` through the previous frames; `tpu.remat`
+(on in train.yaml) recomputes the exact encoder's layers in the backward.
+On `dataset=coco_panoptic` with masks the evaluation adds PQ, SQ and RQ
+(`PQ_all`, `SQ_all`, `RQ_all`), its PNGs under `<output_dir>/panoptic_eval`.
+Several processes or `tpu.model_parallel` > 1 (item 8) raise
+`NotImplementedError` naming their ROADMAP Queue 1 item.
 """
 from __future__ import annotations
 
@@ -33,6 +36,10 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+
+# the name of the `Loader`'s prefetch thread
+LOADER_THREAD = "trackformer-loader"
 
 
 class Loader:
@@ -108,7 +115,8 @@ class Loader:
                 failed.append(e)
             put(done)
 
-        t = threading.Thread(target=worker, daemon=True)
+        t = threading.Thread(target=worker, daemon=True,
+                             name=LOADER_THREAD)
         t.start()
         try:
             while True:
@@ -174,15 +182,9 @@ def main(argv=None, device="cuda"):
     if int(tpu_cfg.get("model_parallel", 1) or 1) > 1:
         raise NotImplementedError("tpu.model_parallel > 1 is not ported yet "
                                   "(ROADMAP Queue 1, item 8)")
-    if args.track_prev_prev_frame:
-        raise NotImplementedError("track_prev_prev_frame is not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
     if getattr(args, "freeze_detr", False):
         print("freeze_detr: no effect; the JAX package declares it and "
               "freezes nothing either")
-    if tpu_cfg.get("remat"):
-        print("tpu.remat: not applied, the port keeps every activation "
-              "(ROADMAP Queue 1, item 7)")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cli.train: no CUDA device; pass device='cpu' to "
@@ -259,7 +261,8 @@ def main(argv=None, device="cuda"):
                 start_epoch = last_epoch + 1
 
     train_step = make_train_step(model, criterion_cfg, optimizer,
-                                 tracking_cfg, tracking=args.tracking)
+                                 tracking_cfg, tracking=args.tracking,
+                                 prev_prev=args.track_prev_prev_frame)
 
     def run_eval():
         return evaluate(model, criterion_cfg, postprocessors, loader_val,

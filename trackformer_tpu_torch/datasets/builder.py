@@ -7,7 +7,8 @@ targets to `max_objects` slots, so that a step sees one of a few shapes.
 The packs hold the port's `FrameBatch` / `Targets` as CPU tensors;
 `pack_to` moves one onto the model's device. With masks each target's
 masks are padded to the batch's bucket (`Targets.masks` (B, T, H, W)).
-`coco_panoptic` raises `NotImplementedError` (ROADMAP Queue 1, item 6).
+For three-frame training (`track_prev_prev_frame`) a pack also holds
+`prev_prev_batch` / `prev_prev_targets`.
 """
 from __future__ import annotations
 
@@ -50,8 +51,8 @@ def build_dataset(image_set: str, args):
     if args.dataset == "crowdhuman":
         return build_crowdhuman(image_set, args)
     if args.dataset == "coco_panoptic":
-        raise NotImplementedError("the panoptic dataset is not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+        from .coco_panoptic import build_coco_panoptic
+        return build_coco_panoptic(image_set, args)
     raise ValueError(f"dataset {args.dataset!r} not supported")
 
 
@@ -134,11 +135,14 @@ def collate_fn(samples: List[Dict], buckets: Sequence[Tuple[int, int]],
                max_objects: int, with_masks: bool = False,
                fallback: Optional[Tuple[int, int]] = None) -> Dict:
     """Dataset samples -> a pack: `batch` / `targets` and, for tracking,
-    `prev_batch` / `prev_targets`, every frame padded to one bucket
+    `prev_batch` / `prev_targets` (and for three frames `prev_prev_batch` /
+    `prev_prev_targets`), every frame padded to one bucket
     (`bucket_for`); with `with_masks` the targets carry masks at the
     bucket's size."""
     frames = [("image", "target", "batch", "targets"),
-              ("prev_image", "prev_target", "prev_batch", "prev_targets")]
+              ("prev_image", "prev_target", "prev_batch", "prev_targets"),
+              ("prev_prev_image", "prev_prev_target", "prev_prev_batch",
+               "prev_prev_targets")]
     all_hw = [s[k].shape[:2] for s in samples for k, *_ in frames if k in s]
     bucket = bucket_for(all_hw, buckets, fallback)
 

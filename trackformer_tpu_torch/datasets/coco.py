@@ -10,8 +10,9 @@ Images load through `image_io.read_frame` (Pillow) as float32 HWC in
 [0, 1]; targets are numpy dicts of ragged arrays that
 `builder.collate_fn` pads into fixed-shape `Targets`. With `return_masks`
 each annotation's segmentation (polygons or RLE, `utils/rle.py`) becomes an
-(H, W) bool mask. The previous-previous frame raises `NotImplementedError`
-naming its ROADMAP item.
+(H, W) bool mask. For three-frame training (`prev_prev_frame`) a sample
+also holds a previous-previous frame, drawn as the previous frame is from
+the same seed: the JAX package's, a copy of the previous frame.
 """
 from __future__ import annotations
 
@@ -34,10 +35,6 @@ class CocoDetection:
                  prev_prev_frame: bool = False, return_masks: bool = False,
                  min_num_objects: int = 0, overflow_boxes: bool = False,
                  remove_no_obj_imgs: bool = False):
-        if prev_prev_frame:
-            raise NotImplementedError("the previous-previous frame "
-                                      "(track_prev_prev_frame) is not ported "
-                                      "yet (ROADMAP Queue 1, item 7)")
         self.root = Path(img_folder)
         self._transforms = transforms
         self._norm_transforms = norm_transforms
@@ -45,6 +42,7 @@ class CocoDetection:
         self.overflow_boxes = overflow_boxes
         self._prev_frame = prev_frame
         self._prev_frame_rnd_augs = prev_frame_rnd_augs
+        self._prev_prev_frame = prev_prev_frame
 
         with open(ann_file) as f:
             coco = json.load(f)
@@ -183,6 +181,10 @@ class CocoDetection:
             prev_img, prev_target = self._getitem_from_id(idx, seed)
             sample["prev_image"] = prev_img
             sample["prev_target"] = prev_target
+            if self._prev_prev_frame:
+                pp_img, pp_target = self._getitem_from_id(idx, seed)
+                sample["prev_prev_image"] = pp_img
+                sample["prev_prev_target"] = pp_target
         return sample
 
 

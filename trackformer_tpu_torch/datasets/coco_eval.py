@@ -33,7 +33,7 @@ AREA_RANGES = {
 def _check_iou_type(iou_type: str) -> None:
     if iou_type == "keypoints":
         raise NotImplementedError("keypoints evaluation is not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+                                  "(ROADMAP Queue 1, item 8)")
     if iou_type not in ("bbox", "segm"):
         raise ValueError(f"Unknown iou type {iou_type}")
 

@@ -1,7 +1,8 @@
 """MOT training dataset: real adjacent frames from converted COCO JSONs.
 
 Counterpart of `trackformer_tpu/datasets/mot.py`: a real previous frame
-drawn within `prev_frame_range`, the per-sample weight 1 / seq_length,
+drawn within `prev_frame_range` (and for three-frame training the frame
+mirrored about it, within the sequence), the per-sample weight 1 / seq_length,
 `write_result_files`, `WeightedConcatDataset` and the mot /
 mot + crowdhuman / mot + coco_person builders.
 
@@ -49,6 +50,16 @@ class MOT(CocoDetection):
             prev_img, prev_target = self._getitem_from_id(prev_idx, seed)
             sample["prev_image"] = prev_img
             sample["prev_target"] = prev_target
+
+            if self._prev_prev_frame:
+                # as far before the previous frame as it is before this
+                # one, within the sequence
+                pp_frame_id = min(max(0, 2 * prev_frame_id - frame_id),
+                                  seq_len - 1)
+                pp_idx = self.ids.index(first_id + pp_frame_id)
+                pp_img, pp_target = self._getitem_from_id(pp_idx, seed)
+                sample["prev_prev_image"] = pp_img
+                sample["prev_prev_target"] = pp_target
         return sample
 
     def write_result_files(self, results, output_dir: str,

@@ -15,15 +15,15 @@ Counterpart of `trackformer_tpu/engine/loop.py`:
     computes them, COCO box AP (`datasets/coco_eval.py`), mask AP for a
     mask model (`masks`) and, for a tracking model with `tracking_eval`,
     the in-process tracking eval: the port's `cli.track` re-entered with
-    the live model, its MOTA and IDF1.
-
-Panoptic evaluation raises `NotImplementedError`, naming the ROADMAP
-Queue 1 item that brings it.
+    the live model, its MOTA and IDF1; and with a `panoptic`
+    postprocessor, PQ / SQ / RQ of `datasets/panoptic_eval.py`.
 """
 from __future__ import annotations
 
 import math
+import os
 import sys
+import tempfile
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
@@ -143,12 +143,14 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
     (default MOT17-TRAIN-ALL) under `data_root_dir` (default `data`) from
     its middle frame on, with `obj_detector_model` ((model,
     FlagshipConfig, postprocess), the live model) as its detector, on the
-    model's device. The model is left in the mode it came in."""
+    model's device. With `postprocessors["panoptic"]` and a panoptic
+    `gt_dataset` (`ann_file`, `ann_folder`) also `PQ_all`, `SQ_all` and
+    `RQ_all` over the object queries' panoptic predictions, whose PNGs go
+    to `<args.output_dir>/panoptic_eval` (with no `output_dir`, to a
+    temporary directory removed afterwards). The model is left in the mode
+    it came in."""
     from ..datasets.coco_eval import CocoEvaluator
 
-    if "panoptic" in postprocessors:
-        raise NotImplementedError("panoptic evaluation is not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
     logger = MetricLogger(getattr(args, "vis_and_log_interval", 50),
                           vis=vis, debug=getattr(args, "debug", False))
     with_masks = bool(getattr(args, "masks", False))
@@ -156,6 +158,16 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
                               ("bbox", "segm") if with_masks else ("bbox",))
     logged = set(criterion_cfg.weight_dict) | {"class_error",
                                                "cardinality_error"}
+    panoptic, scratch = None, None
+    if "panoptic" in postprocessors and hasattr(gt_dataset, "ann_file"):
+        from ..datasets.panoptic_eval import PanopticEvaluator
+        out_dir = getattr(args, "output_dir", None)
+        if not out_dir:
+            scratch = tempfile.TemporaryDirectory()
+            out_dir = scratch.name
+        panoptic = PanopticEvaluator(
+            str(gt_dataset.ann_file), str(gt_dataset.ann_folder),
+            output_dir=os.path.join(out_dir, "panoptic_eval"))
     was_training = model.training
     model.eval()
     try:
@@ -171,6 +183,16 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
                 args.num_queries,
                 postprocess_segm=(postprocessors.get("segm") if with_masks
                                   else None), batch=pack["batch"]))
+            if panoptic is not None:
+                tg = pack["targets"]
+                obj_out = {k: out[k][:, -args.num_queries:].float().cpu()
+                           .numpy() for k in ("pred_logits", "pred_masks")}
+                preds = postprocessors["panoptic"](
+                    obj_out, processed_sizes=tg.size.cpu().tolist(),
+                    target_sizes=tg.orig_size.cpu().tolist())
+                for p, img_id in zip(preds, tg.image_id.cpu().tolist()):
+                    p["image_id"] = int(img_id)
+                panoptic.update(preds)
         logger.synchronize_between_processes()
         evaluator.synchronize_between_processes()
         coco_stats = evaluator.summarize()
@@ -181,11 +203,17 @@ def evaluate(model: torch.nn.Module, criterion_cfg, postprocessors: Dict,
         if "segm" in coco_stats:
             stats["coco_eval_masks"] = coco_stats["segm"]
             stats["AP_masks"] = coco_stats["segm"][0]
+        if panoptic is not None:
+            panoptic.synchronize_between_processes()
+            pq = panoptic.summarize()
+            stats.update(PQ_all=pq["PQ"], SQ_all=pq["SQ"], RQ_all=pq["RQ"])
         if getattr(args, "tracking", False) \
                 and getattr(args, "tracking_eval", False):
             stats.update(tracking_eval(model, args, obj_detector_model))
     finally:
         model.train(was_training)
+        if scratch is not None:
+            scratch.cleanup()
     return stats
 
 

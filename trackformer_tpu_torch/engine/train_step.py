@@ -22,9 +22,9 @@ master weights and Adam moments, the model's parameters are their cast
 copy, refreshed after every update, and gradients are cast up before the
 clip. In float32 master and model are the same tensors.
 
-One function serves detection and two-frame tracking training; the latter
-runs the previous frame's forward, the match and the track-query
-augmentation inside the step.
+One function serves detection and two- or three-frame tracking training;
+the latter runs the previous frames' forwards, the matches and the
+track-query augmentations inside the step.
 """
 from __future__ import annotations
 
@@ -193,10 +193,13 @@ def make_train_step(model: nn.Module, criterion_cfg: CriterionConfig,
                     tracking_cfg: Optional[TrackingConfig] = None,
                     tracking: bool = False,
                     timings: Optional[Callable[[str], None]] = None,
-                    return_grads: bool = False) -> Callable:
+                    return_grads: bool = False,
+                    prev_prev: bool = False) -> Callable:
     """Returns train_step(state, pack, generator, forced=None) ->
     (state, metrics). `pack` holds `batch` (FrameBatch) and `targets`
-    (Targets) and, in tracking mode, `prev_batch` and `prev_targets`.
+    (Targets) and, in tracking mode, `prev_batch` and `prev_targets`; with
+    `prev_prev` (`track_prev_prev_frame`) also `prev_prev_batch` and
+    `prev_prev_targets`, and the step trains on three frames.
     `generator` (on the model's device) drives dropout and the track-query
     draws; `forced` pins the draws (tests). `metrics` holds `loss`, every
     loss key and `grad_norm` as 0-d tensors; with `return_grads` also,
@@ -226,7 +229,12 @@ def make_train_step(model: nn.Module, criterion_cfg: CriterionConfig,
                 out, targets = tracking_train_forward(
                     apply_fn, pack["batch"], pack["targets"],
                     pack["prev_batch"], pack["prev_targets"], generator,
-                    tracking_cfg, forced=forced, mark=mark)
+                    tracking_cfg,
+                    prev_prev_batch=(pack["prev_prev_batch"] if prev_prev
+                                     else None),
+                    prev_prev_targets=(pack["prev_prev_targets"]
+                                       if prev_prev else None),
+                    forced=forced, mark=mark)
             else:
                 out, targets, _, _, _ = apply_fn(pack["batch"],
                                                  pack["targets"], None)

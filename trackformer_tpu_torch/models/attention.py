@@ -7,17 +7,27 @@ original checkpoints load as they are. Logits and softmax run in float32,
 as the JAX package's `preferred_element_type=float32` contraction does, and
 every projection rounds as flax's `Dense` does (`dense`).
 
+With `keep_weights` set, a call keeps its head-averaged float32 attention
+weights (B, Q, K), before dropout, in `weights` (the JAX package sows them
+as `attn_weights`): vanilla DETR's attention maps read the last decoder
+layer's cross-attention there. The flag is off by default and costs the
+default path nothing but its test.
+
 `Dropout` is the port's dropout: inactive in `eval()`, and in training it
 draws its mask from an explicit `torch.Generator` on the tensor's device
-(`set_dropout_generator`), never from the global one.
+(`set_dropout_generator`), never from the global one. `remat` runs a
+layer under `torch.utils.checkpoint` (the JAX package's `nn.remat`) and
+replays those generators in the recompute, which the checkpoint cannot
+do itself: it stashes the global CPU and CUDA generators only.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.linear import dense
 
@@ -47,6 +57,38 @@ def set_dropout_generator(model: nn.Module,
             mod.generator = generator
 
 
+def remat(fn: Callable, module: nn.Module, *args):
+    """`fn(*args)` with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant). `module` holds every
+    `Dropout` that `fn` runs: their generators' states are saved before
+    the forward, set back for the recompute, so that it draws the masks
+    the forward drew, and then set to where the forward left them. A step
+    with remat is therefore bit-equal to one without, in its loss and in
+    every gradient."""
+    gens = list({id(m.generator): m.generator for m in module.modules()
+                 if isinstance(m, Dropout) and m.generator is not None
+                 }.values())
+    before = [g.get_state() for g in gens]
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        after = [g.get_state() for g in gens]
+        for g, state in zip(gens, before):
+            g.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            # the recompute may stop early, once it has what the backward
+            # needs: the generators go back either way
+            for g, state in zip(gens, after):
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
@@ -57,6 +99,8 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
+        self.keep_weights = False
+        self.weights: Optional[torch.Tensor] = None
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor,
@@ -77,6 +121,9 @@ class MultiHeadAttention(nn.Module):
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(torch.float32).min)
-        attn = self.attn_drop(logits.softmax(-1).to(v.dtype))
+        attn = logits.softmax(-1).to(v.dtype)
+        if self.keep_weights:
+            self.weights = attn.float().mean(1)
+        attn = self.attn_drop(attn)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
         return dense(out, self.out_proj.weight, self.out_proj.bias)

@@ -37,7 +37,11 @@ Counterpart of `trackformer_tpu/models/deformable_detr.py`:
     queries.
 
 A `tpu.scan_layers` model runs the same math unrolled; its weights load
-through `utils/checkpoint.py:bridge_scan_layout`. Positions are sine
+through `utils/checkpoint.py:bridge_scan_layout`. `remat` recomputes each
+exact-MSDA encoder layer in a training step's backward, `remat_decoder`
+each decoder layer with its heads (the JAX package's `nn.remat` on its
+encoder layers and on its decoder's scan body, which exists under
+`tpu.scan_layers` only). Positions are sine
 (`position_embedding: learned` builds the same model, as in JAX). The
 concatenation order is the JAX package's: memory is [cur, prev], while
 spatial shapes, masks, positions and valid ratios of the multi-frame model
@@ -45,12 +49,14 @@ are built prev frame first.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..structures import FrameBatch, Targets
+from .attention import remat
 from .backbone import BACKBONE_CHANNELS, Backbone, downsample_mask
 from .deformable_transformer import (DeformableTransformer,
                                      decoder_reference_input,
@@ -92,7 +98,8 @@ class DeformableDETR(nn.Module):
                  separate_encoder: bool = True, cached_memory: bool = True,
                  with_box_refine: bool = True, two_stage: bool = False,
                  merge_frame_features: bool = False,
-                 decoder_attention: str = "msda"):
+                 decoder_attention: str = "msda", remat: bool = False,
+                 remat_decoder: bool = False):
         """`encoder_window` None: the exact-MSDA encoder; an int: a windowed
         encoder of that window side. `cached_memory` takes effect where the
         model is multi-frame with a separate encoder and unmerged frames
@@ -120,6 +127,7 @@ class DeformableDETR(nn.Module):
         self.num_feature_levels = num_feature_levels
         self.dec_layers = dec_layers
         self.aux_loss = aux_loss
+        self.remat_decoder = remat_decoder
         total_levels = num_feature_levels * (2 if multi_frame else 1)
         enc_levels = (num_feature_levels if self.separate_encoder
                       else total_levels)
@@ -143,7 +151,8 @@ class DeformableDETR(nn.Module):
             hidden_dim, total_levels, enc_levels, enc_layers,
             dec_layers, nheads, enc_n_points, dec_n_points, dim_feedforward,
             encoder_window, dropout, frame_embed=self.cached_memory,
-            decoder_attention=decoder_attention, two_stage=two_stage)
+            decoder_attention=decoder_attention, two_stage=two_stage,
+            remat=remat)
         # without box refinement one head serves every layer (and the
         # two-stage proposals): index 0, the JAX package's `class_embed_0`
         # / `bbox_embed_0`; with it one per layer, and for two-stage one
@@ -354,8 +363,8 @@ class DeformableDETR(nn.Module):
         (query_pos, out_t, reference_points, query_valid, tgt_key_pad,
          enc_outputs) = self._queries(b, targets, memory, spatial_shapes,
                                       mask_flat)
-        classes, coords, hs_list = [], [], []
-        for i, layer in enumerate(self.transformer.decoder.layers):
+
+        def layer_step(i, layer, out_t, reference_points):
             ref_input = decoder_reference_input(reference_points,
                                                 valid_ratios)
             out_t = layer(out_t, query_pos, ref_input, memory,
@@ -369,7 +378,16 @@ class DeformableDETR(nn.Module):
                 tmp = torch.cat([tmp[..., :2]
                                  + inverse_sigmoid(reference_points),
                                  tmp[..., 2:]], -1)
-            coord_i = tmp.sigmoid()
+            return out_t, cls_i, tmp.sigmoid()
+
+        recompute = (self.remat_decoder and self.training
+                     and torch.is_grad_enabled())
+        classes, coords, hs_list = [], [], []
+        for i, layer in enumerate(self.transformer.decoder.layers):
+            step = functools.partial(layer_step, i, layer)
+            out_t, cls_i, coord_i = (
+                remat(step, layer, out_t, reference_points) if recompute
+                else step(out_t, reference_points))
             if self.with_box_refine:
                 # the next layer samples around this layer's box
                 reference_points = coord_i.detach()

@@ -12,7 +12,9 @@ original checkpoint keys (`transformer.level_embed`,
 `transformer.pos_trans_norm`). Every norm takes its eps explicitly: the
 JAX package uses flax's 1e-6. Dropout sits where the JAX layers put it
 (after each attention and the FFN, inside the FFN and on the self-attention
-weights) and is inactive in `eval()`.
+weights) and is inactive in `eval()`. With `remat` the encoder runs each
+layer of a training forward that records gradients under `remat`
+(its activations recomputed in the backward, the dropout masks replayed).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.msda import ms_deform_attn
-from .attention import Dropout, MultiHeadAttention
+from .attention import Dropout, MultiHeadAttention, remat
 from .windowed_encoder import WindowedEncoder
 
 LN_EPS = 1e-6
@@ -139,8 +141,9 @@ class DeformableEncoder(nn.Module):
 
     def __init__(self, d_model: int, n_levels: int, num_layers: int,
                  n_heads: int, n_points: int, dim_feedforward: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(d_model, n_levels, n_heads, n_points,
                                    dim_feedforward, dropout)
@@ -150,10 +153,11 @@ class DeformableEncoder(nn.Module):
                 padding_mask=None):
         reference_points = encoder_reference_points(spatial_shapes,
                                                     valid_ratios)
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         out = src
         for layer in self.layers:
-            out = layer(out, pos, reference_points, spatial_shapes,
-                        padding_mask)
+            args = (out, pos, reference_points, spatial_shapes, padding_mask)
+            out = remat(layer, layer, *args) if recompute else layer(*args)
         return out
 
 
@@ -222,20 +226,21 @@ class DeformableTransformer(nn.Module):
     identity to the cached memory (keys the original has not;
     `convert.py`). With `two_stage` the queries come from the encoder's
     proposals (`enc_output*`, `pos_trans*`) and there is no
-    `reference_points`."""
+    `reference_points`. `remat` recomputes the exact-MSDA encoder's layers
+    in the backward (not the windowed encoder's, as in JAX)."""
 
     def __init__(self, d_model: int, total_levels: int, enc_levels: int,
                  enc_layers: int, dec_layers: int, n_heads: int,
                  enc_n_points: int, dec_n_points: int, dim_feedforward: int,
                  encoder_window: Optional[int] = None, dropout: float = 0.0,
                  frame_embed: bool = False, decoder_attention: str = "msda",
-                 two_stage: bool = False):
+                 two_stage: bool = False, remat: bool = False):
         super().__init__()
         self.level_embed = nn.Parameter(torch.empty(total_levels, d_model))
         if encoder_window is None:
             self.encoder = DeformableEncoder(d_model, enc_levels, enc_layers,
                                              n_heads, enc_n_points,
-                                             dim_feedforward, dropout)
+                                             dim_feedforward, dropout, remat)
         else:
             self.encoder = WindowedEncoder(d_model, enc_levels, enc_layers,
                                            n_heads, dim_feedforward,

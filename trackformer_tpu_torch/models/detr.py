@@ -8,7 +8,8 @@ mask: their previous-frame embeddings are decoder targets with zero
 positions, invalid slots are excluded from the decoder's self-attention
 keys and flagged in `query_valid`. The class and box heads are single
 modules (`class_embed`, `bbox_embed.layers.{j}`), as in the original
-checkpoints.
+checkpoints. `AttentionMapDETR` adds the last decoder layer's attention
+maps to the outputs (the track CLI's `generate_attention_maps`).
 """
 from __future__ import annotations
 
@@ -80,6 +81,9 @@ class DETR(nn.Module):
         self.num_queries = num_queries
         self.hidden_dim = hidden_dim
         self.nheads = nheads
+        # the backbone's last level (the transformer's memory): C5 at
+        # stride 32, at 16 with DC5
+        self.stride = 16 if dilation else 32
         self.dec_layers = dec_layers
         self.aux_loss = aux_loss
         # index 0 keeps the original checkpoint keys `backbone.0.body.*`
@@ -120,3 +124,34 @@ class DETR(nn.Module):
                  "query_valid": query_valid}
                 for i in range(self.dec_layers - 1)]
         return out, targets, list(zip(features, masks)), memory, hs
+
+
+class AttentionMapDETR(nn.Module):
+    """A vanilla `DETR` (or `DETRSegm`) whose outputs also carry
+    "attention_maps" (B, Q, h, w): the last decoder layer's cross-attention
+    weights, averaged over the heads in float32 before dropout, over the
+    memory's h x w tokens (the JAX track CLI's `generate_attention_maps`,
+    read from the weights its attention sows). `stride` is the memory's
+    stride in the padded frame (`tracking/tracker.py:attn_hw_of`)."""
+
+    def __init__(self, model: DETR):
+        super().__init__()
+        if not isinstance(model, DETR):
+            raise ValueError("attention maps are only available for vanilla "
+                             "DETR, as in the JAX package")
+        self.model = model
+        self.stride = model.stride
+
+    def forward(self, batch: FrameBatch, targets: Optional[Targets] = None,
+                prev_features=None):
+        attn = self.model.transformer.decoder.layers[-1].multihead_attn
+        attn.keep_weights = True
+        try:
+            out, targets, feats, memory, hs = self.model(batch, targets,
+                                                         prev_features)
+            weights = attn.weights
+        finally:
+            attn.keep_weights, attn.weights = False, None
+        b, q, _ = weights.shape
+        out["attention_maps"] = weights.reshape(b, q, *memory.shape[1:3])
+        return out, targets, feats, memory, hs

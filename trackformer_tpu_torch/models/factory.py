@@ -6,7 +6,9 @@ count, the four model classes ({DETR, DeformableDETR} x {plain, Segm}),
 the criterion's loss weights (with the mask losses', the auxiliary
 outputs' `_i` and the two-stage proposals' `_enc` keys) and the
 postprocessors (softmax for a plain-CE head, sigmoid for a focal one,
-`postprocess_segm` for masks). The Deformable DETR family is taken
+`postprocess_segm` for masks, and on `coco_panoptic` with masks
+`postprocess_panoptic`, things being the categories up to 90). The
+Deformable DETR family is taken
 single-frame or multi-frame (3-D or 2-D positions, a separate or a joint
 encoder, merged frame features), at 3 or more feature levels over a
 ResNet-50 or -101 with or without DC5, with or without box refinement and
@@ -14,18 +16,22 @@ two-stage, its encoder exact MSDA or windowed (window side 8 or 16), with
 the cached previous memory on the multi-frame separate-encoder model
 (either encoder; `FlagshipConfig.tpu_fast()` is the windowed one), its
 decoder's cross-attention MSDA or dense; `tpu.scan_layers` builds the same
-model unrolled. Vanilla DETR is taken with post- or pre-norm layers and
-track attention. Positions are sine: `position_embedding: learned` builds
-the same model, as in the JAX package, which builds its models with sine
-positions whatever the flag. What is not ported, or what the JAX package
-cannot run, raises (`_check_supported`). `init_params` draws every weight
-from an
+model unrolled. `tpu.remat` recomputes, in a training step's backward,
+each exact-MSDA encoder layer's activations and, on a `tpu.scan_layers`
+model, each decoder layer's (the layers the JAX package wraps in
+`nn.remat`; its decoder is a scan only there). Vanilla DETR is taken
+with post- or pre-norm layers and track attention. Positions are sine:
+`position_embedding: learned` builds the same model, as in the JAX
+package, which builds its models with sine positions whatever the flag.
+What is not ported, or what the JAX package cannot run, raises
+(`_check_supported`). `init_params` draws every weight from an
 explicit `torch.Generator` with the JAX package's initializers (flax
 defaults: lecun-normal kernels, zero biases; plus each model's own special
 inits), so a seed gives the same weights on every run of one device type.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -42,6 +48,7 @@ from .deformable_detr import DeformableDETR, InputProj
 from .deformable_transformer import MSDeformAttnModule
 from .detr import DETR
 from .matcher import MatcherConfig
+from .panoptic import postprocess_panoptic
 from .postprocess import postprocess_sigmoid, postprocess_softmax
 from .segmentation import DeformableDETRSegm, DETRSegm, postprocess_segm
 from .tracking import TrackingConfig
@@ -70,16 +77,13 @@ def cached_mode(cfg: FlagshipConfig) -> bool:
 
 def _check_supported(cfg: FlagshipConfig) -> None:
     """Raise `NotImplementedError` naming the ROADMAP item for what the
-    port has not taken yet: the panoptic dataset and, on the Deformable
-    DETR family, masks on the cached memory (which appends the encoded
-    memory to the feature pairs, shifting the levels the mask head reads,
-    in the JAX package as well), and a window side kernel #8 is not
-    instantiated at; raise `ValueError` for what the JAX package cannot run
-    (ROADMAP Queue 3), a Deformable DETR of fewer than 3 feature levels,
-    and for an attention knob neither package knows."""
-    if cfg.dataset == "coco_panoptic":
-        raise NotImplementedError("the panoptic dataset is not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+    port has not taken yet: on the Deformable DETR family, masks on the
+    cached memory (which appends the encoded memory to the feature pairs,
+    shifting the levels the mask head reads, in the JAX package as well),
+    and a window side kernel #8 is not instantiated at; raise `ValueError`
+    for what the JAX package cannot run (ROADMAP Queue 3), a Deformable
+    DETR of fewer than 3 feature levels, and for an attention knob neither
+    package knows."""
     if not cfg.deformable:
         return
     if cfg.num_feature_levels < 3:
@@ -100,8 +104,9 @@ def _check_supported(cfg: FlagshipConfig) -> None:
             f"instantiated at window sides {WINDOW_SIDES}")
     if cfg.masks and cached_mode(cfg):
         raise NotImplementedError(
-            "masks with tpu.cached_prev_memory are not ported yet (ROADMAP "
-            "Queue 1, item 6)")
+            "masks with tpu.cached_prev_memory are not ported (ROADMAP "
+            "Queue 1, item 9): the cached mode shifts the levels the mask "
+            "head reads, in the JAX package too (Queue 3)")
 
 
 # `position_embedding: learned` said once a process
@@ -278,7 +283,9 @@ def build_model(cfg: FlagshipConfig,
                 with_box_refine=cfg.with_box_refine,
                 two_stage=cfg.two_stage,
                 merge_frame_features=cfg.merge_frame_features,
-                decoder_attention=cfg.decoder_attention)
+                decoder_attention=cfg.decoder_attention,
+                remat=cfg.remat,
+                remat_decoder=cfg.remat and cfg.scan_layers)
         else:
             cls = DETRSegm if cfg.masks else DETR
             model = cls(head_classes, **common, pre_norm=cfg.pre_norm,
@@ -300,10 +307,17 @@ def build_model(cfg: FlagshipConfig,
 
 
 def postprocessors(cfg: FlagshipConfig) -> Dict:
-    """The JAX factory's postprocessor dict: `bbox`, and `segm` for a masks
-    model."""
+    """The JAX factory's postprocessor dict: `bbox`, `segm` for a masks
+    model, and `panoptic` for one on `coco_panoptic` (threshold 0.85,
+    things the categories up to 90)."""
     out = {"bbox": (postprocess_sigmoid if cfg.focal_loss
                     else postprocess_softmax)}
     if cfg.masks:
         out["segm"] = postprocess_segm
+        if cfg.dataset == "coco_panoptic":
+            is_thing_map = {i: i <= 90
+                            for i in range(DATASET_NUM_CLASSES[cfg.dataset])}
+            out["panoptic"] = functools.partial(
+                postprocess_panoptic, is_thing_map=is_thing_map,
+                threshold=0.85)
     return out

@@ -13,9 +13,13 @@ model's matched outputs on frame t-1:
   * per-slot masks for the matcher (pinning) and the criterion (eos
     reweighting).
 
-`tracking_train_forward` runs the previous frame without gradient and
-injects the result into the current frame (`backprop_prev_frame` and the
-three-frame variant are not ported).
+`tracking_train_forward` runs the previous frame (for three-frame training
+first the previous-previous frame, whose matched outputs become the
+previous frame's track queries, without false positives) and injects the
+result into the current frame. The previous frames run without gradient
+unless `backprop_prev_frame`: then the loss reaches the parameters through
+the previous frame's features and its track queries' embeddings and boxes
+too, as the JAX package's gradient does where it does not stop it.
 
 Static layout: K = max_objects + fp_capacity slots; slot k < num holds the
 k-th member of the subset, slots [T, T + num_fps) the false positives, the
@@ -25,6 +29,7 @@ tests pin both sides with `forced`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional, Tuple
@@ -48,7 +53,6 @@ def fp_capacity(max_objects: int, fp_prob: float) -> int:
     return int(math.ceil(fp_prob * max_objects)) + 1
 
 
-@torch.no_grad()
 def add_track_queries_to_targets(
         generator: Optional[torch.Generator],
         targets: Targets,
@@ -66,6 +70,8 @@ def add_track_queries_to_targets(
     'num_fps', 'order' (B, T) subset permutation and 'fp_seed_pos' (B, T)
     false-positive seed positions; the candidate picks then take the
     argmax of the distance weights instead of the weighted Gumbel draw.
+    The track queries' embeddings and boxes are differentiable gathers of
+    the previous outputs (the draws and the match are not).
     """
     b, t = prev_targets.valid.shape
     dev = prev_targets.valid.device
@@ -180,22 +186,33 @@ def tracking_train_forward(apply_fn: Callable, batch, targets: Targets,
                            forced: Optional[dict] = None,
                            mark: Optional[Callable[[str], None]] = None
                            ) -> Tuple[dict, Targets]:
-    """The two-frame training forward. `apply_fn(batch, targets,
+    """The two- or three-frame training forward. `apply_fn(batch, targets,
     prev_features)` -> the model's 5-tuple, the model in training mode (the
-    previous frame runs with dropout active too, without gradient).
-    Returns (out, targets with track queries) of the current frame.
-    `mark(tag)`, if given, is called after the previous frame's forward
-    ("forward_prev") and after the match and augmentation
+    previous frames run with dropout active too). With `prev_prev_batch`
+    and `prev_prev_targets` the previous-previous frame runs first, its
+    outputs are matched to its targets, and its matched outputs become the
+    previous frame's track queries (no false positives), its features the
+    previous frame's `prev_features`. Without `cfg.backprop_prev_frame` the
+    previous frames run without gradient. Returns (out, targets with track
+    queries) of the current frame. `forced` pins the current frame's
+    draws (`add_track_queries_to_targets`) and, under "prev", the previous
+    frame's. `mark(tag)`, if given, is called after the previous frames'
+    forwards ("forward_prev") and after the match and augmentation
     ("match_augment")."""
-    if prev_prev_batch is not None or prev_prev_targets is not None:
-        raise NotImplementedError("the three-frame forward "
-                                  "(track_prev_prev_frame) is not ported "
-                                  "yet (ROADMAP Queue 1, item 7)")
-    if cfg.backprop_prev_frame:
-        raise NotImplementedError("backprop_prev_frame is not ported yet "
-                                  "(ROADMAP Queue 1, item 7)")
-    with torch.no_grad():
-        prev_out, _, prev_feats, _, _ = apply_fn(prev_batch, None, None)
+    grad = (contextlib.nullcontext() if cfg.backprop_prev_frame
+            else torch.no_grad())
+    with grad:
+        if prev_prev_batch is None:
+            prev_out, _, prev_feats, _, _ = apply_fn(prev_batch, None, None)
+        else:
+            pp_out, _, pp_feats, _, _ = apply_fn(prev_prev_batch, None, None)
+            pp_match = match(pp_out, prev_prev_targets, cfg.matcher)
+            prev_targets = add_track_queries_to_targets(
+                generator, prev_targets, prev_prev_targets, pp_out, pp_match,
+                cfg, add_false_pos=False,
+                forced=None if forced is None else forced["prev"])
+            prev_out, _, prev_feats, _, _ = apply_fn(prev_batch, prev_targets,
+                                                     pp_feats)
     if mark is not None:
         mark("forward_prev")
     prev_match_q = match(prev_out, prev_targets, cfg.matcher)

@@ -13,9 +13,9 @@ port: the same scales, the same scenes from the same
 order, trained by the port's `make_train_step(tracking=False)` and scored
 by the port's `datasets/coco_eval.py`. Mode names: `exact`, `fast`, and
 ablation tokens after an underscore: `f32` (float32 compute) and `remat0`
-(accepted and changes nothing: `tpu.remat` recomputes activations in the
-backward to save memory, which the port, keeping every activation, does
-not port; ROADMAP Queue 1, item 7); `wN` sets the window side, 8 or 16
+(`tpu.remat` off: at the `flagship` scale the arms recompute their exact
+encoder's and scanned decoder's layers in the backward, as in JAX, which
+changes no number); `wN` sets the window side, 8 or 16
 (kernel #8 at windows of 64 or 256 tokens). Environment knobs as in JAX:
 `AGREE_LR` (default 4e-4),
 `AGREE_WARMUP` (default 0), `AGREE_SEED` (default 0; the scenes stay seed
@@ -150,8 +150,7 @@ def mode_over(mode: str) -> dict:
     """Config overrides of a mode name: `exact` the MSDA encoder, `fast`
     the windowed one; tokens after it as in the module docstring (`wN` the
     window side; `f32` and `remat0` add no override: `train_config` reads
-    them, and `remat0` changes nothing in the port, which does not
-    recompute activations under `tpu.remat` either way)."""
+    them)."""
     from ..ops.window_attn import WINDOW_SIDES
     over = {"tpu.encoder_attention": ("msda" if mode.split("_")[0] == "exact"
                                       else "windowed")}
@@ -231,9 +230,6 @@ def train_and_eval(mode: str, train_scenes, eval_scenes, sc: Scale,
 
     device = torch.device(device)
     cfg, opt_cfg = train_config(mode, sc, steps)
-    if cfg["tpu"]["remat"]:
-        log("tpu.remat: not applied, the port keeps every activation "
-            "(ROADMAP Queue 1, item 7)")
     model_cfg = FlagshipConfig.from_config(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     model, crit_cfg, post, _ = build_model(model_cfg, device, generator=gen,

@@ -139,7 +139,7 @@ def train_config(mode: str, sc: TrackScale, steps: int) -> dict:
     in the JAX tool, or an arm of the detection tool's names
     (`fast_exact_agreement.mode_over`: `fast_w16` the windowed encoder at
     window side 16); its `f32` and `remat0` tokens change nothing here,
-    where every arm runs float32 and keeps its activations."""
+    where every arm runs float32 without `tpu.remat`."""
     from ..utils.config import load_config
     from .fast_exact_agreement import mode_over
     lr = float(os.environ.get("AGREE_LR", "4e-4"))

@@ -7,7 +7,8 @@ sequence on its slice of the batched outputs (`make_tracker_step(...,
 batched=True)`). Sequences are grouped by padded frame shape; a shorter
 sequence keeps stepping on its last frame with its results discarded.
 A mask model's per-track masks ride the same path as in the unbatched
-`Tracker`. Attention maps are not ported.
+`Tracker`. Attention maps are the unbatched `Tracker`'s only, as in the
+JAX package, whose track CLI gives the lockstep tracker no map size.
 """
 from __future__ import annotations
 

@@ -13,9 +13,13 @@ the free slots are dropped. With `with_masks` (a mask model) every slot
 carries its mask probabilities at the mask head's stride-4 resolution of
 the padded frame; overlaps are resolved there (each pixel to the active
 track of the highest probability) and the host rescales the masks to the
-frame (`utils/track_utils.py:upscale_mask_results`). The box postprocess
-is the factory's: sigmoid for a focal head, softmax for a plain one.
-Attention maps are not ported.
+frame (`utils/track_utils.py:upscale_mask_results`). With an attention
+map model (`models/detr.py:AttentionMapDETR`, vanilla DETR's
+`generate_attention_maps`) every slot carries the last decoder layer's
+head-averaged cross-attention weights over the memory, taken where the
+slot's box is taken and cleared in the results of inactive slots. The box
+postprocess is the factory's: sigmoid for a focal head, softmax for a
+plain one.
 """
 from __future__ import annotations
 
@@ -71,6 +75,7 @@ class TrackerState:
     next_id: torch.Tensor         # ()
     num_reids: torch.Tensor       # ()
     masks: Optional[torch.Tensor] = None  # (S, Hm, Wm) probabilities
+    attn_maps: Optional[torch.Tensor] = None  # (S, Ha, Wa) attention maps
 
     def replace(self, **changes) -> "TrackerState":
         return dataclasses.replace(self, **changes)
@@ -106,6 +111,13 @@ def mask_hw_of(hw) -> tuple:
     return tuple((int(x) + 3) // 4 for x in hw)
 
 
+def attn_hw_of(hw, stride: int) -> tuple:
+    """The transformer memory's size for a padded frame of size `hw`: the
+    backbone's last level, ceil(h / stride) each way (32, or 16 with DC5;
+    the JAX tracker probes it with a forward)."""
+    return tuple(-(-int(x) // stride) for x in hw)
+
+
 def _positive_area(boxes: torch.Tensor) -> torch.Tensor:
     return (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
 
@@ -120,7 +132,8 @@ def _prune_inactive(state: TrackerState, cfg: TrackerConfig) -> TrackerState:
 
 
 def _scatter_new_tracks(state: TrackerState, det_keep, det_boxes,
-                        det_scores, det_hs, det_masks, cfg: TrackerConfig):
+                        det_scores, det_hs, det_masks, cfg: TrackerConfig,
+                        det_attn=None):
     """Occupy free slots (in slot order) with the kept detections. Writes
     for detections that find no slot go to a dummy extra slot, dropped."""
     s = cfg.max_tracks
@@ -152,7 +165,9 @@ def _scatter_new_tracks(state: TrackerState, det_keep, det_boxes,
         count_inactive=put(state.count_inactive, 0),
         next_id=state.next_id + n_new,
         masks=(state.masks if state.masks is None or det_masks is None
-               else put(state.masks, det_masks)))
+               else put(state.masks, det_masks)),
+        attn_maps=(state.attn_maps if state.attn_maps is None
+                   or det_attn is None else put(state.attn_maps, det_attn)))
     new_track_mask = put(torch.zeros(s, dtype=torch.bool, device=dev), True)
     return new_state, new_track_mask
 
@@ -263,9 +278,10 @@ def _prepare_track_queries(state: TrackerState, orig_size: torch.Tensor,
 
 def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
                  hs_all, public_boxes, public_valid, hw, cfg: TrackerConfig,
-                 masks_all=None):
+                 masks_all=None, attn_all=None):
     """All post-model track logic for one sequence; `masks_all` (S + Q, Hm,
-    Wm) mask probabilities or None."""
+    Wm) mask probabilities and `attn_all` (S + Q, Ha, Wa) attention maps,
+    or None. A revived track keeps the attention map it had."""
     s = cfg.max_tracks
     h, w = hw[0], hw[1]
     if not cfg.overflow_boxes:
@@ -290,7 +306,10 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
         inactive=(state.inactive | to_inactive) & ~rk,
         num_reids=state.num_reids + rk.sum(),
         masks=(state.masks if masks_all is None else
-               torch.where(upd[:, None, None], masks_all[:s], state.masks)))
+               torch.where(upd[:, None, None], masks_all[:s], state.masks)),
+        attn_maps=(state.attn_maps if attn_all is None else
+                   torch.where(upd[:, None, None], attn_all[:s],
+                               state.attn_maps)))
 
     # --- track NMS: suppressed slots are freed ---
     if cfg.track_nms_thresh:
@@ -309,8 +328,9 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
                                      public_valid)
     state, d_keep = _reid(state, d_boxes, d_scores, d_hs, d_masks, d_keep,
                           cfg)
-    state, new_track_mask = _scatter_new_tracks(state, d_keep, d_boxes,
-                                                d_scores, d_hs, d_masks, cfg)
+    state, new_track_mask = _scatter_new_tracks(
+        state, d_keep, d_boxes, d_scores, d_hs, d_masks, cfg,
+        None if attn_all is None else attn_all[s:])
 
     # --- detection NMS: old tracks pinned with an infinite score ---
     if cfg.detection_nms_thresh:
@@ -335,6 +355,9 @@ def _track_logic(state: TrackerState, boxes_all, scores_all, labels_all,
         slots = torch.arange(s, device=winner.device)[:, None, None]
         frame_results["masks"] = ((state.masks > 0.5)
                                   & (winner[None] == slots) & active)
+    if state.attn_maps is not None:
+        frame_results["attention_maps"] = torch.where(
+            state.active[:, None, None], state.attn_maps, 0.0)
     state = state.replace(
         count_inactive=state.count_inactive + state.inactive.long())
     if cfg.reid_sim_only:
@@ -384,15 +407,19 @@ def make_tracker_step(model: Callable, postprocess: Callable,
         hw = orig_sizes.float()
         masks_all = (out["pred_masks"].sigmoid()
                      if cfg.with_masks and "pred_masks" in out else None)
+        attn_all = out.get("attention_maps")
         new_states, frame_results = [], []
         for i, st in enumerate(states):
-            # carrying masks needs the model's masks and the slots' buffers
+            # carrying masks (attention maps) needs the model's and the
+            # slots' buffers
             masks = (masks_all[i] if masks_all is not None
                      and st.masks is not None else None)
+            attn = (attn_all[i] if attn_all is not None
+                    and st.attn_maps is not None else None)
             st, fr = _track_logic(st, res["boxes"][i], res["scores"][i],
                                   res["labels"][i], out["hs_embed"][i],
                                   public_boxes[i], public_valid[i], hw[i],
-                                  cfg, masks)
+                                  cfg, masks, attn)
             new_states.append(st)
             frame_results.append(fr)
         return new_states, frame_results, features
@@ -412,28 +439,37 @@ def make_tracker_step(model: Callable, postprocess: Callable,
 
 class Tracker:
     """Host shell: drives the step over a sequence and accumulates
-    MOTChallenge-style results (reset / step / get_results)."""
+    MOTChallenge-style results (reset / step / get_results). With
+    `attn_stride` (the model an `AttentionMapDETR`, whose `stride` it is)
+    every result entry carries its track's "attention_map"."""
 
     def __init__(self, model: torch.nn.Module, postprocess: Callable,
                  tracker_cfg: dict, hidden_dim: int, num_object_queries: int,
-                 overflow_boxes: bool = False, with_masks: bool = False):
+                 overflow_boxes: bool = False, with_masks: bool = False,
+                 attn_stride: Optional[int] = None):
         self.cfg = TrackerConfig.from_dict(
             {**tracker_cfg, "num_object_queries": num_object_queries,
              "overflow_boxes": overflow_boxes, "with_masks": with_masks})
         self.hidden_dim = hidden_dim
+        self.attn_stride = attn_stride
         self.device = next(model.parameters()).device
         self._step = make_tracker_step(model, postprocess, self.cfg)
         self.reset()
 
-    def reset(self) -> None:
-        """Start a new sequence (with masks, the slots' mask buffers are
-        sized at its first frame)."""
+    def reset(self, hard: bool = True) -> None:
+        """Start a new sequence: free every slot and forget the previous
+        frame (the slots' mask and attention-map buffers are sized at the
+        next frame). A hard reset also clears the results, the frame index
+        and the re-id count; a soft one (`hard=False`) keeps them, so the
+        results go on from the next frame's index, with track ids counted
+        from 0 again, as in the JAX package."""
         self.state = init_state(self.cfg.max_tracks, self.hidden_dim,
                                 self.device)
         self._prev_features = deque([None], maxlen=self.cfg.prev_frame_dist)
-        self.results: Dict[int, Dict[int, dict]] = {}
-        self.frame_index = 0
-        self.num_reids = 0
+        if hard:
+            self.results: Dict[int, Dict[int, dict]] = {}
+            self.frame_index = 0
+            self.num_reids = 0
 
     def step(self, blob: dict) -> None:
         """blob: {"batch": FrameBatch (1, H, W, 3), "orig_size": (1, 2)
@@ -441,12 +477,17 @@ class Tracker:
         hold numpy arrays or tensors on any device, as a sequence yields
         them; it is moved to the model's device (no copy if already
         there). A mask model's results carry each track's "mask" at the
-        mask head's resolution."""
+        mask head's resolution, an attention map model's its
+        "attention_map" at the memory's."""
         dev = self.device
+        padded = blob["batch"].images.shape[1:3]
         if self.cfg.with_masks and self.state.masks is None:
-            hw = mask_hw_of(blob["batch"].images.shape[1:3])
             self.state = self.state.replace(masks=torch.zeros(
-                (self.cfg.max_tracks,) + hw, device=dev))
+                (self.cfg.max_tracks,) + mask_hw_of(padded), device=dev))
+        if self.attn_stride and self.state.attn_maps is None:
+            self.state = self.state.replace(attn_maps=torch.zeros(
+                (self.cfg.max_tracks,) + attn_hw_of(padded, self.attn_stride),
+                device=dev))
         batch = FrameBatch(images=torch.as_tensor(blob["batch"].images,
                                                   device=dev),
                            mask=torch.as_tensor(blob["batch"].mask,
@@ -477,6 +518,8 @@ class Tracker:
                      "obj_ind": int(res["obj_ind"][slot])}
             if "masks" in res:
                 entry["mask"] = res["masks"][slot]
+            if "attention_maps" in res:
+                entry["attention_map"] = res["attention_maps"][slot]
             self.results.setdefault(tid, {})[self.frame_index] = entry
         self.frame_index += 1
         self.num_reids = int(self.state.num_reids)

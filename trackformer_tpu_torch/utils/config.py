@@ -120,6 +120,12 @@ class FlagshipConfig:
     decoder_attention: str = "msda"
     scan_layers: bool = False
     cached_prev_memory: bool = False
+    # recompute the exact encoder's layers (and a scan_layers decoder's)
+    # in a training step's backward. train.yaml turns it on (the train
+    # CLI reads it from there); the dataclass keeps it off, so that a
+    # model built from the defaults trains without the recompute unless
+    # asked
+    remat: bool = False
     # window side in tokens of the windowed encoder (the JAX factory's
     # default; cfgs/tpu_fast.yaml sets the same)
     encoder_window: int = 8
@@ -178,7 +184,7 @@ _FIELDS = {f.name: (None if f.default is dataclasses.MISSING else f.default)
            for f in dataclasses.fields(FlagshipConfig)}
 # fields a train config holds under `tpu:`
 _TPU_KEYS = ("encoder_attention", "decoder_attention", "scan_layers",
-             "cached_prev_memory", "encoder_window", "max_objects",
+             "remat", "cached_prev_memory", "encoder_window", "max_objects",
              "lr_warmup_steps", "compute_dtype", "max_tracks")
 _NOT_TOP_LEVEL = set(_TPU_KEYS) | {"val_width", "max_size", "image_bucket",
                                    "tracker_cfg"}

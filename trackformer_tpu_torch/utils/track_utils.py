@@ -5,10 +5,10 @@ track_utils.py`: `get_mot_accum` builds a per-sequence accumulator from a
 tracker's results and the sequence's ground truth, `evaluate_mot_accums`
 summarizes and prints them, `interpolate_tracks` fills frame gaps inside
 each track, `upscale_mask_results` takes a mask model's tracker masks to
-the original frame size; `plot_sequence` draws the tracked boxes and masks
-onto the frames and `write_video` stitches the drawn frames into a video
-(matplotlib, and ffmpeg or Pillow, imported at the call). The attention
-maps of `plot_sequence` wait for ROADMAP Queue 1, item 6.
+the original frame size; `plot_sequence` draws the tracked boxes, masks
+and attention maps onto the frames and `write_video` stitches the drawn
+frames into a video (matplotlib, and ffmpeg or Pillow, imported at the
+call).
 """
 from __future__ import annotations
 
@@ -112,10 +112,10 @@ def plot_sequence(tracks: Dict, seq, output_dir: str,
                   write_images="pretty", generate_attention_maps=False):
     """Draw the tracked boxes (and masks) onto the sequence's frames and
     save them under their own file names. `write_images`: 'debug' adds the
-    score to each label."""
-    if generate_attention_maps:
-        raise NotImplementedError("attention maps are not ported yet "
-                                  "(ROADMAP Queue 1, item 6)")
+    score to each label. With `generate_attention_maps` each entry's
+    "attention_map" is resized to the frame (Pillow, bilinear), divided by
+    its largest value, and every pixel above 0.25 takes its track's colour
+    at an alpha of half that value, in one overlay over all tracks."""
     import matplotlib
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
@@ -134,6 +134,8 @@ def plot_sequence(tracks: Dict, seq, output_dir: str,
         fig, ax = plt.subplots(figsize=(w / 96, h / 96), dpi=96)
         ax.imshow(img)
         ax.axis("off")
+        attention_img = (np.zeros((h, w, 4)) if generate_attention_maps
+                         else None)
         for tid, track in tracks.items():
             if frame_idx not in track:
                 continue
@@ -153,6 +155,18 @@ def plot_sequence(tracks: Dict, seq, output_dir: str,
                 overlay = np.zeros((h, w, 4))
                 overlay[mask > 0] = (*color[:3], 0.4)
                 ax.imshow(overlay)
+            if attention_img is not None \
+                    and "attention_map" in track[frame_idx]:
+                amap = np.asarray(track[frame_idx]["attention_map"],
+                                  np.float32)
+                amap = np.asarray(Image.fromarray(amap).resize(
+                    (w, h), Image.BILINEAR))
+                norm = amap / max(float(amap.max()), 1e-12)
+                hot = norm > 0.25
+                attention_img[hot] = color
+                attention_img[..., 3][hot] = norm[hot] * 0.5
+        if attention_img is not None:
+            ax.imshow(attention_img, vmin=0.0, vmax=1.0)
         fig.savefig(osp.join(output_dir, osp.basename(path)),
                     bbox_inches="tight", pad_inches=0)
         plt.close(fig)
