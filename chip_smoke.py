@@ -263,11 +263,25 @@ last line marked "partial"; the kernels line needs all of them):
      ms and peak memory both ways; 36 `msda_patch` with remat); one
      float32 three-frame step with backprop at 128x192, card against the
      CPU's float32 and float64 steps (`three_frame_reference`).
-  Every MSDA call shape those six phases launch that no phase above holds
+  parallel: the port over several processes on the one card, each rank a
+     process started as torchrun starts it (`parallel_run`):
+     `cli.submit` on one rank over NCCL (the exact flagship, bf16, B = 2,
+     2 debug steps and a validation, and one all-reduce); two ranks
+     sharing the card over gloo: the exact flagship in float32 (remat,
+     dropout 0, the draws pinned) 2 data-parallel steps (2 frame pairs a
+     rank) and 1 `tpu.model_parallel: 2` step (4 MSDA heads a rank), each
+     held against one process's step on the 4 pairs (loss and grad_norm
+     equal on both ranks, within `REF_LOSS_RTOL` of it), with the timed
+     step's seconds, its all-reduces' share and peak memory; the tracking
+     CLI over both ranks (4 sequences) equal to a one-process run. A rank
+     that fails or outlasts `PARALLEL_TIMEOUT` fails the phase; every
+     rank is killed.
+  Every MSDA call shape those seven phases launch that no phase above holds
   (D = 32 at hidden 256; the 8-level joint encoder; 416x544 at B = 4; the
   mid scale; 1344x1344; 5 levels, DC5, the two-stage decoder's 300
   queries; the three-frame step's previous decoder at 600 queries and the
-  backward of the previous frames' decoders at 500 and 600) is then held
+  backward of the previous frames' decoders at 500 and 600; the tensor-
+  parallel step's 4 heads a rank) is then held
   at that shape against the plain version, forward and backward, float32 and bfloat16, and timed
   (`kernel_phase_path_shapes`); the window phase holds kernel #8 at the
   new shapes (C = 256 at B = 1 and 2 with each stage kernel; 416x544 at B
@@ -437,23 +451,23 @@ def token_centres(shapes) -> torch.Tensor:
     return torch.cat(refs)
 
 
-def msda_inputs(shapes, lq, encoder, gen, n=1, ref_shapes=None, d=D):
-    """value, locations, weights of `n` items on the card, `d` channels a
-    head. Encoder queries (the tokens of `ref_shapes`, by default of
+def msda_inputs(shapes, lq, encoder, gen, n=1, ref_shapes=None, d=D, m=M):
+    """value, locations, weights of `n` items on the card, `m` heads of `d`
+    channels. Encoder queries (the tokens of `ref_shapes`, by default of
     `shapes`) sample near their own token (as a trained encoder does);
     decoder queries anywhere, some corners out of range."""
     dev = "cuda"
     s = sum(h * w for h, w in shapes)
-    value = torch.randn(n, s, M, d, device=dev, generator=gen)
+    value = torch.randn(n, s, m, d, device=dev, generator=gen)
     nl = len(shapes)
     if encoder:
         ref = token_centres(ref_shapes or shapes)[None, :, None, None, None, :]
-        jitter = torch.randn(n, lq, M, nl, P, 2, device=dev, generator=gen)
+        jitter = torch.randn(n, lq, m, nl, P, 2, device=dev, generator=gen)
         loc = ref + 0.03 * jitter
     else:
-        loc = torch.rand(n, lq, M, nl, P, 2, device=dev, generator=gen)
+        loc = torch.rand(n, lq, m, nl, P, 2, device=dev, generator=gen)
         loc = loc * 1.1 - 0.05
-    attn = torch.rand(n, lq, M, nl, P, device=dev, generator=gen)
+    attn = torch.rand(n, lq, m, nl, P, device=dev, generator=gen)
     attn = attn / attn.sum((-2, -1), keepdim=True)
     return value, loc.contiguous(), attn
 
@@ -1561,8 +1575,8 @@ def record_new_path(tag: str) -> None:
 
 def kernel_phase_path_shapes(keys, seed: int) -> dict:
     """Each MSDA call shape of `keys` ((wrapper, items, queries, levels,
-    channels), as the wrappers count them) held where the paths launched
-    it: the forward through its wrapper (`msda_patch` for an encoder call,
+    channels[, heads where not 8]), as the wrappers count them) held where
+    the paths launched it: the forward through its wrapper (`msda_patch` for an encoder call,
     `ms_deform_attn` for a decoder call) against `ms_deform_attn_plain`
     within `TOL`, the backward (`msda_bwd_cuda`) against autograd through
     the plain version within `grad_tol`, float32 and bfloat16, on inputs
@@ -1575,17 +1589,18 @@ def kernel_phase_path_shapes(keys, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed + 23)
     results = {}
     for key in sorted(keys, key=str):
-        name, n, lq, shapes, d = key
+        name, n, lq, shapes, d = key[:5]
+        m = key[5] if len(key) > 5 else M
         s = sum(h * w for h, w in shapes)
         encoder = lq == s
-        value, loc, attn = msda_inputs(shapes, lq, encoder, gen, n, d=d)
+        value, loc, attn = msda_inputs(shapes, lq, encoder, gen, n, d=d, m=m)
         if name == "msda_bwd" and encoder:
             loc[:, ::16] = loc[:, ::16] * 1.2 - 0.1
         worst, ok = 0.0, True
         for dtype in (torch.float32, torch.bfloat16):
             v = value.to(dtype)
             if name == "msda_bwd":
-                g = torch.randn(n, lq, M, d, device="cuda",
+                g = torch.randn(n, lq, m, d, device="cuda",
                                 generator=gen).to(dtype)
                 vv, lo, at = (t.clone().requires_grad_(True)
                               for t in (v, loc, attn))
@@ -1624,9 +1639,9 @@ def kernel_phase_path_shapes(keys, seed: int) -> dict:
                 def plain():
                     return msda.ms_deform_attn_plain(v, shapes, loc, attn)
                 with torch.no_grad():
-                    a = kernel().float().reshape(n, lq, M * d)
+                    a = kernel().float().reshape(n, lq, m * d)
                     torch.cuda.synchronize()
-                    b = plain().float().reshape(n, lq, M * d)
+                    b = plain().float().reshape(n, lq, m * d)
                 atol, rtol = TOL[dtype]
                 err = (a - b).abs()
                 ok = ok and bool((err <= atol + rtol * b.abs()).all()) \
@@ -1643,7 +1658,7 @@ def kernel_phase_path_shapes(keys, seed: int) -> dict:
                   paths=json.dumps(sorted(NEW_SHAPES.get(key, ()))),
                   dtype=str(dtype).split(".")[-1], items=n, lq=lq,
                   levels=json.dumps(shapes, separators=(",", ":")),
-                  heads=M, channels=d, max_abs_err=f"{worst:.3e}",
+                  heads=m, channels=d, max_abs_err=f"{worst:.3e}",
                   **readings, tol=json.dumps(tol_text), ms=f"{ms:.4f}",
                   plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.4f}",
                   bound_by=bound_by, ok=ok)
@@ -6020,11 +6035,480 @@ def train_extras_run(seed: int, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# several processes: the training CLI through cli/submit.py on one rank
+# over NCCL; data- and tensor-parallel train steps and the tracking CLI on
+# two ranks that share the card over gloo
+# --------------------------------------------------------------------------
+
+PARALLEL_NAMES = MOT17_NAMES[:4]
+PARALLEL_FRAMES = 3
+PARALLEL_TRAIN_FRAMES = 4
+# seconds each job's workers may take together, the kernels loaded
+PARALLEL_TIMEOUT = 420
+# the fast flagship's boxes split over two ranks against unsplit, bf16:
+# the decoder's MSDA sums its 4-head halves in another order (and its
+# output projection's halves after the all-reduce)
+FAST_SPLIT_TOL = 2e-2
+
+
+def parallel_config():
+    """The exact flagship with train.yaml's `tpu.remat`, in float32 with
+    dropout 0: the model of the data- and tensor-parallel steps and of
+    their one-process reference."""
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+    return FlagshipConfig().replace(dataset="mot_crowdhuman", remat=True,
+                                    compute_dtype="float32", dropout=0.0)
+
+
+def parallel_model(cfg, seed: int):
+    """The flagship's weights from `seed`, the same in every process, with
+    the sampling offsets shifted off whole cells as `train_reference_run`
+    shifts them (a sample on a cell border would let the rounding of a
+    batch of 2 against one of 4 pick the side of a gradient's jump)."""
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.models.deformable_transformer import \
+        MSDeformAttnModule
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model, crit, _, track = build_model(cfg, "cuda", gen, train=True)
+    shift = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, MSDeformAttnModule):
+                bias = mod.sampling_offsets.bias
+                bias.add_((0.15 + 0.2 * torch.rand(bias.shape,
+                                                   generator=shift)).cuda())
+    return model, crit, track
+
+
+def parallel_pack(cfg, seed: int):
+    """The global batch of the parallel steps, 2 x `TRAIN_BATCH` frame pairs
+    at 800x1344 (two `synthetic_train_pack`s joined), and the pinned
+    track-query draws."""
+    import dataclasses
+
+    first, second = (synthetic_train_pack(cfg, seed, step) for step in (0, 1))
+
+    def join(a, b):
+        return dataclasses.replace(a, **{
+            f.name: torch.cat([getattr(a, f.name), getattr(b, f.name)])
+            for f in dataclasses.fields(a)
+            if isinstance(getattr(a, f.name), torch.Tensor)})
+
+    n, t = 2 * TRAIN_BATCH, cfg.max_objects
+    forced = {"num": 4, "num_fps": 1,
+              "order": np.tile(np.arange(t), (n, 1)),
+              "fp_seed_pos": np.tile(np.arange(t), (n, 1))}
+    return {k: join(first[k], second[k]) for k in first}, forced
+
+
+def parallel_shapes() -> list:
+    from trackformer_tpu_torch.ops import msda
+    return [[list(k), n] for k, n in msda.launch_shapes().items()]
+
+
+def parallel_step(cfg, seed: int, pack, forced, layout, split: bool,
+                  steps: int) -> dict:
+    """`steps` (1 or 2) train steps from `parallel_model`'s weights over
+    `layout` (with `split`, the model's tensors split over its model group
+    first): the first's loss and grad_norm, the last timed with the
+    collectives' wall time (each synchronised around), the peak memory and
+    the launches of all."""
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.parallel import dist as pdist
+    from trackformer_tpu_torch.parallel import tp
+
+    model, crit, track = parallel_model(cfg, seed)
+    if split:
+        tp.shard_model(model, layout)
+    optimizer = make_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, crit, optimizer, track, tracking=True,
+                           layout=layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    if steps == 2:
+        _, first = step(state, pack, None, forced=forced)
+        loss, norm = float(first["loss"]), float(first["grad_norm"])
+    pdist.COLLECTIVE_TIMING, pdist.COLLECTIVE_SECONDS[0] = True, 0.0
+    t0 = time.perf_counter()
+    try:
+        _, last = step(state, pack, None, forced=forced)
+        if steps == 1:
+            loss, norm = float(last["loss"]), float(last["grad_norm"])
+        torch.cuda.synchronize()
+    finally:
+        pdist.COLLECTIVE_TIMING = False
+    step_s = time.perf_counter() - t0
+    out = dict(loss=loss, grad_norm=norm, step_s=step_s, steps=steps,
+               allreduce_s=pdist.COLLECTIVE_SECONDS[0],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               counts=launch_counts(), shapes=parallel_shapes(),
+               split_tensors=len(tp.sharded_keys(model)))
+    del model, state, step, last
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_fast_eval(seed: int, batch, layout) -> dict:
+    """The fast flagship's eval forward (bf16, `TRAIN_BATCH` frames at
+    800x1344) split over `layout`'s model group, whose windowed layers
+    gather their whole weights for kernel #8, against the same forward
+    unsplit on this rank: the split run's launches and the outputs' largest
+    difference."""
+    from trackformer_tpu_torch.models import build_model
+    from trackformer_tpu_torch.parallel import tp
+    from trackformer_tpu_torch.structures import empty_targets
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    cfg = FlagshipConfig.tpu_fast(dataset="mot_crowdhuman")
+    outs = []
+    for split in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model = build_model(cfg, "cuda", gen)[0]
+        if split:
+            tp.shard_model(model, layout)
+        reset_launch_counts()
+        with torch.no_grad():
+            out = model(batch, empty_targets(batch.batch_size, 1, "cuda"))[0]
+        outs.append({k: out[k].float() for k in ("pred_logits",
+                                                 "pred_boxes")})
+        del model
+    torch.cuda.empty_cache()
+    return dict(counts=launch_counts(), shapes=parallel_shapes(),
+                finite=all(bool(torch.isfinite(v).all())
+                           for v in outs[1].values()),
+                max_abs_diff={k: (outs[1][k] - outs[0][k]).abs().max().item()
+                              for k in outs[0]})
+
+
+def parallel_worker(job: str, work: Path, seed: int) -> int:
+    """One rank of a `parallel` job, started by `parallel_run` with
+    torchrun's variables: `submit` (the training CLI through cli/submit.py)
+    or `pair` (the data- and tensor-parallel steps, then the tracking CLI).
+    Writes its readings to `<work>/<job>_rank<r>.json`."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from trackformer_tpu_torch.parallel import dist as pdist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"job": job}
+    if job == "submit":
+        from trackformer_tpu_torch.cli import submit
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state = submit.main(json.loads((work / "submit_argv.json")
+                                           .read_text()))
+        torch.cuda.synchronize()
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        out.update(seconds=time.perf_counter() - t0, steps=state.step,
+                   all_reduce=float(one), counts=launch_counts(),
+                   shapes=parallel_shapes(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   lines=[ln[:300] for ln in buf.getvalue().splitlines()
+                          if ln.startswith(("process group", "Epoch:",
+                                            "TRAINING DONE", "START"))])
+    else:
+        from trackformer_tpu_torch.cli.track import main as track_main
+        pdist.init_process_group("cuda")
+        rank = pdist.rank()
+        cfg = parallel_config()
+        pack, forced = parallel_pack(cfg, seed)
+        layout = pdist.make_layout(1)
+        mine = pdist.shard_batch({**pack, **{k: forced[k] for k in (
+            "order", "fp_seed_pos")}}, layout.data_rank, layout.data_size)
+        local_forced = {**forced, "order": mine.pop("order"),
+                        "fp_seed_pos": mine.pop("fp_seed_pos")}
+        out["dp"] = parallel_step(cfg, seed, mine, local_forced, layout,
+                                  split=False, steps=2)
+        pdist.reset_layout()
+        layout = pdist.make_layout(2)
+        # one step: its collectives (gloo through the host) take ~0.9 of it
+        out["tp"] = parallel_step(cfg, seed, pack, forced, layout,
+                                  split=True, steps=1)
+        out["tp_fast_eval"] = parallel_fast_eval(
+            seed, pdist.shard_batch(pack["batch"], 0, 2), layout)
+        del pack, mine
+        pdist.reset_layout()
+        pdist.make_layout(1)
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            summary = track_main(json.loads((work / "track_argv.json")
+                                            .read_text()))
+        torch.cuda.synchronize()
+        out["track"] = dict(summary=summary, counts=launch_counts(),
+                            shapes=parallel_shapes(),
+                            seconds=time.perf_counter() - t0)
+    out["backend"] = dist.get_backend()
+    out["world"] = dist.get_world_size()
+    (work / f"{job}_rank{dist.get_rank()}.json").write_text(
+        json.dumps(out, default=plain_number))
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(job: str, n: int, work: Path, seed: int) -> list:
+    """Start `n` ranks of `job` (this script with `--parallel-worker`),
+    as torchrun would, on this machine; wait for all, kill all on a
+    failure or past `PARALLEL_TIMEOUT` -> each rank's readings."""
+    import os
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs, logs = [], []
+    for rank in range(n):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        log = work / f"{job}_rank{rank}.log"
+        logs.append(log)
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--parallel-worker", job, "--work", str(work),
+                 "--seed", str(seed)], env=env, cwd=str(REPO), stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.perf_counter() > deadline:
+                failed = f"past {PARALLEL_TIMEOUT} s"
+                break
+            time.sleep(0.5)
+        if failed is None:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        for log in logs:
+            print(f"--- {log.name} (last lines)", file=sys.stderr)
+            print("\n".join(log.read_text().splitlines()[-40:]),
+                  file=sys.stderr, flush=True)
+    check(failed is None, f"parallel {job}: {failed}")
+    return [json.loads((work / f"{job}_rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def plain_number(x):
+    """A numpy scalar as the Python number JSON writes."""
+    return x.item()
+
+
+def record_child_shapes(tag: str, shapes: list) -> None:
+    """A child's launches by shape onto the main paths' (and, at shapes
+    no fixed case holds, the path-shape kernel phase's list)."""
+    for key, count in shapes:
+        key = (key[0], key[1], key[2], tuple(tuple(hw) for hw in key[3]),
+               *key[4:])
+        PATH_SHAPES[key] = PATH_SHAPES.get(key, 0) + count
+        NEW_SHAPES.setdefault(key, set()).add(tag)
+
+
+def parallel_run(seed: int, tmp: Path, card: str) -> dict:
+    """The port over several processes on the one card:
+      submit: `python -m trackformer_tpu_torch.cli.submit` as torchrun
+         starts it, one rank, the process group over NCCL (and one
+         all-reduce through it): the exact flagship (`deformable tracking
+         multi_frame`, bf16, B = 2) 2 debug steps and a validation on the
+         train CLI's synthetic JPEG sequences;
+      dp / tp: two ranks sharing the card over gloo: the exact flagship in
+         float32 (full width and depth, remat, dropout 0, the draws
+         pinned) 2 steps data-parallel (2 frame pairs a rank, 800x1344) and
+         1 with `tpu.model_parallel: 2` (the 4 pairs on both ranks, 4 MSDA
+         heads a rank); the first step's loss and grad_norm equal on both
+         ranks and within `REF_LOSS_RTOL` of this process's one step on
+         the 4 pairs; the last step's seconds, its all-reduces' share
+         (each synchronised around: the share of a step that waits for
+         them; the TP step is the first, its kernels' first calls in it),
+         peak memory;
+      tp_fast_eval: on the same two ranks, the fast flagship's eval
+         forward (bf16, B = 2) split over them, its windowed layers
+         gathering their weights for kernel #8 (`FAST_PER_FRAME`'s
+         launches: 6 calls of its five stage kernels), against the
+         unsplit forward: boxes within `FAST_SPLIT_TOL`;
+      track: the tracking CLI over the two ranks (4 sequences of 1080x1920
+         PNGs, 2 a rank, the exact model at B = 1): the gathered summary
+         equals a one-process run's.
+    Every rank's launches by shape join the main paths'; the 4-head
+    shapes are held in `kernel_phase_path_shapes`. -> launch counts by
+    run."""
+    import contextlib
+    import io
+
+    from trackformer_tpu_torch.engine import (TrainState, make_optimizer,
+                                              make_train_step)
+    from trackformer_tpu_torch.tools import generate_coco_from_mot
+    from trackformer_tpu_torch.utils.config import FlagshipConfig
+
+    work = tmp / "work"
+    work.mkdir()
+    write_mot_sequences(tmp / "train", TRAIN_CLI_SEQS, PARALLEL_TRAIN_FRAMES,
+                        seed=seed + 5, ext="jpg")
+    root = tmp / "train" / "MOT17"
+    with contextlib.redirect_stdout(io.StringIO()):
+        generate_coco_from_mot.main(["mot17", "--data-root", str(root)])
+    (work / "submit_argv.json").write_text(json.dumps(
+        ["with", "deformable", "tracking", "multi_frame", "dataset=mot",
+         f"mot_path_train={root}", f"mot_path_val={root}",
+         "train_split=mot17_train_coco", "val_split=mot17_train_coco",
+         "tpu.eval_subset=2", "tracking_eval=false", "epochs=1",
+         "debug=true", f"batch_size={TRAIN_BATCH}",
+         f"output_dir={tmp / 'submit_out'}"]))
+    write_mot_sequences(tmp / "track", PARALLEL_NAMES, PARALLEL_FRAMES,
+                        seed=seed + 6)
+    exact_cfg = FlagshipConfig().replace(dataset="mot_crowdhuman")
+    model, _, ckpt = cli_checkpoint(exact_cfg, ["deformable", "tracking",
+                                                "multi_frame"], seed,
+                                    "parallel_track", tmp)
+    del model
+    track_args = track_argv(PARALLEL_NAMES, tmp / "track", ckpt)
+    (work / "track_argv.json").write_text(json.dumps(track_args))
+    torch.cuda.empty_cache()
+    counts = {}
+
+    t0 = time.perf_counter()
+    (sub,) = spawn_ranks("submit", 1, work, seed)
+    check(sub["backend"] == "nccl" and sub["world"] == 1
+          and sub["all_reduce"] == 1.0,
+          f"parallel submit: backend {sub['backend']}, world {sub['world']}")
+    check(sub["steps"] == 2, f"parallel submit: {sub['steps']} steps")
+    for line in sub["lines"]:
+        print(f"[parallel_submit] cli: {line}", flush=True)
+    record_child_shapes("parallel_submit", sub["shapes"])
+    counts["submit"] = sub["counts"]
+    phase("parallel", run="submit", card=json.dumps(card), ranks=1,
+          backend=sub["backend"], seconds=f"{sub['seconds']:.2f}",
+          wall_s=f"{time.perf_counter() - t0:.2f}", steps=sub["steps"],
+          peak_gib=f"{sub['peak_gib']:.3f}", launches=nonzero(sub["counts"]))
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("pair", 2, work, seed)
+    pair_s = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks),
+          f"parallel pair: backends {[r['backend'] for r in ranks]}")
+
+    # one process's step on the whole batch, from the same weights
+    cfg = parallel_config()
+    pack, forced = parallel_pack(cfg, seed)
+    model, crit, track = parallel_model(cfg, seed)
+    optimizer = make_optimizer(cfg, model)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, crit, optimizer, track, tracking=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, ref = step(state, pack, None, forced=forced)
+    ref_loss, ref_norm = float(ref["loss"]), float(ref["grad_norm"])
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, state, step, ref, pack
+    torch.cuda.empty_cache()
+    phase("parallel", run="one_process", card=json.dumps(card),
+          step="float32, 800x1344, 6+6 layers, remat, B = 4",
+          loss=f"{ref_loss:.6f}", grad_norm=f"{ref_norm:.6f}",
+          first_step_s=f"{one_s:.3f}", peak_gib=f"{one_peak:.3f}")
+    for mode in ("dp", "tp"):
+        runs = [r[mode] for r in ranks]
+        check(runs[0]["loss"] == runs[1]["loss"]
+              and runs[0]["grad_norm"] == runs[1]["grad_norm"],
+              f"parallel {mode}: the ranks' loss / grad_norm differ: "
+              f"{[(r['loss'], r['grad_norm']) for r in runs]}")
+        ok = all(abs(runs[0][k] - want) <= REF_LOSS_RTOL * max(1.0, abs(want))
+                 for k, want in (("loss", ref_loss), ("grad_norm", ref_norm)))
+        for rank, r in enumerate(runs):
+            record_child_shapes(f"parallel_{mode}", r["shapes"])
+            phase("parallel", run=mode, rank=rank, card=json.dumps(card),
+                  ranks=2, backend="gloo", loss=f"{r['loss']:.6f}",
+                  grad_norm=f"{r['grad_norm']:.6f}",
+                  loss_rel_to_one=f"{abs(r['loss'] - ref_loss) / max(1.0, abs(ref_loss)):.2e}",
+                  grad_norm_rel_to_one=f"{abs(r['grad_norm'] - ref_norm) / max(1.0, abs(ref_norm)):.2e}",
+                  tol=f"{REF_LOSS_RTOL:g}*max(1,|one|)",
+                  steps=r["steps"], timed_step_s=f"{r['step_s']:.3f}",
+                  allreduce_s=f"{r['allreduce_s']:.3f}",
+                  allreduce_share=f"{r['allreduce_s'] / r['step_s']:.3f}",
+                  peak_gib=f"{r['peak_gib']:.3f}",
+                  split_tensors=r["split_tensors"],
+                  launches=nonzero(r["counts"]), ok=ok)
+        check(ok, f"parallel {mode}: the step differs from one process's")
+        launched = runs[0]["counts"]
+        check(all(launched[k] > 0 for k in ("msda_patch", "ms_deform_attn",
+                                             "msda_bwd")),
+              f"parallel {mode}: launches {nonzero(launched)}")
+        counts[mode] = launched
+    for rank, r in enumerate(ranks):
+        fast = r["tp_fast_eval"]
+        record_child_shapes("parallel_tp_fast_eval", fast["shapes"])
+        diff = fast["max_abs_diff"]
+        ok = (fast["finite"] and diff["pred_boxes"] <= FAST_SPLIT_TOL
+              and all(fast["counts"][k] == n
+                      for k, n in FAST_PER_FRAME.items()))
+        phase("parallel", run="tp_fast_eval", rank=rank,
+              card=json.dumps(card), ranks=2,
+              step="fast flagship eval forward, bf16, 800x1344, B = 2",
+              boxes_max_abs_diff_to_unsplit=f"{diff['pred_boxes']:.3e}",
+              logits_max_abs_diff_to_unsplit=f"{diff['pred_logits']:.3e}",
+              tol=f"boxes {FAST_SPLIT_TOL:g}",
+              launches=nonzero(fast["counts"]), ok=ok)
+        check(ok, f"parallel tp_fast_eval rank {rank}: {fast}")
+    counts["tp_fast_eval"] = ranks[0]["tp_fast_eval"]["counts"]
+    heads = {tuple(k[0:1]) + (k[5],) for k, _ in ranks[0]["tp"]["shapes"]
+             if len(k) > 5}
+    check({("msda_patch", 4), ("ms_deform_attn", 4), ("msda_bwd", 4)}
+          <= heads, f"parallel tp: the MSDA launches at split heads {heads}")
+
+    reset_launch_counts()
+    one, _ = cli_main("parallel_track_one", track_args)
+    for rank, r in enumerate(ranks):
+        got = r["track"]
+        record_child_shapes("parallel_track", got["shapes"])
+        check(json.dumps(got["summary"], sort_keys=True)
+              == json.dumps(one, sort_keys=True, default=plain_number),
+              f"parallel track: rank {rank}'s summary differs from one "
+              f"process's: {got['summary']} vs {one}")
+        phase("parallel", run="track", rank=rank, card=json.dumps(card),
+              ranks=2, sequences=len(PARALLEL_NAMES),
+              frames=PARALLEL_FRAMES, seconds=f"{got['seconds']:.2f}",
+              mota=f"{one['OVERALL']['mota']:.4f}",
+              idf1=f"{one['OVERALL']['idf1']:.4f}",
+              equals_one_process=True, launches=nonzero(got["counts"]))
+        check(got["counts"]["msda_patch"] > 0
+              and got["counts"]["ms_deform_attn"] > 0,
+              f"parallel track: launches {nonzero(got['counts'])}")
+    counts["track"] = ranks[0]["track"]["counts"]
+    phase("parallel", pair_wall_s=f"{pair_s:.2f}")
+    return counts
+
+
 PHASES = ("msda", "window", "msda_bwd", "dense_v2", "dense_v4", "dense_v3",
           "gather_rows", "patch_v6", "exact", "fast", "train",
           "train_reference", "train_fast", "checkpoint", "evaluate",
           "track_cli", "train_cli", "variants", "agreement", "masks",
-          "family", "panoptic", "train_extras")
+          "family", "panoptic", "train_extras", "parallel")
 # frames of the exact tracker's runs on the other routes
 ROUTE_FRAMES = 3
 
@@ -6068,6 +6552,10 @@ def main() -> int:
                     help="an earlier csrc/msda_gather_rows_fwd.cu (a copy "
                          "outside the package, beside the msda_common.cuh "
                          "it was built with) to time beside the gather")
+    # one rank of the `parallel` phase's jobs (started by the phase)
+    ap.add_argument("--parallel-worker", default=None,
+                    choices=("submit", "pair"), help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = [x for x in args.phases.split(",") if x]
     unknown = sorted(set(phases) - set(PHASES))
@@ -6082,6 +6570,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    if args.parallel_worker:
+        return parallel_worker(args.parallel_worker, Path(args.work),
+                               args.seed)
     from trackformer_tpu_torch import native
     from trackformer_tpu_torch.ops import msda
     from trackformer_tpu_torch.ops.cuda_build import NVCC_FLAGS, build_all
@@ -6278,6 +6769,10 @@ def main() -> int:
         if "train_extras" in phases:
             train_extras_run(args.seed, smi)
         lap('train_extras')
+        if "parallel" in phases:
+            with tempfile.TemporaryDirectory() as tmp:
+                parallel_run(args.seed, Path(tmp), smi)
+        lap('parallel')
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -6448,7 +6943,8 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     for key, result in sorted(knew.items(), key=lambda kv: str(kv[0])):
-        wrapper, n, lq, levels, d = key
+        wrapper, n, lq, levels, d = key[:5]
+        heads = f", {key[5]} heads" if len(key) > 5 else ""
         bwd = wrapper == "msda_bwd"
         encoder = lq == sum(h * w for h, w in levels)
         replaces = (patch_py + (":367" if bwd else ":108") if encoder
@@ -6458,7 +6954,7 @@ def main() -> int:
             f"({', '.join(sorted(NEW_SHAPES[key]))}: "
             f"{'encoder' if encoder else 'decoder'}, {len(levels)} levels "
             f"{levels[0][0]}x{levels[0][1]}.., {lq} queries, B = {n}, "
-            f"D = {d})",
+            f"D = {d}{heads})",
             bwd_src if bwd else msda_src, replaces, result, key))
 
     if phases != list(PHASES):

@@ -116,10 +116,12 @@ def test_detr_matches_jax(model):
     cfg, tmodel, post = port_model(named, over, params)
     assert post is postprocess_softmax
     jb, tb = make_batch(3)
+    # jitted: one program, which the persistent compilation cache keeps
+    japply = jax.jit(jmodel.apply)
     for with_tq in (False, True):
         jt, tt = (make_track_queries(TINY["hidden_dim"]) if with_tq
                   else (None, None))
-        jout, _, _, jmem, jhs = jmodel.apply(params, jb, jt)
+        jout, _, _, jmem, jhs = japply(params, jb, jt)
         with torch.no_grad():
             tout, _, feats, tmem, ths = tmodel(tb, tt)
         q = TINY["num_queries"] + (4 if with_tq else 0)

@@ -5,7 +5,8 @@ held against the JAX package's on the same inputs, on the CPU:
   * `CocoEvaluator`: the 12 box statistics within 1e-12 on the fixtures
     of tests/test_coco_eval.py and on 50 seeded random images with crowd
     and ignored ground truth in every area range; `segm` on seeded
-    masks, and `keypoints` raising `NotImplementedError`;
+    masks (keypoints: `test_torch_tools.py`), an unknown iou type
+    refused;
   * `summarize` of `MOTAccumulator`s within 1e-12 on the cases of
     tests/test_mot_metrics.py and on seeded random sequences with
     switches, false positives and misses; `get_mot_accum` and
@@ -177,11 +178,13 @@ def segm_case(seed=0, n_images=12, hw=(40, 60)):
 
 
 def test_coco_evaluator_refuses_masks_and_keypoints():
-    """`keypoints` is still refused; `segm` (mask IoU, crowd ground truth,
-    the masks' areas in the area ranges) gives the JAX evaluator's 12
-    statistics of both iou types and its result list."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        coco_eval.CocoEvaluator(FakeGT({}), ("bbox", "keypoints"))
+    """An unknown iou type is refused, `keypoints` taken (its statistics
+    against JAX: `test_torch_tools.py`); `segm` (mask IoU, crowd ground
+    truth, the masks' areas in the area ranges) gives the JAX evaluator's
+    12 statistics of both iou types and its result list."""
+    with pytest.raises(ValueError, match="Unknown iou type"):
+        coco_eval.CocoEvaluator(FakeGT({}), ("bbox", "densepose"))
+    coco_eval.CocoEvaluator(FakeGT({}), ("bbox", "keypoints"))
     gts, preds = segm_case()
     ours = coco_eval.CocoEvaluator(FakeGT(gts), ("bbox", "segm"))
     theirs = jcoco.CocoEvaluator(FakeGT(gts), ("bbox", "segm"))

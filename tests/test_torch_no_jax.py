@@ -21,7 +21,10 @@ step, the dense decoder, merged frame features, the exact cached memory,
 agreement tools and a `fast_w16` probe at the `small` scale, vanilla
 DETR's attention maps through the tracking CLI, COCO panoptic's
 `eval_only` with PQ, the tracker's soft reset and a three-frame step
-through the previous frames with remat go through on the CPU, in a subprocess in which
+through the previous frames with remat, an original `.pth` through the
+port's loader and its CLI, and the offline tools (the CrowdHuman
+converter, the LaTeX table, the grid search, the video, the log parsing)
+go through on the CPU, in a subprocess in which
 importing jax, jaxlib or flax raises. The port keeps its own copies of
 what it needs from the JAX side of the repository: the same run records
 every file opened under `trackformer_tpu/` or `tools/`, and there must be
@@ -378,6 +381,51 @@ assert agree["steps_trained"] == 2 and "exact_map" in agree
 tracked = tracking_agreement.main(["2", "small", "--device", "cpu", "--out",
                                    out_dir + "/agree.json"])
 assert "fast_idf1" in tracked
+
+# the last modules: an original checkpoint through the .pth loader, and
+# each offline tool on small data
+from trackformer_tpu_torch.tools import (convert_weights,
+                                         generate_coco_from_crowdhuman,
+                                         make_video, parse_mot_results_to_tex,
+                                         track_param_search)
+from trackformer_tpu_torch.utils import plot_utils
+from trackformer_tpu_torch.parallel import dist as pdist, tp
+cfg = FlagshipConfig().replace(enc_layers=1, **tiny)
+source = build_model(cfg, "cpu", torch.Generator().manual_seed(3))[0]
+torch.save({"model": {"module." + k: v for k, v in
+                      source.state_dict().items()}, "epoch": 1},
+           out_dir + "/original.pth")
+convert_weights.main([out_dir + "/original.pth", out_dir + "/original.npz",
+                      "--config", out_dir + "/cli/config.yaml"])
+target = build_model(cfg, "cpu")[0]
+report = convert_weights.load_pth_state(
+    target, convert_weights.read_pth(out_dir + "/original.pth"))
+assert report.empty and all(torch.equal(target.state_dict()[k], v)
+                            for k, v in source.state_dict().items())
+(Path(out_dir) / "ch").mkdir()
+(Path(out_dir) / "ch/annotation_val.odgt").write_text(
+    '{"ID": "a", "gtboxes": [{"tag": "person", "fbox": [1, 2, 3, 4]}]}\n')
+generate_coco_from_crowdhuman.main(["--data-root", out_dir + "/ch",
+                                    "--splits", "val"])
+rows = parse_mot_results_to_tex.main([out_dir + "/cli_out", "--dataset",
+                                      "MOT17-02-FRCNN", "--data-root",
+                                      str(data)])
+assert len(rows) == 3 and "cli_out" in rows[2]
+best = track_param_search.search(
+    ["with"], lambda a: {"OVERALL": {"mota": len(a[-3]), "idf1": 0.5}})
+assert len(best["all"]) == 9
+frames = Path(out_dir) / "frames"
+frames.mkdir()
+for i in range(2):
+    Image.fromarray(np.full((8, 8, 3), 90 * i, np.uint8)).save(
+        frames / f"{i:06d}.jpg")
+assert os.path.exists(make_video.main([str(frames), out_dir + "/v.mp4"]))
+(Path(out_dir) / "logs").mkdir()
+(Path(out_dir) / "logs/log.txt").write_text(
+    '{"train_loss": 2.0}\n{"train_loss": 1.5, "test_loss": 1.7}\n')
+assert plot_utils.log_series(plot_utils.read_logs(out_dir + "/logs")[0],
+                             "loss", 0.5)["train"].shape == (2,)
+assert pdist.launch_env({}) is None and tp.rule_for("a.linear1.weight")
 assert not any(k.split(".")[0] in ("jax", "jaxlib", "flax")
                for k in sys.modules)
 import shutil

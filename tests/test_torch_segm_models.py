@@ -11,6 +11,7 @@ probabilities at the padded size.
 Tolerance: float32 on both sides, 1e-4 absolute and relative
 (`test_torch_model.py`).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,12 +83,14 @@ def test_pred_masks_match_jax(model):
     jb, tb = make_frame(5)
     jt, tt = track_queries(TINY["hidden_dim"])
     jprev = tprev = None
+    # jitted: one program compiles faster than its ops eagerly
+    japply = jax.jit(jmodel.apply)
     if cfg.multi_frame_attention:
         jb0, tb0 = make_frame(4)
-        jprev = jmodel.apply(params, jb0)[2]
+        jprev = japply(params, jb0)[2]
         with torch.no_grad():
             tprev = tmodel(tb0)[2]
-    jout = jmodel.apply(params, jb, jt, jprev)[0]
+    jout = japply(params, jb, jt, jprev)[0]
     with torch.no_grad():
         tout = tmodel(tb, tt, tprev)[0]
     assert tout["pred_masks"].shape == (1, K + TINY["num_queries"], 18, 26)

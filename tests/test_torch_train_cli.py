@@ -153,12 +153,14 @@ def test_tracking_eval_matches_the_jax_cli(both_evals):
 
 
 def test_unported_options_raise(data, capsys):
-    """Several model-parallel processes (item 8) raise; three-frame
-    training, backprop through the previous frames and the panoptic data
-    run (`test_torch_train_extras.py`, `test_torch_panoptic.py`), and
-    `tpu.remat` is applied without a word."""
+    """`tpu.model_parallel` that does not divide the processes raises
+    (one process cannot split over 2: `test_torch_parallel.py` runs 2);
+    three-frame training, backprop through the previous frames and the
+    panoptic data run (`test_torch_train_extras.py`,
+    `test_torch_panoptic.py`), and `tpu.remat` is applied without a
+    word."""
     base = ["with", *TINY, *data[0], "eval_only=true", "tracking_eval=false"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="does not divide the 1 processes"):
         main(base + ["tpu.model_parallel=2"], device="cpu")
     if not torch.cuda.is_available():
         # the card is the default device; the CPU only when asked for

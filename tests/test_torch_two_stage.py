@@ -109,7 +109,9 @@ def forward_both(named, over, params_edit=None, batch=None, seed=0):
     tmodel = port_model(port_config(named, over), params)
     jb0, tb0 = make_batch(4) if batch is None else batch
     jt, tt = make_track_queries(TINY["hidden_dim"])
-    jout = jmodel.apply(params, jb0, jt, None, deterministic=True)[0]
+    # jitted: one program compiles faster than its ops eagerly
+    jout = jax.jit(lambda p, b, t: jmodel.apply(
+        p, b, t, None, deterministic=True))(params, jb0, jt)[0]
     with torch.no_grad():
         tout = tmodel(tb0, tt)[0]
     return jout, tout, tmodel

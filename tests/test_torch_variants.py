@@ -154,8 +154,9 @@ def forward_matches_jax(variant):
     params = jax_params(jmodel)
     tmodel = port_model(port_config(named, over), params)
 
+    # jitted: one program a variant compiles faster than its ops eagerly
+    @jax.jit
     def japply(p, b, t, pf):
-        # eager: the ops' compiled kernels are shared across the variants
         return jmodel.apply(p, b, t, pf, deterministic=True)
     jb0, tb0 = make_batch(4)
     jb, tb = make_batch(3)

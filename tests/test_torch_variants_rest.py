@@ -80,8 +80,10 @@ def run_both(named, over, seed=0):
     params = jax_params(jmodel, seed)
     tmodel = port_model(port_config(named, over), params)
 
+    # jitted: one program a variant, which the persistent compilation
+    # cache keeps; eager ops are compiled again in every process
+    @jax.jit
     def japply(p, b, t, pf):
-        # eager: the ops' compiled kernels are shared across the variants
         return jmodel.apply(p, b, t, pf, deterministic=True)
     return japply, params, tmodel
 

@@ -18,8 +18,10 @@ they are written. With `generate_attention_maps` (vanilla DETR only, as in
 the JAX package) the `Tracker` runs the model as an `AttentionMapDETR` and
 each result entry carries its track's attention map, which `write_images`
 overlays on the frames (the lockstep `BatchedTracker` keeps none, as in
-the JAX package). Several processes raise `NotImplementedError` naming
-their ROADMAP item.
+the JAX package). Over several processes (launched as `cli/train.py`
+says, or re-entered from a training run's evaluation) the sequences are
+dealt round-robin over the data ranks, and the MOT accumulators gathered,
+in the dataset's order, so that every rank reports the global metrics.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
     from ..datasets.tracking import TrackDatasetFactory
     from ..models import build_model
     from ..models.detr import AttentionMapDETR
+    from ..parallel import dist as pdist
     from ..tracking import Tracker
     from ..utils import track_utils
     from ..utils.checkpoint import load_model_npz
@@ -49,10 +52,11 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
                                 namespace_to_dict, nested_namespace,
                                 parse_cli)
 
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("tracking over several processes is not "
-                                  "ported yet (ROADMAP Queue 1, item 8)")
+    if obj_detector_model is None:
+        # the process group of the launcher's environment (none: one
+        # process); a training run's evaluation has joined its own
+        device = pdist.init_process_group(device)
+    layout = pdist.layout()
     cfg = parse_cli(argv or sys.argv[1:], base="track.yaml")
     args = nested_namespace(cfg)
     np.random.seed(args.seed)
@@ -109,15 +113,33 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
         args.dataset_name, root_dir=args.data_root_dir,
         img_transform=SimpleNamespace(val_width=train_args.val_width,
                                       max_size=train_args.max_size))
+    # this data rank's sequences, by their index in the dataset
+    mine = [(i, seq) for i, seq in enumerate(dataset)
+            if i % layout.data_size == layout.data_rank]
+
+    def summarize(accums):
+        """The metrics of every rank's (index, accumulator, name), or None
+        without ground truth; gathered from several ranks, in the
+        dataset's order."""
+        merged = accums if layout.data_size == 1 else sorted(
+            (a for part in pdist.all_gather_objects(accums,
+                                                    layout.data_group)
+             for a in part), key=lambda a: a[0])
+        if not merged:
+            return None
+        print("EVAL:")
+        return track_utils.evaluate_mot_accums([a[1] for a in merged],
+                                               [a[2] for a in merged])
 
     # batched multi-sequence throughput mode (tracking/batched.py)
     batch_seqs = int(tpu_cfg.get("batch_sequences", 1) or 1)
     if batch_seqs > 1 and args.load_results_dir is None:
         from ..tracking.batched import BatchedTracker, group_by_shape
         bt = BatchedTracker(*tracker_args)
-        mot_accums, seq_names = [], []
+        accums = []
+        index_of = {id(seq): i for i, seq in mine}
         time_total, num_frames = 0.0, 0
-        for group in group_by_shape(list(dataset), batch_seqs):
+        for group in group_by_shape([seq for _, seq in mine], batch_seqs):
             t0 = time.time()
             group_results = bt.run(
                 group, (args.frame_range.start, args.frame_range.end))
@@ -135,15 +157,12 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
                 if args.output_dir is not None:
                     seq.write_results(results, args.output_dir)
                 if not seq.no_gt:
-                    mot_accums.append(track_utils.get_mot_accum(results,
-                                                                seq))
-                    seq_names.append(str(seq))
+                    accums.append((index_of[id(seq)],
+                                   track_utils.get_mot_accum(results, seq),
+                                   str(seq)))
         print(f"RUNTIME ALL SEQS: {time_total:.2f} s for {num_frames} "
               f"frames ({num_frames / max(time_total, 1e-9):.2f} Hz)")
-        if mot_accums:
-            print("EVAL:")
-            return track_utils.evaluate_mot_accums(mot_accums, seq_names)
-        return None
+        return summarize(accums)
 
     if args.generate_attention_maps:
         attn_model = AttentionMapDETR(model)
@@ -152,8 +171,8 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
     else:
         tracker = Tracker(*tracker_args)
     time_total, num_frames = 0.0, 0
-    mot_accums, seq_names = [], []
-    for seq in dataset:
+    accums = []
+    for index, seq in mine:
         tracker.reset()
         n = len(seq)
         start = int(n * args.frame_range.start)
@@ -181,8 +200,8 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
             seq.write_results(results, args.output_dir)
 
         if not seq.no_gt:
-            mot_accums.append(track_utils.get_mot_accum(results, seq))
-            seq_names.append(str(seq))
+            accums.append((index, track_utils.get_mot_accum(results, seq),
+                           str(seq)))
 
         if args.write_images and args.output_dir:
             track_utils.plot_sequence(
@@ -193,10 +212,7 @@ def main(argv=None, obj_detector_model=None, device="cuda"):
         print(f"RUNTIME ALL SEQS (w/o EVAL or IMG WRITE): "
               f"{time_total:.2f} s for {num_frames} frames "
               f"({num_frames / max(time_total, 1e-9):.2f} Hz)")
-    if mot_accums:
-        print("EVAL:")
-        return track_utils.evaluate_mot_accums(mot_accums, seq_names)
-    return None
+    return summarize(accums)
 
 
 if __name__ == "__main__":

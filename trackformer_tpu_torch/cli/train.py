@@ -23,8 +23,20 @@ The model trains on the card unless the caller of `main` passes
 (on in train.yaml) recomputes the exact encoder's layers in the backward.
 On `dataset=coco_panoptic` with masks the evaluation adds PQ, SQ and RQ
 (`PQ_all`, `SQ_all`, `RQ_all`), its PNGs under `<output_dir>/panoptic_eval`.
-Several processes or `tpu.model_parallel` > 1 (item 8) raise
-`NotImplementedError` naming their ROADMAP Queue 1 item.
+
+Over several processes (one per rank, started by `torchrun` or
+`cli/submit.py`; `parallel/dist.py` joins the group from the environment)
+`batch_size` is per process, as in the JAX package with one device per
+process: each data rank loads its share of the epoch's order (`Loader`'s
+`process_index` / `process_count`), seeds numpy with `seed` + its data
+rank, and the train step averages the gradients over the data ranks. With
+`tpu.model_parallel: N` the ranks form data x model groups (rank r is data
+rank r // N) and the attention and FFN tensors are split over each model
+group before the optimizer is built (`parallel/tp.py`), so AdamW's moments
+are per shard. Only rank 0 writes `config.yaml`, the checkpoints and the
+visualizer's files; checkpoints keep the layout of one process (gathered
+before saving, split after restoring), so a run resumes at another
+`tpu.model_parallel`.
 """
 from __future__ import annotations
 
@@ -49,10 +61,13 @@ class Loader:
     thread (0: in the caller's thread). The samples are drawn in order in
     one thread, so that the datasets' draws from the global numpy RNG come
     in the order of the samples. An error in the thread is raised in the
-    consumer."""
+    consumer. Over several processes each takes every `process_count`-th
+    sample of the order from its `process_index` on, as the JAX `Loader`
+    does."""
 
     def __init__(self, dataset, batch_size: int, collate, shuffle: bool,
-                 weights=None, seed: int = 0, drop_last: bool = True,
+                 weights=None, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1, drop_last: bool = True,
                  prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -61,11 +76,12 @@ class Loader:
         self.weights = weights
         self.seed = seed
         self.epoch = 0
+        self.pi, self.pc = process_index, process_count
         self.drop_last = drop_last
         self.prefetch = prefetch
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.dataset) // self.pc
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
@@ -79,6 +95,7 @@ class Loader:
             order = rng.permutation(n)
         else:
             order = np.arange(n)
+        order = order[self.pi::self.pc]
         self.epoch += 1
 
         def gen():
@@ -165,42 +182,43 @@ def main(argv=None, device="cuda"):
     from ..engine.loop import evaluate, train_one_epoch
     from ..models import build_model
     from ..models.factory import postprocessors as model_postprocessors
+    from ..parallel import dist as pdist
+    from ..parallel import tp as tensor_parallel
     from ..utils.checkpoint import CheckpointManager, load_and_adapt
     from ..utils.config import (FlagshipConfig, dump_config,
                                 namespace_to_dict, nested_namespace,
                                 parse_cli)
     from ..vis import build_visualizers
 
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError("training over several processes (DDP) is "
-                                  "not ported yet (ROADMAP Queue 1, item 8)")
     cfg = parse_cli(argv or sys.argv[1:], base="train.yaml")
     args = nested_namespace(cfg)
     tpu_cfg = namespace_to_dict(getattr(args, "tpu", None)) or {}
-    if int(tpu_cfg.get("model_parallel", 1) or 1) > 1:
-        raise NotImplementedError("tpu.model_parallel > 1 is not ported yet "
-                                  "(ROADMAP Queue 1, item 8)")
     if getattr(args, "freeze_detr", False):
         print("freeze_detr: no effect; the JAX package declares it and "
               "freezes nothing either")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("cli.train: no CUDA device; pass device='cpu' to "
                            "train on the CPU")
+    # the process group of the launcher's environment (none: one process)
+    device = pdist.init_process_group(device)
+    layout = pdist.make_layout(int(tpu_cfg.get("model_parallel", 1) or 1))
+    main_process = layout.rank == 0
 
-    if args.output_dir:
+    if args.output_dir and main_process:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
         dump_config(cfg, Path(args.output_dir) / "config.yaml")
 
-    np.random.seed(args.seed)
+    np.random.seed(args.seed + layout.data_rank)
     model_cfg = FlagshipConfig.from_config(cfg)
+    # every rank draws the same weights; the data ranks then draw their
+    # own dropout masks and track-query augmentations
     generator = torch.Generator(device=device).manual_seed(args.seed)
     model, criterion_cfg, postprocess, tracking_cfg = build_model(
         model_cfg, device, generator=generator, train=True)
+    if layout.data_rank:
+        generator.manual_seed(args.seed + layout.data_rank)
     postprocessors = model_postprocessors(model_cfg)
-    vis = build_visualizers(args)
+    vis = build_visualizers(args) if main_process else None
 
     # datasets + loaders
     dataset_train = build_dataset("train", args) \
@@ -223,7 +241,9 @@ def main(argv=None, device="cuda"):
     if eval_subset and len(dataset_val) > eval_subset:
         print(f"EVAL SUBSET: {eval_subset}/{len(dataset_val)} images")
         dataset_val = _EvalSubset(dataset_val, eval_subset)
-    loader_val = Loader(dataset_val, args.batch_size, collate, shuffle=False)
+    loader_val = Loader(dataset_val, args.batch_size, collate, shuffle=False,
+                        process_index=layout.data_rank,
+                        process_count=layout.data_size)
 
     n_params = sum(p.numel() for p in model.parameters())
     print(f"NUM TRAINABLE MODEL PARAMS: {n_params}")
@@ -241,12 +261,17 @@ def main(argv=None, device="cuda"):
         resumed = load_mask_head(model, args.load_mask_head_from_model)
         print(f"LOADED MASK HEAD: {args.load_mask_head_from_model}")
 
-    steps_per_epoch = (len(dataset_train) // max(args.batch_size, 1)
-                       if dataset_train else 1)
+    steps_per_epoch = (len(dataset_train) // layout.data_size
+                       // max(args.batch_size, 1) if dataset_train else 1)
+    # split before the optimizer is built: AdamW's moments are per shard
+    sharded = tensor_parallel.shard_model(model, layout)
     optimizer = make_optimizer(model_cfg, model,
                                lr_drop_steps=args.lr_drop * steps_per_epoch)
     state = TrainState.create(model, optimizer)
     if resumed is not None:
+        shard = tensor_parallel.Shard(layout.model_group, layout.model_rank,
+                                      layout.model_size)
+        resumed = tensor_parallel.split_state(resumed, sharded, shard)
         with torch.no_grad():  # the master weights at full precision
             for key, t in state.params.items():
                 t.copy_(resumed[key])
@@ -256,13 +281,19 @@ def main(argv=None, device="cuda"):
     if args.output_dir:
         ckpt = CheckpointManager(args.output_dir, args.save_model_interval)
         if args.resume_optim:
-            state, last_epoch = ckpt.restore(state, model)
+            # the checkpoint holds one process's full tensors
+            full = tensor_parallel.gather_state(state, sharded, layout)
+            full, last_epoch = ckpt.restore(full, model if not sharded
+                                            else None)
+            if sharded:
+                tensor_parallel.load_full_state(state, full, model, layout)
             if last_epoch:
                 start_epoch = last_epoch + 1
 
     train_step = make_train_step(model, criterion_cfg, optimizer,
                                  tracking_cfg, tracking=args.tracking,
-                                 prev_prev=args.track_prev_prev_frame)
+                                 prev_prev=args.track_prev_prev_frame,
+                                 layout=layout)
 
     def run_eval():
         return evaluate(model, criterion_cfg, postprocessors, loader_val,
@@ -278,7 +309,8 @@ def main(argv=None, device="cuda"):
     loader_train = Loader(
         dataset_train, args.batch_size, collate, shuffle=True,
         weights=getattr(dataset_train, "sample_weights", None),
-        seed=args.seed)
+        seed=args.seed, process_index=layout.data_rank,
+        process_count=layout.data_size)
 
     print("START TRAINING")
     start_time = time.time()
@@ -302,7 +334,9 @@ def main(argv=None, device="cuda"):
         if ckpt is not None:
             best_metrics = {k: v for k, v in val_stats.items()
                             if k in ("AP", "AP50", "MOTA", "IDF1")}
-            ckpt.save(state, epoch, best_metrics, config=model_cfg)
+            full = tensor_parallel.gather_state(state, sharded, layout)
+            if main_process:
+                ckpt.save(full, epoch, best_metrics, config=model_cfg)
         if args.debug and epoch >= start_epoch:
             break
 

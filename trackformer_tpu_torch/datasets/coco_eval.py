@@ -1,5 +1,5 @@
-"""COCO-style detection mAP evaluation without pycocotools: boxes and
-masks.
+"""COCO-style detection mAP evaluation without pycocotools: boxes, masks
+and keypoints.
 
 The port's own copy of the box and mask paths of `trackformer_tpu/datasets/
 coco_eval.py`: COCOeval's matching protocol per (image, category), greedy
@@ -8,17 +8,19 @@ crowd and ignore handling, 101-point interpolated precision-recall curves,
 the area-range and max-detection variants, and the 12 standard statistics.
 `segm` matches on mask IoU (RLE through `utils/rle.py`; a crowd ground
 truth divides by the detection's area, as pycocotools does) and takes the
-masks' areas for the area ranges. The merge of per-process predictions
+masks' areas for the area ranges. `keypoints` matches on the object
+keypoint similarity (`kpt_oks`, the 17 COCO sigmas), ignores ground truth
+without labelled keypoints and reports pycocotools' 10 keypoint statistics
+(20 detections, no "small" range). The merge of per-process predictions
 goes through `torch.distributed` when a process group is initialized.
-Keypoint evaluation raises `NotImplementedError` (ROADMAP Queue 1, item
-6).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch.distributed as dist
+
+from ..parallel.dist import all_gather_objects, world_size
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -28,14 +30,53 @@ AREA_RANGES = {
     "medium": (32.0 ** 2, 96.0 ** 2),
     "large": (96.0 ** 2, 1e10),
 }
+# pycocotools' COCOeval.setKpParams sigmas: the 17 COCO person keypoints
+KPT_SIGMAS = np.array([
+    .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
+    1.07, 1.07, .87, .87, .89, .89]) / 10.0
 
 
 def _check_iou_type(iou_type: str) -> None:
-    if iou_type == "keypoints":
-        raise NotImplementedError("keypoints evaluation is not ported yet "
-                                  "(ROADMAP Queue 1, item 8)")
-    if iou_type not in ("bbox", "segm"):
+    if iou_type not in ("bbox", "segm", "keypoints"):
         raise ValueError(f"Unknown iou type {iou_type}")
+
+
+def kpt_oks(det_kpts: np.ndarray, gt_anns, sigmas=None) -> np.ndarray:
+    """Object keypoint similarity (Nd, Ng), as pycocotools' computeOks:
+    det_kpts (Nd, K*3) flat [x, y, v]*, gt_anns COCO annotations with
+    `keypoints` and `area`. OKS is the mean over the ground truth's
+    labelled keypoints of exp(-d^2 / (2 area k^2)); a ground truth with
+    none labelled takes the distances to its box widened by its size on
+    each side."""
+    if sigmas is None:
+        sigmas = KPT_SIGMAS
+    nd, ng = len(det_kpts), len(gt_anns)
+    ious = np.zeros((nd, ng))
+    if nd == 0 or ng == 0:
+        return ious
+    vars_ = (np.asarray(sigmas) * 2.0) ** 2
+    for gj, ann in enumerate(gt_anns):
+        g = np.asarray(ann["keypoints"], np.float64).reshape(-1, 3)
+        xg, yg, vg = g[:, 0], g[:, 1], g[:, 2]
+        k1 = int((vg > 0).sum())
+        bx, by, bw, bh = ann["bbox"]
+        for di in range(nd):
+            d = np.asarray(det_kpts[di], np.float64).reshape(-1, 3)
+            xd, yd = d[:, 0], d[:, 1]
+            if k1 > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                z = np.zeros_like(xd)
+                dx = np.maximum(z, bx - bw - xd) + \
+                    np.maximum(z, xd - (bx + 2 * bw))
+                dy = np.maximum(z, by - bh - yd) + \
+                    np.maximum(z, yd - (by + 2 * bh))
+            e = (dx ** 2 + dy ** 2) / vars_ / (
+                ann.get("area", bw * bh) + np.spacing(1)) / 2.0
+            if k1 > 0:
+                e = e[vg > 0]
+            ious[di, gj] = np.sum(np.exp(-e)) / e.shape[0]
+    return ious
 
 
 def convert_to_xywh(boxes: np.ndarray) -> np.ndarray:
@@ -68,7 +109,7 @@ def box_iou_xywh(det: np.ndarray, gt: np.ndarray,
 
 class CocoEvaluator:
     """Accumulates per-image detections and computes COCO AP statistics
-    (`bbox` and `segm`)."""
+    (`bbox`, `segm` and `keypoints`)."""
 
     def __init__(self, gt_dataset, iou_types: Sequence[str] = ("bbox",)):
         """gt_dataset: CocoDetection-like with `.anns_by_image`."""
@@ -80,7 +121,7 @@ class CocoEvaluator:
 
     def update(self, predictions: Dict[int, dict]) -> None:
         """predictions: {image_id: {'boxes' xyxy, 'scores', 'labels'[,
-        'masks' (RLE dicts or (H, W) arrays)]}}."""
+        'masks' (RLE dicts or (H, W) arrays)][, 'keypoints' (N, K, 3)]}}."""
         self.predictions.update(predictions)
 
     def prepare(self, predictions: Dict[int, dict], iou_type: str):
@@ -88,6 +129,8 @@ class CocoEvaluator:
         _check_iou_type(iou_type)
         if iou_type == "segm":
             return self.prepare_for_coco_segmentation(predictions)
+        if iou_type == "keypoints":
+            return self.prepare_for_coco_keypoint(predictions)
         return self.prepare_for_coco_detection(predictions)
 
     def prepare_for_coco_detection(self, predictions: Dict[int, dict]):
@@ -123,18 +166,30 @@ class CocoEvaluator:
                             "segmentation": enc, "score": scores[k]})
         return out
 
+    def prepare_for_coco_keypoint(self, predictions: Dict[int, dict]):
+        """Keypoints as flat [x, y, v]* lists, with their labels and
+        scores."""
+        out = []
+        for image_id, pred in predictions.items():
+            if not len(pred.get("keypoints", ())):
+                continue
+            scores = np.asarray(pred["scores"]).tolist()
+            labels = np.asarray(pred["labels"]).tolist()
+            kpts = np.asarray(pred["keypoints"], np.float64)
+            kpts = kpts.reshape(len(kpts), -1).tolist()
+            out.extend({"image_id": image_id, "category_id": labels[k],
+                        "keypoints": kp, "score": scores[k]}
+                       for k, kp in enumerate(kpts))
+        return out
+
     def synchronize_between_processes(self) -> None:
         """Merge the per-process predictions over the process group. A
         failed merge raises: a multi-process eval must not report one
         process's AP."""
-        if not (dist.is_available() and dist.is_initialized()) \
-                or dist.get_world_size() <= 1:
+        if world_size() <= 1:
             return
-        shards: List[Optional[Dict[int, dict]]] = \
-            [None] * dist.get_world_size()
-        dist.all_gather_object(shards, self.predictions)
         merged: Dict[int, dict] = {}
-        for shard in shards:
+        for shard in all_gather_objects(self.predictions):
             merged.update(shard)
         self.predictions = merged
 
@@ -184,6 +239,14 @@ class CocoEvaluator:
             g_area = np.array([a.get("area", b[2] * b[3])
                                for a, b in zip(anns, g_boxes)], np.float64)
             g_ignore = g_crowd.astype(bool) | (g_area < lo) | (g_area > hi)
+            if iou_type == "keypoints":
+                # pycocotools: ground truth without labelled keypoints is
+                # ignored
+                nk = np.array([a.get("num_keypoints", int(
+                    (np.asarray(a.get("keypoints", ()), np.float64)
+                     .reshape(-1, 3)[:, 2] > 0).sum())) for a in anns],
+                    np.int64) if anns else np.zeros(0, np.int64)
+                g_ignore |= nk == 0
             order_g = np.argsort(g_ignore, kind="stable")
             anns = [anns[j] for j in order_g]
             g_boxes, g_crowd, g_ignore = (g_boxes[order_g], g_crowd[order_g],
@@ -209,6 +272,9 @@ class CocoEvaluator:
             if iou_type == "segm":
                 ious, d_area = self._mask_iou(pred, det_idx, anns, g_crowd,
                                               img_id)
+            elif iou_type == "keypoints":
+                kpts = np.asarray(pred["keypoints"], np.float64)
+                ious = kpt_oks(kpts.reshape(len(kpts), -1)[det_idx], anns)
             else:
                 ious = box_iou_xywh(d_xywh, g_boxes, g_crowd)
             t = len(IOU_THRS)
@@ -307,14 +373,31 @@ class CocoEvaluator:
                  recall=rec[:, :, None, None], recThrs=REC_THRS)
 
     def summarize(self) -> Dict[str, List[float]]:
-        """The 12 standard COCO statistics per iou type."""
+        """The 12 standard COCO statistics per iou type (10 for
+        `keypoints`: AP, AP50, AP75, APm, APl, AR, AR50, AR75, ARm, ARl at
+        20 detections, pycocotools' keypoint protocol)."""
         cat_ids = sorted({a["category_id"]
                           for anns in self.gt.anns_by_image.values()
                           for a in anns})
         names = ["AP", "AP50", "AP75", "APs", "APm", "APl",
                  "AR1", "AR10", "AR100", "ARs", "ARm", "ARl"]
+        kp_names = ["AP", "AP50", "AP75", "APm", "APl",
+                    "AR", "AR50", "AR75", "ARm", "ARl"]
         out = {}
         for iou_type in self.iou_types:
+            if iou_type == "keypoints":
+                ap, ar = self._ap_ar(cat_ids, "all", 20, iou_type)
+                stats = [float(np.nanmean(ap)), float(ap[0]), float(ap[5])]
+                ap_m, ar_m = self._ap_ar(cat_ids, "medium", 20, iou_type)
+                ap_l, ar_l = self._ap_ar(cat_ids, "large", 20, iou_type)
+                stats += [float(np.nanmean(ap_m)), float(np.nanmean(ap_l)),
+                          float(np.nanmean(ar)), float(ar[0]), float(ar[5]),
+                          float(np.nanmean(ar_m)), float(np.nanmean(ar_l))]
+                print(f"COCO eval ({iou_type}):")
+                for n, st in zip(kp_names, stats):
+                    print(f"  {n:6s} = {st:.3f}")
+                out[iou_type] = stats
+                continue
             ap, _ = self._ap_ar(cat_ids, "all", 100, iou_type)
             stats = [float(np.nanmean(ap)), float(ap[0]), float(ap[5])]
             for area in ("small", "medium", "large"):

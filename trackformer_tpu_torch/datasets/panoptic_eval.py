@@ -6,7 +6,9 @@ Counterpart of `trackformer_tpu/datasets/panoptic_eval.py`:
 truth segment of its category with an IoU over 0.5 (pixel counts of the
 two id maps), then averages over the categories PQ = SQ x RQ, SQ the mean
 IoU of the matches and RQ = TP / (TP + FP / 2 + FN / 2). A crowd ground
-truth segment left unmatched is no false negative.
+truth segment left unmatched is no false negative. Over several processes
+`synchronize_between_processes` gathers every rank's predictions with
+their PNGs, so that each rank summarizes all of them.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 from PIL import Image
 
 from ..models.panoptic import rgb2id
+from ..parallel.dist import all_gather_objects, world_size
 
 # a match needs an IoU over this
 MATCH_IOU = 0.5
@@ -45,7 +48,24 @@ class PanopticEvaluator:
             self.predictions.append(p)
 
     def synchronize_between_processes(self) -> None:
-        """One process holds every prediction (several are not ported)."""
+        """Merge every rank's predictions, writing the PNGs that this
+        rank's `output_dir` lacks (each rank may have its own). An image
+        that several ranks predicted (tensor-parallel ranks share their
+        data) counts once."""
+        if world_size() <= 1:
+            return
+        mine = [(p, (self.output_dir / p["file_name"]).read_bytes())
+                for p in self.predictions]
+        merged: Dict[int, Dict] = {}
+        for shard in all_gather_objects(mine):
+            for pred, png in shard:
+                if pred["image_id"] in merged:
+                    continue
+                path = self.output_dir / pred["file_name"]
+                if not path.exists():
+                    path.write_bytes(png)
+                merged[pred["image_id"]] = pred
+        self.predictions = list(merged.values())
 
     def summarize(self) -> Dict[str, float]:
         """-> {"PQ", "SQ", "RQ"}, each averaged over the categories that

@@ -42,7 +42,8 @@ def train_one_epoch(train_step: Callable, state, loader: Iterable[Dict],
     moves a pack of the loader onto the model's device. With `profile_dir`
     a `torch.profiler` trace of steps [2, 2 + profile_steps) is written
     there as a Chrome trace. The metrics of every printed step go to
-    `vis.log_iter`; `debug` ends the epoch after two steps."""
+    `vis.log_iter`; `debug` ends the epoch after two steps. Over several
+    processes the averages are those of every rank's steps."""
     logger = MetricLogger(print_freq)
     total = len(loader) if hasattr(loader, "__len__") else None
     profiler = None
@@ -82,6 +83,7 @@ def train_one_epoch(train_step: Callable, state, loader: Iterable[Dict],
             break
     if profiler is not None:  # the epoch was shorter than the trace window
         stop_profiler()
+    logger.synchronize_between_processes()
     return state, {k: m.global_avg for k, m in logger.meters.items()}
 
 

@@ -25,12 +25,21 @@ clip. In float32 master and model are the same tensors.
 One function serves detection and two- or three-frame tracking training;
 the latter runs the previous frames' forwards, the matches and the
 track-query augmentations inside the step.
+
+Over several processes (`layout`, `parallel/dist.py`) the step is one
+process's step on the data ranks' concatenated batch: `num_boxes` is the
+global count (summed over the data ranks, as the JAX step counts it over
+its sharded global batch), divided by the data ranks, whose gradients are
+then averaged in one bucketed all-reduce before the clip; the logged
+losses are averaged likewise. Under tensor parallelism the global norm
+sums the squares of the split tensors over the model group and counts the
+replicated ones once.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +48,8 @@ from ..models.attention import set_dropout_generator
 from ..models.backbone import FrozenBatchNorm2d
 from ..models.criterion import CriterionConfig, compute_losses
 from ..models.tracking import TrackingConfig, tracking_train_forward
+from ..parallel import dist as pdist
+from ..parallel import tp as tensor_parallel
 from ..utils.config import FlagshipConfig
 
 GROUPS = ("base", "backbone", "linear_proj", "track", "frozen")
@@ -150,18 +161,41 @@ class TrainState:
         return cls(params=params, mu=mu, nu=nu, step=0)
 
 
-def _global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(g.square().sum() for g in grads))
+def global_norm(grads: Dict[str, torch.Tensor],
+                sharded: frozenset = frozenset(),
+                layout: Optional[pdist.Layout] = None) -> torch.Tensor:
+    """The global norm of every gradient; `sharded` keys are this rank's
+    slices of tensors split over `layout`'s model group."""
+    if not sharded:
+        return torch.sqrt(sum(g.square().sum() for g in grads.values()))
+    split = sum(grads[k].square().sum() for k in sharded)
+    split = pdist.all_reduce(split, layout.model_group)
+    rest = sum(g.square().sum() for k, g in grads.items()
+               if k not in sharded)
+    return torch.sqrt(split + rest)
+
+
+def average_over_data_ranks(grads: Dict[str, torch.Tensor],
+                            layout: pdist.Layout) -> None:
+    """Average the gradients over the data ranks in place: one all-reduce
+    of one flat bucket."""
+    flat = torch.cat([g.reshape(-1) for g in grads.values()])
+    pdist.all_reduce(flat, layout.data_group)
+    flat /= layout.data_size
+    offset = 0
+    for g in grads.values():
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 @torch.no_grad()
 def apply_update(model_tensors: Dict[str, torch.Tensor], state: TrainState,
-                 grads: Dict[str, torch.Tensor], opt: Optimizer
-                 ) -> torch.Tensor:
+                 grads: Dict[str, torch.Tensor], opt: Optimizer,
+                 norm: torch.Tensor) -> torch.Tensor:
     """Clip `grads` (float32, every tensor of the tree) by their global
-    norm, take one AdamW update of the master weights group by group, and
-    copy them into the model. Returns the norm before the clip."""
-    norm = _global_norm(list(grads.values()))
+    norm `norm` (`global_norm`), take one AdamW update of the master
+    weights group by group, and copy them into the model. Returns the norm
+    before the clip."""
     # (g / norm) * max_norm where the norm exceeds max_norm, else g
     one = torch.ones_like(norm)
     trigger = norm < opt.clip_max_norm
@@ -194,7 +228,8 @@ def make_train_step(model: nn.Module, criterion_cfg: CriterionConfig,
                     tracking: bool = False,
                     timings: Optional[Callable[[str], None]] = None,
                     return_grads: bool = False,
-                    prev_prev: bool = False) -> Callable:
+                    prev_prev: bool = False,
+                    layout: Optional[pdist.Layout] = None) -> Callable:
     """Returns train_step(state, pack, generator, forced=None) ->
     (state, metrics). `pack` holds `batch` (FrameBatch) and `targets`
     (Targets) and, in tracking mode, `prev_batch` and `prev_targets`; with
@@ -207,8 +242,13 @@ def make_train_step(model: nn.Module, criterion_cfg: CriterionConfig,
     leading underscore are not for logging). The state is updated in place
     and returned.
     `timings(tag)`, if given, is called after each stage (forward_prev,
-    match_augment, forward, criterion, backward, optimizer)."""
+    match_augment, forward, criterion, backward, grad_allreduce over
+    several data ranks, optimizer). `layout` (default: one process) places
+    the step over several processes (module docstring); the model is
+    already split over its model group (`parallel.tp.shard_model`)."""
     weight_dict = criterion_cfg.weight_dict
+    layout = layout or pdist.Layout()
+    sharded = tensor_parallel.sharded_keys(model)
     tensors = train_tensors(model)
     names = list(tensors)
     mark = timings or (lambda tag: None)
@@ -239,7 +279,13 @@ def make_train_step(model: nn.Module, criterion_cfg: CriterionConfig,
                 out, targets, _, _, _ = apply_fn(pack["batch"],
                                                  pack["targets"], None)
             mark("forward")
-            num_boxes = targets.valid.sum().float().clamp(min=1.0)
+            num_boxes = targets.valid.sum().float()
+            if layout.data_size > 1:
+                num_boxes = pdist.all_reduce(
+                    num_boxes, layout.data_group).clamp(min=1.0) \
+                    / layout.data_size
+            else:
+                num_boxes = num_boxes.clamp(min=1.0)
             losses = compute_losses(out, targets, criterion_cfg, num_boxes)
             total = sum(losses[k] * w for k, w in weight_dict.items()
                         if k in losses)
@@ -254,10 +300,18 @@ def make_train_step(model: nn.Module, criterion_cfg: CriterionConfig,
         grads = {n: (torch.zeros(tensors[n].shape, device=total.device)
                      if g is None else g.float())
                  for n, g in zip(names, grads)}
-        norm = apply_update(tensors, state, grads, optimizer)
-        mark("optimizer")
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        if layout.data_size > 1:
+            average_over_data_ranks(grads, layout)
+            keys = list(metrics)
+            mean = pdist.all_reduce(torch.stack(
+                [metrics[k].float() for k in keys]), layout.data_group)
+            metrics = dict(zip(keys, mean / layout.data_size))
+            mark("grad_allreduce")
+        norm = apply_update(tensors, state, grads, optimizer,
+                            norm=global_norm(grads, sharded, layout))
+        mark("optimizer")
         metrics["grad_norm"] = norm
         if return_grads:
             metrics["_grads"] = grads

@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.linear import dense
+from ..parallel import tp as tensor_parallel
 
 
 class Dropout(nn.Module):
@@ -41,11 +42,21 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.generator: Optional[torch.Generator] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None, dim: int = -1
+                ) -> torch.Tensor:
+        """`tp`: the `Shard` of a tensor-parallel region that `x` is this
+        rank's slice of along `dim`; the mask is drawn at the full width
+        and sliced, as one process draws it."""
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, device=x.device,
+        shape = list(x.shape)
+        if tp is not None:
+            shape[dim] *= tp.size
+        keep = torch.rand(shape, device=x.device,
                           generator=self.generator) >= self.p
+        if tp is not None:
+            n = x.shape[dim]
+            keep = keep.narrow(dim, tp.rank * n, n)
         return x * keep.to(x.dtype) / (1.0 - self.p)
 
 
@@ -89,12 +100,28 @@ def remat(fn: Callable, module: nn.Module, *args):
     return checkpoint(run, *args, use_reentrant=False)
 
 
+def feed_forward(x: torch.Tensor, linear1: nn.Linear, linear2: nn.Linear,
+                 drop: Dropout, rounded: bool = False) -> torch.Tensor:
+    """linear2(drop(relu(linear1(x)))), tensor-parallel where `linear1` and
+    `linear2` are split (column, then row); with `rounded` each product
+    rounds as the port's `dense` does."""
+    tp = tensor_parallel.shard_of(linear1)
+    x = tensor_parallel.enter(x, linear1)
+    if rounded:
+        hidden = torch.relu(dense(x, linear1.weight, linear1.bias))
+    else:
+        hidden = torch.relu(linear1(x))
+    return tensor_parallel.row_linear(drop(hidden, tp), linear2,
+                                      rounded=rounded)
+
+
 class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.num_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.attn_drop = Dropout(dropout)
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
@@ -108,11 +135,14 @@ class MultiHeadAttention(nn.Module):
                 ) -> torch.Tensor:
         """query (B, Q, C), key/value (B, K, C); key_padding_mask (B, K)
         bool, True = exclude the key."""
-        b, lq, c = query.shape
+        b, lq, _ = query.shape
         lk = key.shape[1]
-        h, dh = self.num_heads, c // self.num_heads
+        # under tensor parallelism: this rank's heads
+        h, dh = self.num_heads, self.head_dim
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
+        query, key, value = (tensor_parallel.enter(x, self)
+                             for x in (query, key, value))
         q = dense(query, wq, bq).view(b, lq, h, dh).transpose(1, 2)
         k = dense(key, wk, bk).view(b, lk, h, dh).transpose(1, 2)
         v = dense(value, wv, bv).view(b, lk, h, dh).transpose(1, 2)
@@ -122,8 +152,11 @@ class MultiHeadAttention(nn.Module):
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(torch.float32).min)
         attn = logits.softmax(-1).to(v.dtype)
+        tp = tensor_parallel.shard_of(self)
         if self.keep_weights:
-            self.weights = attn.float().mean(1)
-        attn = self.attn_drop(attn)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
-        return dense(out, self.out_proj.weight, self.out_proj.bias)
+            self.weights = attn.float().mean(1) if tp is None else \
+                tensor_parallel.reduce(attn.float().sum(1), self) / (
+                    h * tp.size)
+        attn = self.attn_drop(attn, tp, dim=1)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, h * dh)
+        return tensor_parallel.row_linear(out, self.out_proj, rounded=True)

@@ -24,10 +24,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from ..ops.msda import ms_deform_attn
-from .attention import Dropout, MultiHeadAttention, remat
+from ..parallel import tp as tensor_parallel
+from .attention import Dropout, MultiHeadAttention, feed_forward, remat
 from .windowed_encoder import WindowedEncoder
 
 LN_EPS = 1e-6
@@ -55,6 +55,7 @@ class MSDeformAttnModule(nn.Module):
         super().__init__()
         self.d_model, self.n_levels = d_model, n_levels
         self.n_heads, self.n_points = n_heads, n_points
+        self.head_dim = d_model // n_heads
         self.sampling_offsets = nn.Linear(d_model,
                                           n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model,
@@ -71,8 +72,13 @@ class MSDeformAttnModule(nn.Module):
         b, lq, _ = query.shape
         s = src.shape[1]
         m, l, p = self.n_heads, self.n_levels, self.n_points
-        d = self.d_model // m
+        d = self.head_dim
 
+        # under tensor parallelism m is this rank's heads; every input of
+        # the head-local part enters the region
+        src, query, reference_points = (
+            tensor_parallel.enter(x, self)
+            for x in (src, query, reference_points))
         value = self.value_proj(src)
         if src_padding_mask is not None:
             value = value.masked_fill(src_padding_mask[..., None], 0.0)
@@ -93,7 +99,8 @@ class MSDeformAttnModule(nn.Module):
                    + offsets / p * reference_points[:, :, None, :, None, 2:]
                    * 0.5)
         out = ms_deform_attn(value, spatial_shapes, loc.float(), attn.float())
-        return self.output_proj(out.to(query.dtype))
+        return tensor_parallel.row_linear(out.to(query.dtype),
+                                          self.output_proj)
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -116,8 +123,8 @@ class DeformableEncoderLayer(nn.Module):
                               reference_points, src, spatial_shapes,
                               padding_mask)
         src = self.norm1(src + drop(src2))
-        ffn = self.linear2(drop(F.relu(self.linear1(src))))
-        return self.norm2(src + drop(ffn))
+        return self.norm2(src + drop(feed_forward(src, self.linear1,
+                                                  self.linear2, drop)))
 
 
 def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
@@ -202,8 +209,8 @@ class DeformableDecoderLayer(nn.Module):
             t2 = self.cross_attn(tgt + query_pos, reference_points, src,
                                  spatial_shapes, src_padding_mask)
         tgt = self.norm1(tgt + drop(t2))
-        ffn = self.linear2(drop(F.relu(self.linear1(tgt))))
-        return self.norm3(tgt + drop(ffn))
+        return self.norm3(tgt + drop(feed_forward(tgt, self.linear1,
+                                                  self.linear2, drop)))
 
 
 class DeformableDecoder(nn.Module):

@@ -16,9 +16,8 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
-from .attention import Dropout, MultiHeadAttention
+from .attention import Dropout, MultiHeadAttention, feed_forward
 
 LN_EPS = 1e-6
 
@@ -46,12 +45,14 @@ class EncoderLayer(nn.Module):
             s2 = self.norm1(src)
             q = with_pos(s2, pos)
             src = src + drop(self.self_attn(q, q, s2, key_padding_mask))
-            s2 = self.linear2(drop(F.relu(self.linear1(self.norm2(src)))))
+            s2 = feed_forward(self.norm2(src), self.linear1, self.linear2,
+                              drop)
             return src + drop(s2)
         q = with_pos(src, pos)
         src = self.norm1(src + drop(self.self_attn(q, q, src,
                                                    key_padding_mask)))
-        s2 = self.linear2(drop(F.relu(self.linear1(src))))
+        s2 = feed_forward(src, self.linear1, self.linear2,
+                              drop)
         return self.norm2(src + drop(s2))
 
 
@@ -82,7 +83,8 @@ class DecoderLayer(nn.Module):
             tgt = tgt + drop(self.multihead_attn(
                 with_pos(t2, query_pos), mem_k, memory,
                 memory_key_padding_mask))
-            t2 = self.linear2(drop(F.relu(self.linear1(self.norm3(tgt)))))
+            t2 = feed_forward(self.norm3(tgt), self.linear1, self.linear2,
+                              drop)
             return tgt + drop(t2)
         q = with_pos(tgt, query_pos)
         tgt = self.norm1(tgt + drop(self.self_attn(q, q, tgt,
@@ -90,7 +92,8 @@ class DecoderLayer(nn.Module):
         tgt = self.norm2(tgt + drop(self.multihead_attn(
             with_pos(tgt, query_pos), mem_k, memory,
             memory_key_padding_mask)))
-        t2 = self.linear2(drop(F.relu(self.linear1(tgt))))
+        t2 = feed_forward(tgt, self.linear1, self.linear2,
+                              drop)
         return self.norm3(tgt + drop(t2))
 
 

@@ -34,7 +34,8 @@ from torch.nn import functional as F
 
 from ..ops.window_attn import window_layer
 from ..ops.linear import dense
-from .attention import Dropout, MultiHeadAttention
+from ..parallel import tp as tensor_parallel
+from .attention import Dropout, MultiHeadAttention, feed_forward
 
 LN_EPS = 1e-6
 
@@ -111,10 +112,8 @@ class WindowedEncoderLayer(nn.Module):
         training path, differentiable end to end."""
         q = xw + pw
         x = self.norm1(xw + self.drop(self.self_attn(q, q, xw, kp)))
-        hidden = self.drop(torch.relu(
-            dense(x, self.linear1.weight, self.linear1.bias)))
-        return self.norm2(x + self.drop(
-            dense(hidden, self.linear2.weight, self.linear2.bias)))
+        return self.norm2(x + self.drop(feed_forward(
+            x, self.linear1, self.linear2, self.drop, rounded=True)))
 
     def forward(self, levels: List[torch.Tensor],
                 ctx: Tuple[torch.Tensor, torch.Tensor]
@@ -135,7 +134,11 @@ class WindowedEncoderLayer(nn.Module):
         if self.training:
             x = self._train_forward(xw, ctx[0], ctx[1])
         else:
-            x = window_layer(xw, ctx[0], ctx[1], self)
+            # kernel #8 takes whole weights: a tensor-parallel layer
+            # gathers them first
+            whole = self if tensor_parallel.shard_of(self.linear1) is None \
+                else tensor_parallel.gathered(self)
+            x = window_layer(xw, ctx[0], ctx[1], whole)
         out, off = [], 0
         for b, h0, w0, hp, wp, n in meta:
             a = window_merge(x[off:off + n], b, hp, wp, win)[:, :h0, :w0]
